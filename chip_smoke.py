@@ -11,18 +11,31 @@ path through the user entry point ``run_grid`` (the paper's §VI grid:
 (the scan trajectory) and K2 (the sort-free top-m solve at K = 10^4) with
 the launch counters reset just before and read just after.
 
+Then the LM serving path at gemma2-27b's full width and depth (46 layers,
+27.2e9 random bf16 parameters from a seed): K4 and K5 against their plain
+versions at the model's shapes, ``make_prefill_step`` on one 8192-token
+prompt through K4 (one launch per layer; the kernel path held to the
+plain path at 2 full-width layers), and the ``launch/serve.py`` loop
+(batch 4, prompt 32, 32 new tokens), after which K5 runs on every
+layer's cache at the last position, on the inputs the decode step gave
+its attention there, and is held to what that attention computed.
+
 Each phase prints one JSON line; any failed check raises and the script
 exits non-zero.  The last lines are the card's name and power limit, the
 ``kernels`` record (time on the card, plain version's time, bound, launches
-and error of every kernel), and ``{"ok": true, "device": {...}}``.  It
+and error of every kernel, and the time of one library call computing the
+same function where there is one: ``flex_attention`` for K4 and K5), and
+``{"ok": true, "device": {...}}``.  It
 needs a CUDA device and the repository's ``src/`` beside it, and imports
 nothing of JAX.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -38,9 +51,32 @@ W_RTOL = 2e-4            # P3 objective; also the near-tie margin
 Q_ATOL, Q_RTOL = 1e-6, 1e-5   # next-round queues
 TOPM_B_RTOL, TOPM_B_ATOL = 2e-4, 1e-6   # K2 vs the bisect oracle
 
-# H100 SXM peaks (NVIDIA data sheet): f32 outside the tensor cores, HBM3.
+# H100 SXM peaks (NVIDIA data sheet): f32 outside the tensor cores, dense
+# bf16 on the tensor cores, HBM3.
 PEAK_F32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_HBM_BYTES = 3.35e12
+
+# Attention kernels (bf16 in, f32 inside, bf16 out) vs their plain
+# versions, which round their probabilities to bf16 before the second
+# product: tests/test_kernels.py's bf16 tolerance, |d| <= atol + rtol |plain|
+# (one bf16 ulp of an output near 4 is 2^-5).
+ATT_ATOL = ATT_RTOL = 2e-2
+# Kernel path vs plain path through 2 full-width gemma2 layers in bf16:
+# relative L2 error of the final hidden states and of the logits.  One
+# bf16 rounding is 2^-9 relative; the two paths round attention outputs
+# differently and the difference passes through two residual layers.  At
+# random init the attention branch is a few percent of the residual, so
+# this reading alone cannot see a wrong attention: each layer's attention
+# output is also held, on that layer's own q/k/v, element-wise to
+# ATT_ATOL/ATT_RTOL and in relative L2 to ATT_REL.  The layer's outputs
+# are ~1/sqrt(keys) ~ 0.02, where ATT_ATOL alone admits 100% error; the
+# L2 limit is set by bf16: each output rounds to within 2^-9 relative in
+# both paths and the probabilities round to bf16 in both (about 2e-3 of
+# L2 each), so 1e-2 leaves room.  Planted faults (zeros; the window
+# dropped on a local layer) must fail that test.
+MODEL_REL = 2e-2
+ATT_REL = 1e-2
 
 # Operation counts of the shared device code, counted from
 # csrc/ocean_common.cuh: every add, multiply, compare, select, min/max,
@@ -71,9 +107,9 @@ def ops_sweep(counts, outer, inner):
     return sum(ops_candidate(m, outer, inner) for n in counts for m in range(1, n + 1))
 
 
-def bound_ms(n_bytes, n_ops):
+def bound_ms(n_bytes, n_ops, peak_flops=PEAK_F32_FLOPS):
     t_bytes = n_bytes / PEAK_HBM_BYTES
-    t_ops = n_ops / PEAK_F32_FLOPS
+    t_ops = n_ops / peak_flops
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -159,7 +195,7 @@ def _k1_inputs(torch, np, dev, C, K, seed):
     return scal, rho_sorted.contiguous(), n0
 
 
-def phase_k1(torch, np, dev, C=192, Ks=(10, 100)):
+def phase_k1(torch, np, dev, smi, C=192, Ks=(10, 100)):
     from repro_torch.kernels.ocean_p import (
         INNER_ITERS, OUTER_ITERS, ocean_p_prefix, ocean_p_prefix_plain,
     )
@@ -186,11 +222,11 @@ def phase_k1(torch, np, dev, C=192, Ks=(10, 100)):
             mean_m_star=m_k.mean().item(), ms=ms, plain_ms=plain_ms,
             bound_ms=bms, bound_by=by, ops=ops, bytes=n_bytes,
         )
-    emit({"phase": "k1_ocean_p_prefix", "results": rec})
+    emit({"phase": "k1_ocean_p_prefix", "gpu": smi, "results": rec})
     return rec
 
 
-def phase_k2(torch, np, dev, C=8, K=10_000, top_m=128, block_k=128, oracle_cells=2):
+def phase_k2(torch, np, dev, smi, C=8, K=10_000, top_m=128, block_k=128, oracle_cells=2):
     from repro_torch.core.energy import RadioParams
     from repro_torch.core.selection import _RHO_ZERO_TOL, ocean_p, priorities
     from repro_torch.kernels.ocean_p import (
@@ -258,7 +294,7 @@ def phase_k2(torch, np, dev, C=8, K=10_000, top_m=128, block_k=128, oracle_cells
         w_minus_bisect_w=(got.objective - ref.objective).tolist(),
         ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by, ops=ops, bytes=n_bytes,
     )
-    emit({"phase": "k2_ocean_p_topm", **{k: v for k, v in rec.items()}})
+    emit({"phase": "k2_ocean_p_topm", "gpu": smi, **rec})
     return rec
 
 
@@ -394,7 +430,7 @@ def phase_main(torch, np, dev, smi, T=300, K=10, seeds=64):
         bound_ms=bms, bound_by=by, ops=ops, bytes=n_bytes,
     )
     emit({"phase": "k3_main_path", **out})
-    emit({"phase": "sanity", "mean_energy_per_client_j": e_mean, "budget_h_j": 0.15,
+    emit({"phase": "sanity", "gpu": smi, "mean_energy_per_client_j": e_mean, "budget_h_j": 0.15,
           "ratio": e_mean / 0.15})
     err = max(r["max_abs_err_b"] for r in tf.values())
     return res, out, err, torch.stack(nears).any(-1)
@@ -433,7 +469,7 @@ def phase_scan(torch, dev, smi, res_fused, near_cells, T=300, K=10, seeds=64):
     return out
 
 
-def phase_topm_path(torch, dev, K=10_000, T=4, seeds=8, top_m=128):
+def phase_topm_path(torch, dev, smi, K=10_000, T=4, seeds=8, top_m=128):
     """K2's path: the large-K regime through run_grid with pallas_tiled."""
     from repro_torch.core.energy import RadioParams
     from repro_torch.core.scenario import Scenario
@@ -454,13 +490,360 @@ def phase_topm_path(torch, dev, K=10_000, T=4, seeds=8, top_m=128):
     for f in ("b", "e"):
         check(bool(torch.isfinite(getattr(res, f)).all()), f"top-m path: non-finite {f}")
     check(bool((res.b.sum(-1) <= 1.0 + 1e-4).all()), "top-m path: bandwidth exceeds 1")
-    out = dict(launches={"ocean_p_topm": ocean_p_topm.launches}, wall_s=wall,
+    out = dict(gpu=smi, launches={"ocean_p_topm": ocean_p_topm.launches}, wall_s=wall,
                mean_selected=res.num_selected.float().mean().item(), K=K, T=T, cells=seeds)
     emit({"phase": "k2_topm_path", **out})
     return out
 
 
+# ---------------------------------------------------------------------------
+# the LM serving path: gemma2-27b prefill through K4, decode beside K5
+# ---------------------------------------------------------------------------
+GEMMA = "gemma2-27b"
+
+
+def attn_pairs(S, window):
+    """Unmasked (query, key) pairs of one causal head, with an optional window."""
+    if window is None or window >= S:
+        return S * (S + 1) // 2
+    return window * (window + 1) // 2 + (S - window) * window
+
+
+def rel_err(a, b):
+    a, b = a.float(), b.float()
+    return ((a - b).norm() / b.norm().clamp(min=1e-30)).item()
+
+
+def max_abs(a, b):
+    return (a.float() - b.float()).abs().max().item()
+
+
+def att_close(a, ref):
+    """Max |a - ref| and whether every element is within the attention tolerance."""
+    a, ref = a.float(), ref.float()
+    d = (a - ref).abs()
+    return d.max().item(), bool((d <= ATT_ATOL + ATT_RTOL * ref.abs()).all())
+
+
+def att_layer_reading(a, ref):
+    """One layer's attention output against the plain one: max |d|, the share
+    of elements beyond the element-wise tolerance, relative L2, and whether
+    it passes both the element-wise and the L2 limit."""
+    a, ref = a.float(), ref.float()
+    d = (a - ref).abs()
+    over = (d > ATT_ATOL + ATT_RTOL * ref.abs()).float().mean().item()
+    rel = rel_err(a, ref)
+    return dict(max_abs=d.max().item(), share_over_tol=over, rel_l2=rel,
+                passes=over == 0 and rel <= ATT_REL)
+
+
+@contextlib.contextmanager
+def recorded_calls(module, name, keep):
+    """Replace ``module.name`` by a wrapper that calls it and appends
+    ``keep(args, kwargs, result)`` to the yielded list."""
+    real = getattr(module, name)
+    calls = []
+
+    def wrapper(*args, **kwargs):
+        out = real(*args, **kwargs)
+        calls.append(keep(args, kwargs, out))
+        return out
+
+    setattr(module, name, wrapper)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, real)
+
+
+def flex_library(torch, plain, q, k, v, cap, reps, causal=True, window=None, valid_len=None):
+    """``library_ms``: one ``torch.compile``d ``flex_attention`` call that
+    computes the kernel's function -- the soft-cap as its score_mod, the
+    causal / window / valid-length mask as its block mask, GQA -- on the
+    same q/k/v (B, S, H, Dh), laid out (B, H, S, Dh) beforehand and
+    untimed.  Held against the plain version at the attention tolerance.
+    The port itself never calls it."""
+    from torch.nn.attention.flex_attention import create_block_mask, flex_attention
+
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    sq, sk = qt.shape[2], kt.shape[2]
+
+    def score_mod(score, b, h, qi, ki):
+        return cap * torch.tanh(score / cap)
+
+    def mask_mod(b, h, qi, ki):
+        m = ki >= 0
+        if causal:
+            m = m & (ki <= qi)
+        if window is not None:
+            m = m & (qi - ki < window)
+        if valid_len is not None:
+            m = m & (ki < valid_len)
+        return m
+
+    try:
+        block_mask = create_block_mask(mask_mod, None, None, sq, sk, device=q.device)
+        flex = torch.compile(flex_attention, dynamic=False)
+
+        def run():
+            return flex(qt, kt, vt, score_mod=score_mod, block_mask=block_mask, enable_gqa=True)
+
+        out = run().transpose(1, 2)
+        torch.cuda.synchronize()
+    except Exception as exc:  # a library that does not build is a reading, not a fault of the port
+        return dict(library_ms=None, library_error=repr(exc)[:400])
+    err, ok = att_close(out, plain)
+    check(ok, f"flex_attention vs plain beyond tolerance (max |d| = {err}): not the same function")
+    return dict(library_ms=gpu_ms(torch, run, reps), library_max_abs_err_vs_plain=err)
+
+
+def phase_k4(torch, dev, smi, B=1, S=8192, H=32, KV=16, Dh=128, cap=50.0, window=4096):
+    """K4 against its plain version at gemma2-27b's layer shape."""
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(4)
+    bf = torch.bfloat16
+    q = (torch.randn((B, S, H, Dh), generator=g, device=dev) * 4.0).to(bf)
+    k = torch.randn((B, S, KV, Dh), generator=g, device=dev).to(bf)
+    v = torch.randn((B, S, KV, Dh), generator=g, device=dev).to(bf)
+    rec = {}
+    for label, win in (("global", None), ("local", window)):
+        def run(fn=flash_attention, win=win):
+            return fn(q, k, v, causal=True, window=win, logit_cap=cap)
+
+        out, plain = run(), run(flash_attention_plain)
+        check(bool(torch.isfinite(out.float()).all()), f"K4 {label}: non-finite output")
+        err, ok = att_close(out, plain)
+        check(ok, f"K4 {label}: out vs plain beyond tolerance (max |d| = {err})")
+        ms = gpu_ms(torch, run, 10)
+        plain_ms = gpu_ms(torch, lambda: run(flash_attention_plain), 2)
+        flops = 4 * B * H * Dh * attn_pairs(S, win)
+        n_bytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+        bms, by = bound_ms(n_bytes, flops, PEAK_BF16_FLOPS)
+        lib = flex_library(torch, plain, q, k, v, cap, 10, window=win)
+        rec[label] = dict(window=win, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                          bound_ms=bms, bound_by=by, flops=flops, bytes=n_bytes,
+                          tflop_per_s=flops / ms / 1e9, **lib)
+    # A second yardstick: SDPA on the same q/k/v, causal, WITHOUT soft-cap
+    # or window (SDPA cannot soft-cap), so not the same function.
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qt = q.transpose(1, 2)
+    kt = k.repeat_interleave(H // KV, dim=2).transpose(1, 2)
+    vt = v.repeat_interleave(H // KV, dim=2).transpose(1, 2)
+    sdpa_ms = gpu_ms(torch, lambda: sdpa(qt, kt, vt, is_causal=True), 10)
+    out = dict(gpu=smi, shape=dict(B=B, S=S, H=H, KV=KV, Dh=Dh, dtype="bfloat16", softcap=cap),
+               results=rec, sdpa_causal_no_softcap_no_window_ms=sdpa_ms)
+    emit({"phase": "k4_flash", **out})
+    return out
+
+
+def phase_k5_long(torch, dev, smi, B=4, S=8192, H=32, KV=16, Dh=128, valid=8000, cap=50.0):
+    """K5 against its plain version on a long cache."""
+    from repro_torch.kernels.decode_attention import decode_attention, decode_attention_plain
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(5)
+    bf = torch.bfloat16
+    q = (torch.randn((B, H, Dh), generator=g, device=dev) * 4.0).to(bf)
+    kc = torch.randn((B, S, KV, Dh), generator=g, device=dev).to(bf)
+    vc = torch.randn((B, S, KV, Dh), generator=g, device=dev).to(bf)
+    vl = torch.tensor(valid, device=dev)
+    out = decode_attention(q, kc, vc, vl, logit_cap=cap)
+    plain = decode_attention_plain(q, kc, vc, vl, logit_cap=cap)
+    err, ok = att_close(out, plain)
+    check(ok, f"K5 long cache: out vs plain beyond tolerance (max |d| = {err})")
+    ms = gpu_ms(torch, lambda: decode_attention(q, kc, vc, vl, logit_cap=cap), 50)
+    plain_ms = gpu_ms(torch, lambda: decode_attention_plain(q, kc, vc, vl, logit_cap=cap), 3)
+    flops = 4 * B * H * valid * Dh
+    n_bytes = 2 * (2 * B * valid * KV * Dh + 2 * q.numel())
+    bms, by = bound_ms(n_bytes, flops, PEAK_BF16_FLOPS)
+    lib = flex_library(torch, plain[:, None], q[:, None], kc, vc, cap, 50, causal=False,
+                       valid_len=valid)
+    # A second yardstick: SDPA over the valid slots, WITHOUT the soft-cap.
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qt = q[:, :, None]
+    kt = kc[:, :valid].repeat_interleave(H // KV, dim=2).transpose(1, 2)
+    vt = vc[:, :valid].repeat_interleave(H // KV, dim=2).transpose(1, 2)
+    sdpa_ms = gpu_ms(torch, lambda: sdpa(qt, kt, vt), 50)
+    rec = dict(gpu=smi, shape=dict(B=B, S=S, H=H, KV=KV, Dh=Dh, valid_len=valid,
+                                   dtype="bfloat16", softcap=cap),
+               max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+               flops=flops, bytes=n_bytes, gb_per_s=n_bytes / ms / 1e6,
+               sdpa_no_softcap_ms=sdpa_ms, **lib)
+    emit({"phase": "k5_long_cache", **rec})
+    return rec
+
+
+def profile_call(torch, fn):
+    """Device time by kernel over one call of ``fn`` (torch.profiler)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = []
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:  # kernels only: CPU ops would count them twice
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0)
+        if us > 0:
+            rows.append((us, e.key, e.count))
+    rows.sort(reverse=True)
+    busy = sum(r[0] for r in rows) / 1e6
+    return dict(wall_s=wall, device_busy_s=busy, idle_share=max(0.0, 1 - busy / wall),
+                top=[dict(kernel=k[:90], ms=us / 1e3, calls=c) for us, k, c in rows[:10]])
+
+
+def phase_prefill(torch, dev, smi, B=1, S=8192, seed=0, check_layers=2):
+    """gemma2-27b at full width and depth through make_prefill_step."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models import build_model
+
+    cfg = get_config(GEMMA)
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed + 1)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (B, S), generator=g, device=dev)}
+
+    # Kernel path vs plain path on the same weights (per-tensor seeding
+    # gives the first layers of the full model), 2 layers of full width:
+    # each layer's attention output on its own q/k/v, element-wise, with
+    # two planted faults that must fail the same test; then the hidden
+    # states and logits end to end, with the window-dropped model's reading.
+    small = build_model(dataclasses.replace(cfg, num_layers=check_layers), dev).init(seed)
+    with torch.no_grad():
+        with recorded_calls(attn_mod, "flash_attention", lambda a, kw, out: (a, kw, out)) as calls:
+            h_k, _ = small(batch["tokens"])
+        per_layer = []
+        for i, (layer, (args, kw, out)) in enumerate(zip(small.layers, calls)):
+            plain = flash_attention_plain(*args, **kw)
+            rd = att_layer_reading(out, plain)
+            check(rd["passes"], f"prefill: layer {i} ({layer.kind}) attention vs plain {rd}")
+            faults = {"zeros": torch.zeros_like(plain)}
+            if kw["window"] is not None:
+                faults["no_window"] = flash_attention_plain(*args, **{**kw, "window": None})
+            controls = {name: att_layer_reading(bad, plain) for name, bad in faults.items()}
+            for name, c in controls.items():
+                check(not c["passes"], f"prefill: planted fault {name} passes on layer {i}: {c}")
+            per_layer.append(dict(kind=layer.kind, **rd, controls=controls))
+            del plain, faults
+        del calls
+        h_p, _ = small(batch["tokens"], plain_attention=True)
+        lg_k, lg_p = small.logits(h_k[:, -1:]), small.logits(h_p[:, -1:])
+        small.cfg = dataclasses.replace(small.cfg, sliding_window=S)  # the window dropped
+        h_c, _ = small(batch["tokens"], plain_attention=True)
+        lg_c = small.logits(h_c[:, -1:])
+    torch.cuda.synchronize()
+    cmp = dict(layers=check_layers, per_layer=per_layer,
+               rel_hidden=rel_err(h_k, h_p), rel_logits=rel_err(lg_k, lg_p),
+               max_abs_logits=max_abs(lg_k, lg_p), tol_rel=MODEL_REL,
+               same_argmax=bool(torch.equal(lg_k.argmax(-1), lg_p.argmax(-1))),
+               no_window_rel_hidden=rel_err(h_c, h_p), no_window_rel_logits=rel_err(lg_c, lg_p))
+    check(cmp["rel_hidden"] <= MODEL_REL, f"prefill: kernel vs plain hidden {cmp}")
+    check(cmp["rel_logits"] <= MODEL_REL, f"prefill: kernel vs plain logits {cmp}")
+    del small, h_k, h_p, h_c
+    torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build_model(cfg, dev).init(seed)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    step = make_prefill_step(model, cfg)
+    step(batch)  # warm-up
+    torch.cuda.synchronize()
+    flash_attention.launches = 0
+    t0 = time.perf_counter()
+    logits = step(batch)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = flash_attention.launches
+    check(launches == cfg.num_layers, f"prefill: K4 launched {launches} times, not {cfg.num_layers}")
+    check(tuple(logits.shape) == (B, 1, cfg.vocab), f"prefill: logits {tuple(logits.shape)}")
+    check(bool(torch.isfinite(logits).all()), "prefill: non-finite logits")
+    check(logits.abs().max().item() <= cfg.final_logit_softcap, "prefill: logits above the soft-cap")
+    try:
+        prof = profile_call(torch, lambda: step(batch))
+    except Exception as exc:  # the profiler is a reading, not a check
+        prof = {"error": repr(exc)}
+    out = dict(gpu=smi, arch=cfg.name, layers=cfg.num_layers, d_model=cfg.d_model,
+               params=n_params, B=B, S=S, init_s=init_s, prefill_s=wall,
+               prefill_tokens_per_s=B * S / wall, k4_launches=launches,
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+               kernel_vs_plain=cmp, profile=prof)
+    emit({"phase": "prefill_main", **out})
+    return model, out
+
+
+def phase_serve(torch, dev, smi, model, B=4, prompt=32, gen=32, seed=0):
+    """The launch/serve.py loop at full width, then K5 on every layer's
+    cache at the last position against the decode path."""
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch.serve import generate
+    from repro_torch.launch.steps import make_serve_step
+    from repro_torch.models import attention as attn_mod
+
+    cfg = model.cfg
+    generate(model, cfg, batch=B, prompt_len=4, gen=2, temperature=0.0, seed=seed)  # warm-up
+    decode_attention.launches = 0
+    flash_attention.launches = 0
+    r = generate(model, cfg, batch=B, prompt_len=prompt, gen=gen, temperature=0.0, seed=seed)
+    toks = r["tokens"]
+    check(tuple(toks.shape) == (B, gen), f"serve: tokens {tuple(toks.shape)}")
+    check(bool(((toks >= 0) & (toks < cfg.vocab)).all()), "serve: token out of range")
+    check(bool(torch.isfinite(r["logits"]).all()), "serve: non-finite logits")
+
+    pos = prompt + gen - 1   # the last slot of the caches
+    serve = make_serve_step(model, cfg)
+    try:
+        prof = profile_call(torch, lambda: serve(r["cache"], toks[:, -1:], pos))
+    except Exception as exc:  # the profiler is a reading, not a check
+        prof = {"error": repr(exc)}
+    # attention_decode's attention is K5's plain version at valid_len =
+    # min(pos + 1, C); record its inputs and output in one more step.
+    def keep(args, kw, out):
+        q, k, v, vl = args
+        return q.contiguous(), k.clone(), v.clone(), vl, kw["logit_cap"], out
+
+    with torch.no_grad(), recorded_calls(attn_mod, "decode_attention_plain", keep) as calls:
+        model.decode_step(r["cache"], toks[:, -1:], pos)
+    check(len(calls) == cfg.num_layers, f"serve: {len(calls)} decode attentions recorded")
+    err_decode, ok_decode = 0.0, True
+    for q, k, v, vl, cap, seen in calls:
+        e, ok = att_close(decode_attention(q, k, v, vl, logit_cap=cap), seen)
+        err_decode, ok_decode = max(err_decode, e), ok_decode and ok
+    torch.cuda.synchronize()
+    launches = {"decode_attention": decode_attention.launches,
+                "flash_attention": flash_attention.launches}
+    check(launches["decode_attention"] == len(calls), f"serve: K5 launches {launches}")
+    check(ok_decode, f"serve: K5 vs attention_decode beyond tolerance (max |d| = {err_decode})")
+    out = dict(gpu=smi, arch=cfg.name, B=B, prompt_len=prompt, gen=gen,
+               prefill_by_decode_s=r["prefill_s"], decode_s=r["decode_s"],
+               decode_steps=r["decode_steps"],
+               decode_tokens_per_s=B * r["decode_steps"] / r["decode_s"],
+               ms_per_decode_step=1e3 * r["decode_s"] / r["decode_steps"],
+               launches=launches, k5_pos=pos, k5_layers=len(calls),
+               k5_valid_len={layer.kind: c[3] for layer, c in zip(model.layers, calls)},
+               k5_max_abs_err_vs_attention_decode=err_decode,
+               sample=toks[0, :8].tolist(), profile_one_step=prof)
+    emit({"phase": "serve_decode", **out})
+    return out
+
+
 def main() -> int:
+    # torch.compile (the flex_attention reading) caches inside the checkout.
+    os.environ.setdefault("TORCHINDUCTOR_CACHE_DIR", str(ROOT / "build" / "inductor"))
+    os.environ.setdefault("TRITON_CACHE_DIR", str(ROOT / "build" / "triton"))
     try:
         import torch
     except ImportError:
@@ -482,11 +865,20 @@ def main() -> int:
     dev = torch.device("cuda")
 
     smi = phase_card(torch)
-    k1 = phase_k1(torch, np, dev)
-    k2 = phase_k2(torch, np, dev)
+    k1 = phase_k1(torch, np, dev, smi)
+    k2 = phase_k2(torch, np, dev, smi)
     res, main_out, k3_err, near_cells = phase_main(torch, np, dev, smi)
     scan = phase_scan(torch, dev, smi, res, near_cells)
-    topm = phase_topm_path(torch, dev)
+    topm = phase_topm_path(torch, dev, smi)
+    del res
+    torch.cuda.empty_cache()
+    k4 = phase_k4(torch, dev, smi)
+    k5 = phase_k5_long(torch, dev, smi)
+    torch.cuda.empty_cache()
+    model, prefill = phase_prefill(torch, dev, smi)
+    serve = phase_serve(torch, dev, smi, model)
+    del model
+    torch.cuda.empty_cache()
 
     k1_main = k1[10]
     kernels = [
@@ -506,6 +898,20 @@ def main() -> int:
              launches=main_out["launches"]["ocean_traj"], max_abs_err=k3_err,
              ms=main_out["k3_ms"], plain_ms=main_out["k3_plain_ms"],
              bound_ms=main_out["bound_ms"], bound_by=main_out["bound_by"], library_ms=None),
+        dict(name="flash_attention", route="cuda", source="src/repro_torch/csrc/flash_attention.cu",
+             replaces="src/repro/kernels/flash_attention.py:32",
+             launches=prefill["k4_launches"],
+             max_abs_err=max(r["max_abs_err"] for r in k4["results"].values()),
+             ms=k4["results"]["global"]["ms"], plain_ms=k4["results"]["global"]["plain_ms"],
+             bound_ms=k4["results"]["global"]["bound_ms"],
+             bound_by=k4["results"]["global"]["bound_by"],
+             library_ms=k4["results"]["global"]["library_ms"]),
+        dict(name="decode_attention", route="cuda", source="src/repro_torch/csrc/decode_attention.cu",
+             replaces="src/repro/kernels/decode_attention.py:27",
+             launches=serve["launches"]["decode_attention"],
+             max_abs_err=max(k5["max_abs_err"], serve["k5_max_abs_err_vs_attention_decode"]),
+             ms=k5["ms"], plain_ms=k5["plain_ms"], bound_ms=k5["bound_ms"],
+             bound_by=k5["bound_by"], library_ms=k5["library_ms"]),
     ]
     print(smi, flush=True)
     emit({"kernels": kernels})

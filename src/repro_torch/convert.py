@@ -1,18 +1,20 @@
-"""Carry configuration and state between the JAX reference and the port.
+"""Carry configuration, state and weights between the JAX reference and the port.
 
-This system has no weights: what crosses over is a scenario (plain JSON
-data from the reference's ``Scenario.to_dict()``) and OCEAN state or
-decisions as numpy arrays.  The tests feed both packages the same inputs
-through these functions.
+For OCEAN what crosses over is a scenario (plain JSON data from the
+reference's ``Scenario.to_dict()``) and OCEAN state or decisions as numpy
+arrays; for the decoder LM it is the reference's parameter tree, as numpy
+arrays.  The tests feed both packages the same inputs through these
+functions.
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Iterator, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch._device import resolve_device
+from repro_torch.configs.base import ModelConfig
 from repro_torch.core.ocean import OceanState, RoundDecision
 from repro_torch.core.scenario import Scenario
 
@@ -47,3 +49,44 @@ def decisions_to_numpy(decs: RoundDecision) -> Dict[str, np.ndarray]:
         for f in decs._fields
         if getattr(decs, f) is not None
     }
+
+
+def _tensor(a) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":  # ml_dtypes' bfloat16: exact through float32
+        return torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+    return torch.from_numpy(np.array(a))  # a writable copy
+
+
+def _flatten(tree: Dict[str, Any], prefix: str) -> Iterator[Tuple[str, Any]]:
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _flatten(v, f"{prefix}{k}.")
+        else:
+            yield f"{prefix}{k}", v
+
+
+def decoder_params_from_reference(params: Dict[str, Any], cfg: ModelConfig) -> Dict[str, torch.Tensor]:
+    """A ``DecoderModel`` state dict from the reference's parameters.
+
+    ``params`` is ``repro.models.DecoderModel.init``'s tree with numpy
+    leaves.  Layer i of the reference lives at ``params["blocks"][j]``,
+    index ``sb`` of every leaf's leading (superblock) axis, where
+    ``sb, j = divmod(i, cfg.block_len)``, or, past the last whole
+    superblock, at ``params["rem"][i - num_superblocks * block_len]``.
+    Names follow the reference's keys (``layers.<i>.attn.wq`` ...).
+    """
+    bl, nsb = cfg.block_len, cfg.num_superblocks
+    out = {"embed": _tensor(params["embed"])}
+    out.update((k, _tensor(v)) for k, v in _flatten(params["final_norm"], "final_norm."))
+    if "lm_head" in params:
+        out["lm_head"] = _tensor(params["lm_head"])
+    for i in range(cfg.num_layers):
+        prefix = f"layers.{i}."
+        if i < nsb * bl:
+            sb, j = divmod(i, bl)
+            leaves = ((k, v[sb]) for k, v in _flatten(params["blocks"][j], prefix))
+        else:
+            leaves = _flatten(params["rem"][i - nsb * bl], prefix)
+        out.update((k, _tensor(v)) for k, v in leaves)
+    return out

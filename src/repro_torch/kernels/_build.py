@@ -4,18 +4,22 @@ Each ``csrc/<name>.cu`` compiles on its own into a shared library with a
 plain C interface (no PyTorch headers, so a build takes seconds):
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -fmad=false -Xptxas -v \
+         -Xcompiler -fPIC -Xptxas -v [per-source flags] \
          -o build/repro_torch_kernels/<name>-<hash>.so csrc/<name>.cu
 
 ``--use_fast_math`` is deliberately absent: it turns ``exp2f`` into
 ``ex2.approx`` with flush-to-zero, which breaks parity with the plain
-PyTorch versions near the +-80 exponent clip.  ``-fmad=false`` keeps
+PyTorch versions near the +-80 exponent clip.  The OCEAN sources
+(``ocean_p``, ``ocean_traj``) add ``-fmad=false``, which keeps
 ``a * b + c`` as two rounded operations, as PyTorch's one-op-per-kernel
 plain versions compute it: with contraction, last-bit differences steer
-the Newton iterations onto other safeguard branches and the kernels drift
-from their plain versions by far more than an ulp.  The output name carries a
-hash of the sources and flags, so an edited source is rebuilt, never
-reused stale.  The build directory is ``build/repro_torch_kernels/`` at
+the Newton iterations onto other safeguard branches and those kernels
+drift from their plain versions by far more than an ulp.  The attention
+kernels (``flash_attention``, ``decode_attention``) have no such branch
+points: a softmax is continuous in its inputs, so an ulp of contraction
+moves the output by an ulp, and they compile with contraction on.  The
+output name carries a hash of the sources and flags, so an edited source
+is rebuilt, never reused stale.  The build directory is ``build/repro_torch_kernels/`` at
 the root of the checkout, or ``$REPRO_TORCH_BUILD_DIR``.  Building happens
 at first use, never at import.
 """
@@ -29,15 +33,18 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Optional
+
+import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("ocean_p", "ocean_traj")
+SOURCES = ("ocean_p", "ocean_traj", "flash_attention", "decode_attention")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-fmad=false",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",  # report registers and shared memory per kernel
 )
+SOURCE_FLAGS = {"ocean_p": ("-fmad=false",), "ocean_traj": ("-fmad=false",)}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
@@ -66,12 +73,16 @@ def nvcc_path() -> str:
     )
 
 
+def nvcc_flags(name: str) -> tuple:
+    return NVCC_FLAGS + SOURCE_FLAGS.get(name, ())
+
+
 def _lib_path(name: str) -> Path:
     h = hashlib.sha256()
     for f in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
         h.update(f.name.encode())
         h.update(f.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(nvcc_flags(name)).encode())
     return build_dir() / f"{name}-{h.hexdigest()[:16]}.so"
 
 
@@ -90,7 +101,7 @@ def build(names: Iterable[str] = SOURCES):
         if target.exists():
             continue
         tmp = target.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [nvcc_path(), *nvcc_flags(name), "-o", str(tmp), str(CSRC / f"{name}.cu")]
         procs[name] = (
             subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
@@ -131,3 +142,26 @@ def check(err: int, lib: ctypes.CDLL, what: str) -> None:
         fn.restype = ctypes.c_char_p
         fn.argtypes = [ctypes.c_int]
         raise RuntimeError(f"{what}: CUDA error {err}: {fn(err).decode()}")
+
+
+def launch_target(*tensors) -> str:
+    """``"cpu"`` or ``"cuda"``: the one device all ``tensors`` share.
+
+    Raises for tensors on different devices or on any other device type.
+    """
+    devs = {t.device.type for t in tensors}
+    if len(devs) != 1 or len({t.device for t in tensors}) != 1:
+        raise ValueError(f"inputs must share one device; got {devs}")
+    dev = devs.pop()
+    if dev not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev!r}")
+    return dev
+
+
+def stream() -> ctypes.c_void_p:
+    """PyTorch's current CUDA stream, for a launch function's last argument."""
+    return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+
+
+def ptr(t: Optional[torch.Tensor]) -> ctypes.c_void_p:
+    return ctypes.c_void_p(0 if t is None else t.data_ptr())

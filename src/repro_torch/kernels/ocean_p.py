@@ -34,6 +34,9 @@ from repro_torch.core.energy import (
     f_shannon_prime,
     f_shannon_second,
 )
+from repro_torch.kernels._build import launch_target as _launch_target
+from repro_torch.kernels._build import ptr as _ptr
+from repro_torch.kernels._build import stream as _stream
 
 NEG_INF = -1e30
 _RHO_ZERO_TOL = 1e-30
@@ -47,24 +50,6 @@ def _check_f32(name, x, ndim):
             f"{name} must be a contiguous float32 tensor of rank {ndim}; got "
             f"{x.dtype} of shape {tuple(x.shape)}"
         )
-
-
-def _launch_target(*tensors) -> str:
-    devs = {t.device.type for t in tensors}
-    if len(devs) != 1 or len({t.device for t in tensors}) != 1:
-        raise ValueError(f"inputs must share one device; got {devs}")
-    dev = devs.pop()
-    if dev not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {dev!r}")
-    return dev
-
-
-def _stream():
-    return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
-
-
-def _ptr(t: Optional[torch.Tensor]):
-    return ctypes.c_void_p(0 if t is None else t.data_ptr())
 
 
 # --------------------------------------------------------------------------
