@@ -20,12 +20,26 @@ plain path at 2 full-width layers), and the ``launch/serve.py`` loop
 layer's cache at the last position, on the inputs the decode step gave
 its attention there, and is held to what that attention computed.
 
+Then the recurrent LMs: K7 and K6 against their plain versions at the
+rwkv6 prefill shape (8 x 8192, 32 heads of 64) and at one 4096-channel
+block of jamba's Mamba mixer; rwkv6-1.6b at full width and depth (24
+layers, 1.58e9 parameters) through ``make_prefill_step`` on 8 x 8192
+tokens (K7 once per layer; each of the first 2 layers' K7 call held to
+the plain version with planted faults, the kernel path to the plain
+path, and the float32 prefill to the token-by-token decode of a
+256-token prompt) and the serve loop; jamba-1.5-large-398b at full width
+cut to its first 5 layers (24.05e9 parameters) through
+``make_prefill_step`` on 1 x 8192 tokens (K6 once per Mamba layer and
+4096-channel block, K4 on the attention layer, every call held to its
+plain version, the kernel path to the plain path) and the serve loop.
+
 Each phase prints one JSON line; any failed check raises and the script
 exits non-zero.  The last lines are the card's name and power limit, the
 ``kernels`` record (time on the card, plain version's time, bound, launches
 and error of every kernel, and the time of one library call computing the
-same function where there is one: ``flex_attention`` for K4 and K5), and
-``{"ok": true, "device": {...}}``.  It
+same function where there is one: ``flex_attention`` for K4 and K5; K7
+also carries ``yardstick_ms``, the JAX package's chunked matrix form of
+the WKV scan in eager PyTorch), and ``{"ok": true, "device": {...}}``.  It
 needs a CUDA device and the repository's ``src/`` beside it, and imports
 nothing of JAX.
 """
@@ -77,6 +91,23 @@ ATT_ATOL = ATT_RTOL = 2e-2
 # dropped on a local layer) must fail that test.
 MODEL_REL = 2e-2
 ATT_REL = 1e-2
+
+# K7 (WKV) and K6 (selective scan): float32 kernels vs float32 plain
+# versions, which differ in summation order and FMA contraction.
+# tests/test_kernels.py's tolerances: 5e-4 for the WKV scan, 2e-4 for the
+# selective scan.  The WKV state at the model's decays (w ~ 0.995) sums
+# ~200 steps, so its rounding is of the size of the typical output even
+# where an output cancels to near 0: |d| <= WKV_TOL (|plain| + rms(plain)).
+# The selective scan: |d| <= MAMBA_TOL + MAMBA_TOL |plain|.  Both also in
+# relative L2, where float32 rounding gives ~1e-6: SCAN_REL = 1e-4, which
+# the planted faults (u dropped, the decay ignored, C zeroed) must exceed.
+WKV_TOL = 5e-4
+MAMBA_TOL = 2e-4
+SCAN_REL = 1e-4
+# rwkv6 prefill through K7 vs token-by-token decode (plain recurrence) of
+# the same prompt, float32 at full width: relative L2 of the last
+# logits.  Both paths compute the same float32 function in another order.
+CROSS_REL = 1e-4
 
 # Operation counts of the shared device code, counted from
 # csrc/ocean_common.cuh: every add, multiply, compare, select, min/max,
@@ -736,10 +767,10 @@ def phase_prefill(torch, dev, smi, B=1, S=8192, seed=0, check_layers=2):
             per_layer.append(dict(kind=layer.kind, **rd, controls=controls))
             del plain, faults
         del calls
-        h_p, _ = small(batch["tokens"], plain_attention=True)
+        h_p, _ = small(batch["tokens"], plain=True)
         lg_k, lg_p = small.logits(h_k[:, -1:]), small.logits(h_p[:, -1:])
         small.cfg = dataclasses.replace(small.cfg, sliding_window=S)  # the window dropped
-        h_c, _ = small(batch["tokens"], plain_attention=True)
+        h_c, _ = small(batch["tokens"], plain=True)
         lg_c = small.logits(h_c[:, -1:])
     torch.cuda.synchronize()
     cmp = dict(layers=check_layers, per_layer=per_layer,
@@ -840,6 +871,457 @@ def phase_serve(torch, dev, smi, model, B=4, prompt=32, gen=32, seed=0):
     return out
 
 
+# ---------------------------------------------------------------------------
+# the recurrent LMs: rwkv6-1.6b through K7, jamba-1.5-large (5 layers)
+# through K6 and K4
+# ---------------------------------------------------------------------------
+RWKV = "rwkv6-1.6b"
+JAMBA = "jamba-1.5-large-398b"
+JAMBA_LAYERS = 5
+
+
+def scan_reading(a, ref, atol, rtol):
+    """A scan's output against the plain one: max |d|, the share of
+    elements beyond |d| <= atol + rtol |ref|, relative L2, and whether it
+    passes both that and SCAN_REL."""
+    a, ref = a.float(), ref.float()
+    d = (a - ref).abs()
+    over = (d > atol + rtol * ref.abs()).float().mean().item()
+    rel = rel_err(a, ref)
+    return dict(max_abs=d.max().item(), share_over_tol=over, rel_l2=rel,
+                passes=over == 0 and rel <= SCAN_REL)
+
+
+def wkv_reading(a, ref):
+    scale = ref.float().square().mean().sqrt().item()
+    return scan_reading(a, ref, WKV_TOL * scale, WKV_TOL)
+
+
+def mamba_reading(a, ref):
+    return scan_reading(a, ref, MAMBA_TOL, MAMBA_TOL)
+
+
+def wkv_chunk_matrix(torch, r, k, v, w, u, chunk=32):
+    """The JAX package's chunked matrix form of the WKV scan
+    (``repro/models/rwkv.py:80``, ``_wkv_chunk_matrix``) in eager PyTorch,
+    from the zero state: the ``yardstick_ms`` reading of K7.  The port
+    never calls it."""
+    b, t, h, n = r.shape
+    logw = torch.log(w)
+    s = torch.zeros((b, h, n, n), dtype=torch.float32, device=r.device)
+    mask = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool, device=r.device), -1)
+    ys = []
+    for c0 in range(0, t, chunk):
+        rc, kc, vc, lw = (x[:, c0 : c0 + chunk] for x in (r, k, v, logw))
+        c = rc.shape[1]
+        big_l = torch.cumsum(lw, 1)
+        l_prev = big_l - lw
+        l_ref = big_l[:, c // 2]
+        r_dec = rc * torch.exp(l_prev - l_ref[:, None])
+        k_dec = kc * torch.exp(l_ref[:, None] - big_l)
+        a = torch.einsum("bthn,bshn->bhts", r_dec, k_dec).masked_fill(~mask[:c, :c], 0.0)
+        y = torch.einsum("bhts,bshn->bthn", a, vc)
+        y = y + torch.einsum("bthn,bhnm->bthm", rc * torch.exp(l_prev), s)
+        y = y + torch.einsum("bthn,bthn->bth", rc * u, kc)[..., None] * vc
+        l_end = big_l[:, -1]
+        s = torch.exp(l_end)[..., None] * s + torch.einsum(
+            "bshn,bshm->bhnm", kc * torch.exp(l_end[:, None] - big_l), vc)
+        ys.append(y)
+    return torch.cat(ys, 1)
+
+
+def wkv_bound(B, T, H, N):
+    """Bytes: r, k, v, w read once, y written once, u; operations of the
+    kernel per (b, t, h): 5 N^2 (y: N^2 FMAs; state: N^2 products and N^2
+    FMAs; an FMA is 2) + 3 N (the bonus r . (u * k)) + 5 (the sums)."""
+    n_bytes = 4 * (5 * B * T * H * N + H * N)
+    ops = B * T * H * (5 * N * N + 3 * N + 5)
+    return n_bytes, ops
+
+
+def mamba_bound(B, T, Di, Ds):
+    """Bytes: dA, dBu and C read once, y written once; operations per
+    state element and step: one FMA (2), the product with C and its share
+    of the sum over Ds (2)."""
+    n_bytes = 4 * (2 * B * T * Di * Ds + B * T * Ds + B * T * Di)
+    ops = 4 * B * T * Di * Ds
+    return n_bytes, ops
+
+
+def phase_k7(torch, dev, smi, B=8, T=8192, H=32, N=64):
+    """K7 against its plain version at the rwkv6 prefill layer shape."""
+    from repro_torch.kernels.rwkv6_scan import wkv_scan, wkv_scan_plain
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(7)
+    shape = (B, T, H, N)
+    r, k, v = (torch.randn(shape, generator=g, device=dev) for _ in range(3))
+    u = 0.5 * torch.randn((H, N), generator=g, device=dev)
+    decays = {  # rwkv6's range at init, exp(-exp(-6 + U)); tests/test_kernels.py's sigmoid
+        "model": torch.exp(-torch.exp(-6.0 + torch.rand(shape, generator=g, device=dev))),
+        "sigmoid": torch.sigmoid(torch.randn(shape, generator=g, device=dev)),
+    }
+    rec = {}
+    for label, w in decays.items():
+        out = wkv_scan(r, k, v, w, u)
+        plain = wkv_scan_plain(r, k, v, w, u)
+        check(bool(torch.isfinite(out).all()), f"K7 {label}: non-finite output")
+        rd = wkv_reading(out, plain)
+        check(rd["passes"], f"K7 {label}: out vs plain {rd}")
+        rec[label] = rd
+        if label == "model":
+            plain_model = plain
+        del out, plain
+    w = decays["model"]
+    ms = gpu_ms(torch, lambda: wkv_scan(r, k, v, w, u), 10)
+    plain_ms = gpu_ms(torch, lambda: wkv_scan_plain(r, k, v, w, u), 1)
+    n_bytes, ops = wkv_bound(B, T, H, N)
+    bms, by = bound_ms(n_bytes, ops)
+    # yardstick: the JAX package's chunked matrix form, eager, same inputs
+    ym = wkv_chunk_matrix(torch, r, k, v, w, u)
+    y_rel = rel_err(ym, plain_model)
+    check(y_rel <= 1e-3, f"K7 yardstick (chunked matrix form) vs plain: rel L2 {y_rel}")
+    yard_ms = gpu_ms(torch, lambda: wkv_chunk_matrix(torch, r, k, v, w, u), 2)
+    out = dict(gpu=smi, shape=dict(B=B, T=T, H=H, N=N, dtype="float32"), results=rec,
+               max_abs_err=max(x["max_abs"] for x in rec.values()),
+               ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by, bytes=n_bytes, ops=ops,
+               gb_per_s=n_bytes / ms / 1e6, yardstick_ms=yard_ms,
+               yardstick_rel_l2_vs_plain=y_rel, library_ms=None)
+    emit({"phase": "k7_wkv", **out})
+    del r, k, v, u, decays, plain_model, ym
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_k6(torch, dev, smi, B=1, T=8192, Ds=16):
+    """K6 against its plain version at one d_inner block of jamba's mixer
+    (model ranges of dt and A, discretised by the model's own code), and
+    at a ragged T and Di."""
+    from repro_torch.kernels.mamba_scan import mamba_scan, mamba_scan_plain
+    from repro_torch.models.mamba import DISCRETIZE_BLOCK, discretize
+
+    def inputs(seed, t, di):
+        g = torch.Generator(device=dev)
+        g.manual_seed(seed)
+        # dt = softplus(...) lies in [1e-3, 0.1] at init (log-uniform dt_bias)
+        dt = torch.exp(torch.empty((B, t, di), device=dev).uniform_(-6.9078, -2.3026, generator=g))
+        a = -torch.arange(1, Ds + 1, dtype=torch.float32, device=dev).expand(di, Ds)
+        bm = torch.randn((B, t, Ds), generator=g, device=dev)
+        uu = torch.randn((B, t, di), generator=g, device=dev)
+        c = torch.randn((B, t, Ds), generator=g, device=dev)
+        da, dbu = discretize(dt, bm, uu, a)
+        return da, dbu, c
+
+    rec = {}
+    for label, (t, di) in (("ragged", (T - 1, DISCRETIZE_BLOCK - 96)), ("block", (T, DISCRETIZE_BLOCK))):
+        da, dbu, c = inputs(t + di, t, di)
+        out = mamba_scan(da, dbu, c)
+        plain = mamba_scan_plain(da, dbu, c)
+        check(bool(torch.isfinite(out).all()), f"K6 {label}: non-finite output")
+        rd = mamba_reading(out, plain)
+        check(rd["passes"], f"K6 {label}: out vs plain {rd}")
+        rec[label] = dict(T=t, Di=di, **rd)
+        del out, plain
+    ms = gpu_ms(torch, lambda: mamba_scan(da, dbu, c), 10)
+    plain_ms = gpu_ms(torch, lambda: mamba_scan_plain(da, dbu, c), 1)
+    n_bytes, ops = mamba_bound(B, T, DISCRETIZE_BLOCK, Ds)
+    bms, by = bound_ms(n_bytes, ops)
+    out = dict(gpu=smi, shape=dict(B=B, T=T, Di=DISCRETIZE_BLOCK, Ds=Ds, dtype="float32"),
+               results=rec, max_abs_err=max(x["max_abs"] for x in rec.values()),
+               ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by, bytes=n_bytes, ops=ops,
+               gb_per_s=n_bytes / ms / 1e6, library_ms=None)
+    emit({"phase": "k6_mamba", **out})
+    del da, dbu, c
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_rwkv6_prefill(torch, dev, smi, B=8, S=8192, seed=0, check_layers=2, cross_len=256):
+    """rwkv6-1.6b at full width and depth through make_prefill_step."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.rwkv6_scan import wkv_scan, wkv_scan_plain
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models import build_model
+    from repro_torch.models import rwkv as rwkv_mod
+
+    cfg = get_config(RWKV)
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed + 2)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (B, S), generator=g, device=dev)}
+
+    # (a) each of the first 2 layers' K7 output on its own r/k/v/w/u
+    # against the plain version, with planted faults; (b) the kernel path
+    # against the plain path end to end over those layers.
+    small = build_model(dataclasses.replace(cfg, num_layers=check_layers), dev).init(seed)
+
+    def keep(args, kw, out):
+        r, k, v, w, u = args
+        plain = wkv_scan_plain(r, k, v, w, u)
+        rd = wkv_reading(out, plain)
+        faults = {"u_dropped": wkv_scan_plain(r, k, v, w, torch.zeros_like(u)),
+                  "decay_ignored": wkv_scan_plain(r, k, v, torch.ones_like(w), u)}
+        rd["controls"] = {name: wkv_reading(bad, plain) for name, bad in faults.items()}
+        return rd
+
+    with torch.no_grad():
+        with recorded_calls(rwkv_mod, "wkv_scan", keep) as per_layer:
+            h_k, _ = small(batch["tokens"])
+        h_p, _ = small(batch["tokens"], plain=True)
+        lg_k, lg_p = small.logits(h_k[:, -1:]), small.logits(h_p[:, -1:])
+    torch.cuda.synchronize()
+    check(len(per_layer) == check_layers, f"rwkv6 prefill: {len(per_layer)} K7 calls recorded")
+    for i, rd in enumerate(per_layer):
+        check(rd["passes"], f"rwkv6 prefill: layer {i} K7 vs plain {rd}")
+        for name, c in rd["controls"].items():
+            check(not c["passes"], f"rwkv6 prefill: planted fault {name} passes on layer {i}: {c}")
+    cmp = dict(layers=check_layers, per_layer=per_layer, rel_hidden=rel_err(h_k, h_p),
+               rel_logits=rel_err(lg_k, lg_p), max_abs_logits=max_abs(lg_k, lg_p),
+               tol_rel=MODEL_REL, same_argmax=bool(torch.equal(lg_k.argmax(-1), lg_p.argmax(-1))))
+    check(cmp["rel_hidden"] <= MODEL_REL, f"rwkv6 prefill: kernel vs plain hidden {cmp}")
+    check(cmp["rel_logits"] <= MODEL_REL, f"rwkv6 prefill: kernel vs plain logits {cmp}")
+    del small, h_k, h_p
+
+    # (c) prefill through K7 against the token-by-token decode (plain
+    # recurrence) of the same prompt: 2 layers of full width, float32.
+    f32 = build_model(dataclasses.replace(cfg, num_layers=check_layers, dtype="float32"), dev).init(seed)
+    prompt = batch["tokens"][:2, :cross_len]
+    serve = make_serve_step(f32, f32.cfg)
+
+    def decode_all():
+        cache = f32.init_cache(prompt.shape[0], cross_len)
+        for t in range(cross_len):
+            lg, cache = serve(cache, prompt[:, t : t + 1], t)
+        return lg
+
+    with torch.no_grad():
+        pre = make_prefill_step(f32, f32.cfg)({"tokens": prompt})
+        dec = decode_all()
+        saved = [layer.rwkv.u.clone() for layer in f32.layers]
+        for layer in f32.layers:  # planted fault: the bonus u dropped on the decode path
+            layer.rwkv.u.zero_()
+        dec_bad = decode_all()
+        for layer, u in zip(f32.layers, saved):
+            layer.rwkv.u.copy_(u)
+    cross = dict(layers=check_layers, prompt_len=cross_len, batch=prompt.shape[0],
+                 dtype="float32", rel_logits=rel_err(pre, dec), max_abs_logits=max_abs(pre, dec),
+                 tol_rel=CROSS_REL, control_u_dropped_rel_logits=rel_err(pre, dec_bad))
+    check(cross["rel_logits"] <= CROSS_REL, f"rwkv6: prefill vs decode logits {cross}")
+    check(cross["control_u_dropped_rel_logits"] > CROSS_REL,
+          f"rwkv6: the planted fault passes the prefill-vs-decode check {cross}")
+    del f32, pre, dec, dec_bad
+    torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build_model(cfg, dev).init(seed)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    step = make_prefill_step(model, cfg)
+    step(batch)  # warm-up
+    torch.cuda.synchronize()
+    wkv_scan.launches = 0
+    t0 = time.perf_counter()
+    logits = step(batch)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = wkv_scan.launches
+    check(launches == cfg.num_layers, f"rwkv6 prefill: K7 launched {launches} times, not {cfg.num_layers}")
+    check(tuple(logits.shape) == (B, 1, cfg.vocab), f"rwkv6 prefill: logits {tuple(logits.shape)}")
+    check(bool(torch.isfinite(logits).all()), "rwkv6 prefill: non-finite logits")
+    try:
+        prof = profile_call(torch, lambda: step(batch))
+    except Exception as exc:  # the profiler is a reading, not a check
+        prof = {"error": repr(exc)}
+    out = dict(gpu=smi, arch=cfg.name, layers=cfg.num_layers, d_model=cfg.d_model,
+               params=n_params, B=B, S=S, init_s=init_s, prefill_s=wall,
+               prefill_tokens_per_s=B * S / wall, k7_launches=launches,
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+               kernel_vs_plain=cmp, prefill_vs_decode=cross, profile=prof)
+    emit({"phase": "rwkv6_prefill", **out})
+    return model, out
+
+
+def phase_lm_serve(torch, smi, model, name, B=4, prompt=32, gen=32, seed=0):
+    """The launch/serve.py loop at full width: decode tokens/s."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.mamba_scan import mamba_scan
+    from repro_torch.kernels.rwkv6_scan import wkv_scan
+    from repro_torch.launch.serve import generate
+    from repro_torch.launch.steps import make_serve_step
+
+    cfg = model.cfg
+    generate(model, cfg, batch=B, prompt_len=4, gen=2, temperature=0.0, seed=seed)  # warm-up
+    for fn in (flash_attention, mamba_scan, wkv_scan):
+        fn.launches = 0
+    r = generate(model, cfg, batch=B, prompt_len=prompt, gen=gen, temperature=0.0, seed=seed)
+    toks = r["tokens"]
+    check(tuple(toks.shape) == (B, gen), f"{name}: tokens {tuple(toks.shape)}")
+    check(bool(((toks >= 0) & (toks < cfg.vocab)).all()), f"{name}: token out of range")
+    check(bool(torch.isfinite(r["logits"]).all()), f"{name}: non-finite logits")
+    serve = make_serve_step(model, cfg)
+    try:
+        prof = profile_call(torch, lambda: serve(r["cache"], toks[:, -1:], prompt + gen - 1))
+    except Exception as exc:  # the profiler is a reading, not a check
+        prof = {"error": repr(exc)}
+    out = dict(gpu=smi, arch=cfg.name, layers=cfg.num_layers, B=B, prompt_len=prompt, gen=gen,
+               prefill_by_decode_s=r["prefill_s"], decode_s=r["decode_s"],
+               decode_steps=r["decode_steps"],
+               decode_tokens_per_s=B * r["decode_steps"] / r["decode_s"],
+               ms_per_decode_step=1e3 * r["decode_s"] / r["decode_steps"],
+               kernel_launches={"wkv_scan": wkv_scan.launches, "mamba_scan": mamba_scan.launches,
+                                "flash_attention": flash_attention.launches},
+               sample=toks[0, :8].tolist(), profile_one_step=prof)
+    emit({"phase": name, **out})
+    return out
+
+
+def routing_differs(calls_a, calls_b):
+    """(B, S) bool: tokens that two runs route differently (expert or
+    capacity drop) in any MoE layer."""
+    diff = None
+    for (ea, ka), (eb, kb) in zip(calls_a, calls_b):
+        b, s, k = ea.shape
+        d = (ea != eb).any(-1) | (ka != kb).view(b, s, k).any(-1)
+        diff = d if diff is None else diff | d
+    return diff
+
+
+def phase_jamba_prefill(torch, dev, smi, B=1, S=8192, seed=0):
+    """jamba-1.5-large cut to its first 5 layers, full width, through
+    make_prefill_step: K6 on every Mamba layer's d_inner blocks, K4 on the
+    attention layer; per-layer checks of both and the kernel path against
+    the plain path."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
+    from repro_torch.kernels.mamba_scan import mamba_scan, mamba_scan_plain
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models import build_model
+    from repro_torch.models import mamba as mamba_mod
+    from repro_torch.models import moe as moe_mod
+
+    full = get_config(JAMBA)
+    cfg = dataclasses.replace(full, num_layers=JAMBA_LAYERS)
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed + 3)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (B, S), generator=g, device=dev)}
+    blocks = -(-cfg.d_inner // mamba_mod.DISCRETIZE_BLOCK)
+    mamba_layers = [i for i, k in enumerate(cfg.layer_kinds()) if k == "mamba"]
+    attn_layers = [i for i, k in enumerate(cfg.layer_kinds()) if k in ("global", "local")]
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build_model(cfg, dev).init(seed)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    step = make_prefill_step(model, cfg)
+    step(batch)  # warm-up
+    torch.cuda.synchronize()
+    mamba_scan.launches = 0
+    flash_attention.launches = 0
+    t0 = time.perf_counter()
+    logits = step(batch)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"mamba_scan": mamba_scan.launches, "flash_attention": flash_attention.launches}
+    check(launches["mamba_scan"] == len(mamba_layers) * blocks,
+          f"jamba prefill: K6 launched {launches['mamba_scan']} times, not {len(mamba_layers) * blocks}")
+    check(launches["flash_attention"] == len(attn_layers), f"jamba prefill: K4 launches {launches}")
+    check(tuple(logits.shape) == (B, 1, cfg.vocab), f"jamba prefill: logits {tuple(logits.shape)}")
+    check(bool(torch.isfinite(logits).all()), "jamba prefill: non-finite logits")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+
+    # (a) every K6 call (each Mamba layer's d_inner blocks) and (b) the K4
+    # call on the attention layer, each on its own inputs against the plain
+    # version, with planted faults on the first block of each layer;
+    # (c) the kernel path against the plain path end to end.
+    def keep_k6(args, kw, out):
+        da, dbu, c = args
+        plain = mamba_scan_plain(da, dbu, c)
+        rd = mamba_reading(out, plain)
+        if len(k6_calls) % blocks == 0:
+            faults = {"c_zeroed": torch.zeros_like(plain),
+                      "decay_ignored": mamba_scan_plain(torch.ones_like(da), dbu, c)}
+            rd["controls"] = {name: mamba_reading(bad, plain) for name, bad in faults.items()}
+        return rd
+
+    def keep_k4(args, kw, out):
+        plain = flash_attention_plain(*args, **kw)
+        rd = att_layer_reading(out, plain)
+        rd["controls"] = {"zeros": att_layer_reading(torch.zeros_like(plain), plain)}
+        return rd
+
+    # Near-tie router choices fall the other way under the two paths' bf16
+    # roundings (~1 % of the tokens at this size; a choice moved at one
+    # expert also moves that expert's capacity cut), and one token routed
+    # elsewhere changes its FFN output wholesale: the plain path replays
+    # the kernel path's routing, and the tokens its own router would have
+    # routed differently are counted, as a reading.
+    own_routing = []
+
+    def replayed_route(p, x, cfg_):
+        theirs = route_k[len(own_routing)]
+        mine = real_route(p, x, cfg_)
+        own_routing.append(((mine.experts, mine.keep), (theirs.experts, theirs.keep)))
+        return theirs
+
+    real_route = moe_mod.moe_route
+    with torch.no_grad():
+        with recorded_calls(mamba_mod, "mamba_scan", keep_k6) as k6_calls, \
+                recorded_calls(attn_mod, "flash_attention", keep_k4) as k4_calls, \
+                recorded_calls(moe_mod, "moe_route", lambda a, kw, out: out) as route_k:
+            h_k, aux_k = model(batch["tokens"])
+        moe_mod.moe_route = replayed_route
+        try:
+            h_p, _ = model(batch["tokens"], plain=True)
+        finally:
+            moe_mod.moe_route = real_route
+        lg_k, lg_p = model.logits(h_k[:, -1:]), model.logits(h_p[:, -1:])
+    torch.cuda.synchronize()
+    check(len(k6_calls) == len(mamba_layers) * blocks, f"jamba: {len(k6_calls)} K6 calls recorded")
+    for i, rd in enumerate(k6_calls):
+        where = f"layer {mamba_layers[i // blocks]} block {i % blocks}"
+        check(rd["passes"], f"jamba prefill: K6 {where} vs plain {rd}")
+        for name, c in rd.get("controls", {}).items():
+            check(not c["passes"], f"jamba prefill: planted fault {name} passes on {where}: {c}")
+    for i, rd in zip(attn_layers, k4_calls):
+        check(rd["passes"], f"jamba prefill: layer {i} K4 vs plain {rd}")
+        check(not rd["controls"]["zeros"]["passes"], f"jamba prefill: zeros pass K4's check on layer {i}")
+    diff = routing_differs([m for m, _ in own_routing], [t for _, t in own_routing])
+    n_diff = int(diff.sum())
+    dropped = [int((~rt.keep).sum()) for rt in route_k]
+    capacity = route_k[0].capacity
+    cmp = dict(
+        k6_calls=len(k6_calls), k6_worst_rel_l2=max(rd["rel_l2"] for rd in k6_calls),
+        k6_worst_max_abs=max(rd["max_abs"] for rd in k6_calls),
+        k6_controls=[rd["controls"] for rd in k6_calls if "controls" in rd],
+        k4_per_layer=k4_calls, plain_router_differs_tokens=n_diff,
+        rel_hidden=rel_err(h_k, h_p), rel_logits=rel_err(lg_k, lg_p),
+        max_abs_logits=max_abs(lg_k, lg_p), tol_rel=MODEL_REL, aux=aux_k.item(),
+        same_argmax=bool(torch.equal(lg_k.argmax(-1), lg_p.argmax(-1))))
+    check(len(own_routing) == len(route_k) == cfg.ffn_kinds().count("moe"),
+          f"jamba prefill: {len(route_k)} MoE routings recorded")
+    check(cmp["rel_hidden"] <= MODEL_REL, f"jamba prefill: kernel vs plain hidden {cmp}")
+    check(cmp["rel_logits"] <= MODEL_REL, f"jamba prefill: kernel vs plain logits {cmp}")
+    del h_k, h_p, k6_calls, k4_calls, route_k, own_routing
+    try:
+        prof = profile_call(torch, lambda: step(batch))
+    except Exception as exc:  # the profiler is a reading, not a check
+        prof = {"error": repr(exc)}
+    out = dict(gpu=smi, arch=cfg.name, layers=cfg.num_layers, d_model=cfg.d_model,
+               reduced={"num_layers": f"{full.num_layers} -> {cfg.num_layers}"},
+               params=n_params, param_count=cfg.param_count(),
+               active_param_count=cfg.active_param_count(), B=B, S=S, init_s=init_s,
+               prefill_s=wall, prefill_tokens_per_s=B * S / wall, launches=launches,
+               d_inner_block=mamba_mod.DISCRETIZE_BLOCK, moe_capacity=capacity,
+               moe_choices_dropped=dropped, moe_choices=B * S * cfg.top_k,
+               peak_mem_gb=peak, kernel_vs_plain=cmp, profile=prof)
+    emit({"phase": "jamba_prefill", **out})
+    return model, out
+
+
 def main() -> int:
     # torch.compile (the flex_attention reading) caches inside the checkout.
     os.environ.setdefault("TORCHINDUCTOR_CACHE_DIR", str(ROOT / "build" / "inductor"))
@@ -879,6 +1361,16 @@ def main() -> int:
     serve = phase_serve(torch, dev, smi, model)
     del model
     torch.cuda.empty_cache()
+    k7 = phase_k7(torch, dev, smi)
+    k6 = phase_k6(torch, dev, smi)
+    model, rwkv_prefill = phase_rwkv6_prefill(torch, dev, smi)
+    rwkv_serve = phase_lm_serve(torch, smi, model, "rwkv6_serve")
+    del model
+    torch.cuda.empty_cache()
+    model, jamba_prefill = phase_jamba_prefill(torch, dev, smi)
+    jamba_serve = phase_lm_serve(torch, smi, model, "jamba_serve")
+    del model
+    torch.cuda.empty_cache()
 
     k1_main = k1[10]
     kernels = [
@@ -912,7 +1404,25 @@ def main() -> int:
              max_abs_err=max(k5["max_abs_err"], serve["k5_max_abs_err_vs_attention_decode"]),
              ms=k5["ms"], plain_ms=k5["plain_ms"], bound_ms=k5["bound_ms"],
              bound_by=k5["bound_by"], library_ms=k5["library_ms"]),
+        dict(name="mamba_scan", route="cuda", source="src/repro_torch/csrc/mamba_scan.cu",
+             replaces="src/repro/kernels/mamba_scan.py:27",
+             launches=jamba_prefill["launches"]["mamba_scan"],
+             max_abs_err=max(k6["max_abs_err"], jamba_prefill["kernel_vs_plain"]["k6_worst_max_abs"]),
+             ms=k6["ms"], plain_ms=k6["plain_ms"], bound_ms=k6["bound_ms"],
+             bound_by=k6["bound_by"], library_ms=None),
+        dict(name="wkv_scan", route="cuda", source="src/repro_torch/csrc/rwkv6_scan.cu",
+             replaces="src/repro/kernels/rwkv6_scan.py:29",
+             launches=rwkv_prefill["k7_launches"],
+             max_abs_err=max([k7["max_abs_err"]] + [
+                 rd["max_abs"] for rd in rwkv_prefill["kernel_vs_plain"]["per_layer"]]),
+             ms=k7["ms"], plain_ms=k7["plain_ms"], bound_ms=k7["bound_ms"],
+             bound_by=k7["bound_by"], library_ms=None, yardstick_ms=k7["yardstick_ms"]),
     ]
+    emit({"phase": "lm_rates", "gpu": smi,
+          "rwkv6_prefill_tokens_per_s": rwkv_prefill["prefill_tokens_per_s"],
+          "rwkv6_decode_tokens_per_s": rwkv_serve["decode_tokens_per_s"],
+          "jamba_prefill_tokens_per_s": jamba_prefill["prefill_tokens_per_s"],
+          "jamba_decode_tokens_per_s": jamba_serve["decode_tokens_per_s"]})
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,18 +1,24 @@
-"""Architecture configs of the port (the dense decoders) and their smoke variants.
+"""Architecture configs of the port and their smoke variants.
 
 The port's copy of ``repro.configs``: ``ARCH_CONFIGS`` / ``get_config``
-hold the configurations whose every layer this slice runs (``global`` /
-``local`` attention, dense FFN, rmsnorm); ``smoke_variant`` gives
-what ``repro.configs.shapes.smoke_variant`` gives.
+hold the configurations whose every layer the port runs (the dense
+decoders, rwkv6 and jamba); ``smoke_variant`` gives what
+``repro.configs.shapes.smoke_variant`` gives.
 """
 from __future__ import annotations
 
 import dataclasses
 
-from repro_torch.configs import command_r_35b, gemma2_27b, granite_20b
+from repro_torch.configs import (
+    command_r_35b,
+    gemma2_27b,
+    granite_20b,
+    jamba_1_5_large_398b,
+    rwkv6_1_6b,
+)
 from repro_torch.configs.base import ModelConfig
 
-_MODULES = (granite_20b, command_r_35b, gemma2_27b)
+_MODULES = (rwkv6_1_6b, granite_20b, command_r_35b, jamba_1_5_large_398b, gemma2_27b)
 
 ARCH_CONFIGS = {m.CONFIG.name: m.CONFIG for m in _MODULES}
 

@@ -1,9 +1,10 @@
 """Model configuration schema, the port's copy of ``repro.configs.base``.
 
 One ``ModelConfig`` describes any architecture of the JAX package (dense,
-MoE, SSM, hybrid, encoder-decoder audio, VLM); this slice of the port
-runs the dense decoder kinds (``global``/``local`` attention, ``dense``
-FFN).  Layer heterogeneity is expressed through ``layer_kinds()`` /
+MoE, SSM, hybrid, encoder-decoder audio, VLM); the port runs the decoder
+kinds (``global``/``local`` attention, ``mamba`` and ``rwkv`` mixers,
+``dense`` and ``moe`` FFNs), not the audio encoder-decoder or the VLM
+front end.  Layer heterogeneity is expressed through ``layer_kinds()`` /
 ``ffn_kinds()``; ``block_len`` is the pattern's period, kept so that
 ``convert`` can unstack the reference's superblock parameters.
 """
@@ -119,19 +120,60 @@ class ModelConfig:
         return self.num_layers % self.block_len
 
     # ---- sizes ---------------------------------------------------------------
+    @property
+    def d_inner(self) -> int:
+        return self.expand * self.d_model
+
+    @property
+    def dt_rank(self) -> int:
+        return max(self.d_model // 16, 8)
+
+    @property
+    def rwkv_heads(self) -> int:
+        return self.d_model // self.rwkv_head_size
+
     def param_count(self) -> int:
-        """Analytic total parameter count of the kinds this slice runs
-        (the reference's count leaves out the final norm too)."""
-        kinds = set(self.layer_kinds()) | set(self.ffn_kinds())
-        if not kinds <= {"global", "local", "dense"} or self.encoder_layers or self.num_patches:
-            raise NotImplementedError(f"{self.name}: only dense decoders are ported")
+        """Analytic total parameter count, the reference's (which leaves
+        out the final norm)."""
         D, F, V = self.d_model, self.d_ff, self.vocab
         hd = self.head_dim
-        layer = (
-            2 * D  # norms
-            + 2 * D * (self.n_heads * hd)  # wq, wo
-            + 2 * D * (self.n_kv_heads * hd)  # wk, wv
-            + (3 if self.mlp_gated else 2) * D * F
-        )
-        embeddings = V * D * (1 if self.tie_embeddings else 2)
-        return int(embeddings + self.num_layers * layer)
+        total = V * D  # embeddings
+        if not self.tie_embeddings:
+            total += V * D
+        for lk, fk in zip(self.layer_kinds(), self.ffn_kinds()):
+            total += 2 * D  # norms
+            if lk in ("global", "local"):
+                total += D * (self.n_heads * hd) * 2  # wq, wo
+                total += D * (self.n_kv_heads * hd) * 2  # wk, wv
+            elif lk == "mamba":
+                di, ds, dr = self.d_inner, self.d_state, self.dt_rank
+                total += D * 2 * di + self.d_conv * di + di * (dr + 2 * ds)
+                total += dr * di + di * ds + di + di * D
+            elif lk == "rwkv":
+                # time-mix: 5 token-shift mixes + decay lora + r/k/v/g/o + ln
+                lora = self.rwkv_decay_lora
+                total += 6 * D + 2 * (D * lora + lora * D) + 5 * D * D + 2 * D
+            if fk == "dense":
+                total += (3 if self.mlp_gated else 2) * D * F
+            elif fk == "moe":
+                mults = 3 if self.mlp_gated else 2
+                total += D * self.num_experts + self.num_experts * mults * D * F
+            elif fk == "rwkv":
+                total += 2 * D + D * F + F * D + D * D  # channel-mix
+        if self.encoder_layers:
+            enc = self.encoder_layers * (
+                2 * D + 4 * D * (self.n_heads * hd) + 2 * D * F + 2 * D
+            )
+            total += enc + self.num_layers * (D + 4 * D * (self.n_heads * hd))
+        if self.num_patches:
+            total += D * D  # patch projector
+        return int(total)
+
+    def active_param_count(self) -> int:
+        """Parameters touched per token (MoE: top_k of num_experts)."""
+        if self.num_experts == 0:
+            return self.param_count()
+        mults = 3 if self.mlp_gated else 2
+        per_expert = mults * self.d_model * self.d_ff
+        n_moe = sum(1 for k in self.ffn_kinds() if k == "moe")
+        return int(self.param_count() - n_moe * (self.num_experts - self.top_k) * per_expert)

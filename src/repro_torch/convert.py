@@ -74,7 +74,10 @@ def decoder_params_from_reference(params: Dict[str, Any], cfg: ModelConfig) -> D
     index ``sb`` of every leaf's leading (superblock) axis, where
     ``sb, j = divmod(i, cfg.block_len)``, or, past the last whole
     superblock, at ``params["rem"][i - num_superblocks * block_len]``.
-    Names follow the reference's keys (``layers.<i>.attn.wq`` ...).
+    Names follow the reference's keys (``layers.<i>.attn.wq``,
+    ``layers.<i>.rwkv.ln_x.scale``, ``layers.<i>.moe.wi`` ...), for every
+    layer kind the port runs (attention, ``mamba``, ``rwkv``; ``dense``
+    and ``moe`` FFNs).
     """
     bl, nsb = cfg.block_len, cfg.num_superblocks
     out = {"embed": _tensor(params["embed"])}

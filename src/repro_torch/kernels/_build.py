@@ -15,9 +15,11 @@ PyTorch versions near the +-80 exponent clip.  The OCEAN sources
 plain versions compute it: with contraction, last-bit differences steer
 the Newton iterations onto other safeguard branches and those kernels
 drift from their plain versions by far more than an ulp.  The attention
-kernels (``flash_attention``, ``decode_attention``) have no such branch
-points: a softmax is continuous in its inputs, so an ulp of contraction
-moves the output by an ulp, and they compile with contraction on.  The
+kernels (``flash_attention``, ``decode_attention``) and the scans
+(``mamba_scan``, ``rwkv6_scan``) have no such branch points: a softmax
+or a linear recurrence is continuous in its inputs, so an ulp of
+contraction moves the output by an ulp, and they compile with
+contraction on.  The
 output name carries a hash of the sources and flags, so an edited source
 is rebuilt, never reused stale.  The build directory is ``build/repro_torch_kernels/`` at
 the root of the checkout, or ``$REPRO_TORCH_BUILD_DIR``.  Building happens
@@ -38,7 +40,9 @@ from typing import Dict, Iterable, Optional
 import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("ocean_p", "ocean_traj", "flash_attention", "decode_attention")
+SOURCES = (
+    "ocean_p", "ocean_traj", "flash_attention", "decode_attention", "mamba_scan", "rwkv6_scan",
+)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",

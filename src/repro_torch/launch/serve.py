@@ -1,4 +1,5 @@
-"""Serving launcher: batched decode against a KV cache.
+"""Serving launcher: batched decode against per-layer KV caches and
+recurrent states.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-27b \
       --batch 4 --prompt-len 32 --gen 32
@@ -7,7 +8,9 @@ The port's ``repro.launch.serve``, with the same flags plus ``--device``
 (the card unless ``--device cpu``).  Weights are random, drawn from
 ``--seed`` on the device; the prompt and the sampling come from a
 ``torch.Generator`` seeded likewise.  ``generate`` is the same loop for
-callers that hold a model already.
+callers that hold a model already.  ``--arch jamba-1.5-large-398b`` at
+full depth (398.6e9 parameters) does not fit one card; ``--smoke`` or a
+depth cut passed to ``generate`` does.
 """
 from __future__ import annotations
 

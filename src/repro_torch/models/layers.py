@@ -1,12 +1,13 @@
-"""Shared building blocks: rmsnorm, gated MLP, embeddings, RoPE, soft-cap.
+"""Shared building blocks: rmsnorm / layernorm, gated MLP, embeddings, RoPE, soft-cap.
 
 The port's ``repro.models.layers``.  Parameters live in small
 ``nn.Module``s whose attribute names are the JAX package's dictionary
-keys (``scale``; ``wi``/``wg``/``wo``), in the JAX layouts, so that
-``repro_torch.convert`` carries weights across by name.  The modules
-allocate their tensors uninitialised on the given device (norm scales
-start at zero); ``models.transformer.DecoderModel.init`` fills them from
-a seed.
+keys (``scale``/``bias``; ``wi``/``wg``/``wo``), in the JAX layouts, so
+that ``repro_torch.convert`` carries weights across by name.  The modules
+allocate their tensors uninitialised on the given device;
+``models.transformer.DecoderModel.init`` fills them from a seed by each
+module's ``init_std`` / ``init_rule`` (rmsnorm scales start at zero,
+layernorm scales at one).
 
 Numerics follow the reference: matrix products accumulate in float32 and
 are cast back to the activation dtype (what a bfloat16 ``torch.matmul``
@@ -15,7 +16,7 @@ in float32 on the cast values.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional
 
 import torch
 import torch.nn.functional as F
@@ -32,14 +33,24 @@ def empty_param(shape, dtype, device) -> nn.Parameter:
     return nn.Parameter(torch.empty(shape, dtype=dtype, device=device), requires_grad=False)
 
 
-class Initialised(nn.Module):
-    """A module whose parameters ``DecoderModel.init`` draws as N(0, std^2).
+InitRule = Callable[[torch.Tensor, torch.Generator], object]
 
-    ``init_std`` maps a parameter's name to its standard deviation;
-    parameters it does not name start at zero.
+
+class Initialised(nn.Module):
+    """A module whose parameters ``DecoderModel.init`` draws from a seed.
+
+    ``init_std`` maps a parameter's name to the standard deviation of an
+    N(0, std^2) draw; ``init_rule`` maps a name to a function
+    ``(tensor, generator)`` that fills the tensor in place (constants,
+    uniform draws).  Parameters that neither names start at zero.
     """
 
     init_std: Dict[str, float] = {}
+    init_rule: Dict[str, InitRule] = {}
+
+
+def fill(value: float) -> InitRule:
+    return lambda t, gen: t.fill_(value)
 
 
 def dense(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -51,31 +62,47 @@ def dense(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 # norms
 # ---------------------------------------------------------------------------
 class Norm(Initialised):
-    """rmsnorm with a gemma-style ``1 + scale``; ``scale`` is float32, zero-initialised."""
+    """float32 norm parameters: rmsnorm's gemma-style ``1 + scale``
+    (``scale`` starts at zero), or layernorm's ``scale`` (starts at one)
+    and ``bias`` (starts at zero)."""
 
-    def __init__(self, d: int, device=None):
+    def __init__(self, d: int, kind: str = "rmsnorm", device=None):
         super().__init__()
+        if kind not in ("rmsnorm", "layernorm"):
+            raise ValueError(f"unknown norm kind {kind!r}")
+        one = 1.0 if kind == "layernorm" else 0.0
         self.scale = nn.Parameter(
-            torch.zeros(d, dtype=torch.float32, device=device), requires_grad=False
+            torch.full((d,), one, dtype=torch.float32, device=device), requires_grad=False
         )
+        if kind == "layernorm":
+            self.bias = nn.Parameter(
+                torch.zeros(d, dtype=torch.float32, device=device), requires_grad=False
+            )
+            self.init_rule = {"scale": fill(1.0)}
 
 
 def init_norm(d: int, kind: str = "rmsnorm", device=None) -> Norm:
-    if kind != "rmsnorm":
-        raise NotImplementedError(f"norm kind {kind!r}: the port runs rmsnorm only so far")
-    return Norm(d, device)
+    return Norm(d, kind, device)
 
 
 def apply_norm(p: Norm, x: torch.Tensor, kind: str = "rmsnorm", eps: float = 1e-6) -> torch.Tensor:
-    """Statistics in float32; ``inv * (1 + scale)`` is cast to x's dtype
-    before it multiplies x, as in the reference."""
-    if kind != "rmsnorm":
-        raise NotImplementedError(f"norm kind {kind!r}: the port runs rmsnorm only so far")
+    """Statistics in float32, as in the reference.  rmsnorm casts
+    ``inv * (1 + scale)`` to x's dtype before it multiplies x; layernorm
+    normalises the float32 values, ``(x - mean) * inv * scale + bias``
+    (variance clipped at 0), and casts the result to x's dtype."""
     d = x.shape[-1]
-    ms = x.float().square().sum(-1) / d
-    inv = torch.rsqrt(ms + eps)[..., None]
-    scale = 1.0 + p.scale.float()
-    return x * (inv * scale).to(x.dtype)
+    if kind == "rmsnorm":
+        ms = x.float().square().sum(-1) / d
+        inv = torch.rsqrt(ms + eps)[..., None]
+        scale = 1.0 + p.scale.float()
+        return x * (inv * scale).to(x.dtype)
+    if kind != "layernorm":
+        raise ValueError(f"unknown norm kind {kind!r}")
+    xf = x.float()
+    mu = xf.sum(-1, keepdim=True) / d
+    ms = xf.square().sum(-1, keepdim=True) / d
+    inv = torch.rsqrt(torch.clamp(ms - mu.square(), min=0.0) + eps)
+    return ((xf - mu) * inv * p.scale + p.bias).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -1,4 +1,4 @@
-"""The decoder LM of the port: dense (global/local attention, dense FFN) layers.
+"""The decoder LM of the port: attention, Mamba and RWKV6 layers, dense and MoE FFNs.
 
 The port's ``repro.models.transformer.DecoderModel``.  The reference stacks
 the parameters of each position of the repeating layer pattern and
@@ -7,16 +7,23 @@ eagerly, so the port keeps one ``nn.Module`` per layer in a ``ModuleList``
 and walks it (``convert.decoder_params_from_reference`` unstacks the
 reference's parameters into it).
 
+Layer kinds: ``global`` / ``local`` attention (prefill through K4),
+``mamba`` (prefill through K6) and ``rwkv`` (prefill through K7, which
+owns its channel-mix FFN); FFN kinds ``dense`` and ``moe``.  The prefill
+forward starts every recurrent layer from the zero state and keeps no
+final state, as the reference's does; decode carries one state per
+layer: a ``KVCache``, a ``MambaState`` or an ``RwkvState``.
+
 The reference's sharding constraints (``sharding/constraints.py``) have no
 counterpart: they are the identity without a device mesh, and the port
-runs on one card.  Layer kinds ``mamba`` and ``rwkv``, the ``moe`` FFN,
-the VLM patch front end and the audio encoder-decoder are not ported
-yet: building a model that has them raises ``NotImplementedError``.
+runs on one card.  The VLM patch front end and the audio
+encoder-decoder are not ported yet: building a model that has them
+raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
 import zlib
-from typing import List, Optional, Tuple
+from typing import Any, List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -24,6 +31,9 @@ from torch import nn
 from repro_torch._device import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import mamba as mamba_mod
+from repro_torch.models import moe as moe_mod
+from repro_torch.models import rwkv as rwkv_mod
 from repro_torch.models.layers import (
     EMBED_STD,
     MLP,
@@ -37,55 +47,76 @@ from repro_torch.models.layers import (
     unembed,
 )
 
-_NOT_PORTED = {
-    "mamba": "Mamba layers (K6's path) are not ported yet",
-    "rwkv": "RWKV6 layers (K7's path) are not ported yet",
-    "moe": "the MoE FFN is not ported yet",
-}
-
 
 def _dtype(name: str) -> torch.dtype:
     return {"bfloat16": torch.bfloat16, "float32": torch.float32}[name]
 
 
 # ---------------------------------------------------------------------------
-# per-layer init / apply / cache
+# per-layer init / apply / state
 # ---------------------------------------------------------------------------
 class DecoderLayer(nn.Module):
     def __init__(self, cfg: ModelConfig, lk: str, fk: str, dtype, device=None):
         super().__init__()
-        for kind in (lk, fk):
-            if kind in _NOT_PORTED:
-                raise NotImplementedError(_NOT_PORTED[kind])
-        if lk not in ("global", "local"):
-            raise ValueError(f"unknown layer kind {lk!r}")
-        if fk != "dense":
-            raise ValueError(f"unknown ffn kind {fk!r}")
-        self.kind = lk
+        self.kind, self.ffn = lk, fk
         self.ln1 = init_norm(cfg.d_model, cfg.norm, device)
-        self.attn = attn.init_attention(cfg, dtype, device)
+        if lk == "rwkv":
+            self.rwkv = rwkv_mod.init_rwkv(cfg, dtype, device)
+            self.ln2 = init_norm(cfg.d_model, cfg.norm, device)
+            return  # rwkv owns its channel-mix FFN
+        if lk in ("global", "local"):
+            self.attn = attn.init_attention(cfg, dtype, device)
+        elif lk == "mamba":
+            self.mamba = mamba_mod.init_mamba(cfg, dtype, device)
+        else:
+            raise ValueError(f"unknown layer kind {lk!r}")
         self.ln2 = init_norm(cfg.d_model, cfg.norm, device)
-        self.mlp = MLP(cfg.d_model, cfg.d_ff, cfg.mlp_gated, dtype, device)
+        if fk == "dense":
+            self.mlp = MLP(cfg.d_model, cfg.d_ff, cfg.mlp_gated, dtype, device)
+        elif fk == "moe":
+            self.moe = moe_mod.init_moe(cfg, dtype, device)
+        else:
+            raise ValueError(f"unknown ffn kind {fk!r}")
+
+
+def _init_layer_state(cfg: ModelConfig, lk: str, batch: int, max_len: int, dtype, device):
+    """Decode-time KV cache or recurrent state of one layer."""
+    if lk == "mamba":
+        return mamba_mod.init_mamba_state(cfg, batch, dtype, device)
+    if lk == "rwkv":
+        return rwkv_mod.init_rwkv_state(cfg, batch, dtype, device)
+    return attn.init_kv_cache(cfg, batch, max_len, lk, dtype, device)
 
 
 def _apply_layer(
     p: DecoderLayer,
     x: torch.Tensor,
     cfg: ModelConfig,
-    state: Optional[attn.KVCache],
+    state: Any,
     pos: Optional[int],
     *,
     plain: bool = False,
 ):
-    """Prefill (``state`` None) or one decode step; returns (x, new_state)."""
+    """Prefill (``state`` None) or one decode step; returns (x, new_state,
+    aux) with aux the MoE loss (None without MoE)."""
+    if p.kind == "rwkv":
+        x, state = rwkv_mod.rwkv_block(p.rwkv, p.ln1, p.ln2, x, state, cfg, plain=plain)
+        return x, state, None
     h = apply_norm(p.ln1, x, cfg.norm)
-    if state is not None:
+    if p.kind == "mamba":
+        h, state = mamba_mod.mamba_mixer(p.mamba, h, state, cfg, plain=plain)
+    elif state is not None:
         h, state = attn.attention_decode(p.attn, h, state, pos, cfg, p.kind)
     else:
         h = attn.attention_forward(p.attn, h, cfg, p.kind, plain=plain)
     x = x + h
-    h = apply_mlp(p.mlp, apply_norm(p.ln2, x, cfg.norm), cfg.act)
-    return x + h, state
+    h = apply_norm(p.ln2, x, cfg.norm)
+    aux = None
+    if p.ffn == "moe":
+        h, aux = moe_mod.apply_moe(p.moe, h, cfg)
+    else:
+        h = apply_mlp(p.mlp, h, cfg.act)
+    return x + h, state, aux
 
 
 # ---------------------------------------------------------------------------
@@ -131,18 +162,25 @@ class DecoderModel(Initialised):
 
         Each tensor is drawn by a generator seeded from ``seed`` and the
         tensor's name, so a model with fewer layers gets the same weights
-        for the layers it has; norms start at zero (scale ``1 + 0``).
+        for the layers it has.  A module's ``init_rule`` fills the tensors
+        it names (constants, uniform draws), its ``init_std`` draws
+        N(0, std^2) for the ones it names, and every other tensor starts
+        at zero (rmsnorm scales ``1 + 0``, biases, RWKV6's ``wb``).
         """
         gen = torch.Generator(device=self.device)
         for mod_name, mod in self.named_modules():
             stds = getattr(mod, "init_std", {})
+            rules = getattr(mod, "init_rule", {})
             for name, p in mod.named_parameters(recurse=False):
                 full = f"{mod_name}.{name}" if mod_name else name
-                if name not in stds:
+                if name not in stds and name not in rules:
                     p.zero_()
                     continue
                 gen.manual_seed(seed * 1_000_003 + zlib.crc32(full.encode()))
-                p.normal_(0.0, stds[name], generator=gen)
+                if name in rules:
+                    rules[name](p, gen)
+                else:
+                    p.normal_(0.0, stds[name], generator=gen)
         return self
 
     # ---- prefill forward ----------------------------------------------------
@@ -151,21 +189,23 @@ class DecoderModel(Initialised):
         tokens: torch.Tensor,
         patches: Optional[torch.Tensor] = None,
         *,
-        plain_attention: bool = False,
+        plain: bool = False,
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Returns (hidden (B, S, D), aux_loss).  Logits via ``logits()``.
 
-        ``plain_attention=True`` runs K4's plain version in every layer,
-        on any device.  The auxiliary loss is the MoE router's in the
-        reference; with dense FFNs only it is 0.
+        ``plain=True`` runs the plain version of every kernel (K4, K6,
+        K7) in every layer, on any device.  The auxiliary loss is the sum
+        of the MoE layers' load-balance losses (0 without MoE layers).
         """
         if patches is not None:
             raise NotImplementedError("the VLM patch front end is not ported yet")
         cfg = self.cfg
         x = embed(tokens, self.embed, scale=cfg.norm == "rmsnorm")
-        for layer in self.layers:
-            x, _ = _apply_layer(layer, x, cfg, None, None, plain=plain_attention)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for layer in self.layers:
+            x, _, a = _apply_layer(layer, x, cfg, None, None, plain=plain)
+            if a is not None:
+                aux = aux + a
         return apply_norm(self.final_norm, x, cfg.norm), aux
 
     def logits(self, hidden: torch.Tensor) -> torch.Tensor:
@@ -173,27 +213,28 @@ class DecoderModel(Initialised):
         return softcap(unembed(hidden, table), self.cfg.final_logit_softcap)
 
     # ---- decode -------------------------------------------------------------
-    def init_cache(self, batch: int, max_len: int) -> List[attn.KVCache]:
-        """One KV cache per layer; local layers get a ring of
-        ``min(sliding_window, max_len)`` slots."""
+    def init_cache(self, batch: int, max_len: int) -> List[Any]:
+        """One state per layer: a KV cache for attention (local layers get
+        a ring of ``min(sliding_window, max_len)`` slots), a ``MambaState``
+        or an ``RwkvState`` (zeros) for the recurrent layers."""
         return [
-            attn.init_kv_cache(self.cfg, batch, max_len, lk, self.dtype, self.device)
+            _init_layer_state(self.cfg, lk, batch, max_len, self.dtype, self.device)
             for lk in self.kinds
         ]
 
     def decode_step(
         self,
-        cache: List[attn.KVCache],
+        cache: List[Any],
         token: torch.Tensor,   # (B, 1) integer
         pos: int,              # position of this token
-    ) -> Tuple[torch.Tensor, List[attn.KVCache]]:
-        """Logits (B, 1, V) float32 of the next token; the caches are
-        updated in place and returned."""
+    ) -> Tuple[torch.Tensor, List[Any]]:
+        """Logits (B, 1, V) float32 of the next token and the new states
+        (KV caches are updated in place; recurrent states are new tensors)."""
         cfg = self.cfg
         x = embed(token, self.embed, scale=cfg.norm == "rmsnorm")
         new_cache = []
         for layer, st in zip(self.layers, cache):
-            x, st = _apply_layer(layer, x, cfg, st, pos)
+            x, st, _ = _apply_layer(layer, x, cfg, st, pos)
             new_cache.append(st)
         x = apply_norm(self.final_norm, x, cfg.norm)
         return self.logits(x), new_cache

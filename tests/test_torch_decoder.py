@@ -90,7 +90,7 @@ def test_plain_attention_flag_is_the_cpu_path():
     _, _, tm, cfg = _pair("gemma2-27b", seed=5)
     toks = torch.as_tensor(_tokens(6, 1, 24, cfg.vocab), dtype=torch.int64)
     h, _ = tm(toks)
-    h_plain, _ = tm(toks, plain_attention=True)
+    h_plain, _ = tm(toks, plain=True)
     assert torch.equal(h, h_plain)
 
 
@@ -151,9 +151,6 @@ def test_init_is_seeded_per_tensor():
     [
         (dict(arch_type="audio"), "audio"),
         (dict(num_patches=4), "VLM"),
-        (dict(num_experts=2, top_k=1), "MoE"),
-        (dict(layer_pattern=("mamba", "global")), "Mamba"),
-        (dict(arch_type="ssm", ssm_kind="rwkv6", layer_pattern=None), "RWKV6"),
     ],
 )
 def test_unported_parts_raise(change, what):

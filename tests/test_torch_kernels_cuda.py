@@ -202,7 +202,157 @@ def test_decoder_forward_through_k4(dev, monkeypatch):
         if kw["window"] is not None:
             dropped = kf.flash_attention_plain(q, k, v, **{**kw, "window": None}).float()
             assert ((dropped - plain).norm() / plain.norm()).item() > 1e-2
-    h_plain, _ = model(toks, plain_attention=True)
+    h_plain, _ = model(toks, plain=True)
     torch.cuda.synchronize()
     rel = ((h.float() - h_plain.float()).norm() / h_plain.float().norm()).item()
     assert rel < 2e-2, rel
+
+
+# ---------------------------------------------------------------------------
+# K6 / K7: the scans against their plain versions (float32 on both sides,
+# sums in another order).  K6: atol = rtol = 2e-4, tests/test_kernels.py's.
+# K7: |d| <= 5e-4 (|plain| + rms(plain)): the WKV state at the model's
+# decays (w ~ 0.995) sums ~200 steps, so an output that cancels to near 0
+# still carries rounding of the size of the typical output.
+# ---------------------------------------------------------------------------
+from repro_torch.kernels import mamba_scan as km  # noqa: E402
+from repro_torch.kernels import rwkv6_scan as kr  # noqa: E402
+
+WKV_TOL, MAMBA_TOL = 5e-4, 2e-4
+
+
+def _wkv_inputs(dev, seed, b, t, h, n, decay):
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    r, k, v, x = (torch.randn((b, t, h, n), generator=g, device=dev) for _ in range(4))
+    if decay == "model":  # exp(-exp(w0)), w0 = -6 + U(0, 1): rwkv6's range at init
+        w = torch.exp(-torch.exp(-6.0 + torch.rand((b, t, h, n), generator=g, device=dev)))
+    else:  # tests/test_kernels.py's sigmoid range
+        w = torch.sigmoid(x)
+    u = 0.5 * torch.randn((h, n), generator=g, device=dev)
+    return r, k, v, w, u
+
+
+def _assert_wkv_close(out, plain):
+    scale = plain.square().mean().sqrt()
+    excess = (out - plain).abs() - WKV_TOL * (plain.abs() + scale)
+    assert float(excess.max()) <= 0.0, float((out - plain).abs().max())
+
+
+@pytest.mark.parametrize(
+    "b,t,h,n,decay",
+    [
+        (2, 128, 4, 64, "sigmoid"),
+        (1, 192, 3, 64, "model"),
+        (1, 77, 3, 64, "model"),      # ragged T: a partial last chunk
+        (2, 33, 2, 32, "sigmoid"),    # N = 32
+        (3, 1, 2, 64, "model"),       # one step
+        (1, 2000, 2, 64, "model"),
+    ],
+)
+def test_k7_matches_plain(dev, b, t, h, n, decay):
+    r, k, v, w, u = _wkv_inputs(dev, t + n, b, t, h, n, decay)
+    before = kr.wkv_scan.launches
+    out = kr.wkv_scan(r, k, v, w, u)
+    plain = kr.wkv_scan_plain(r, k, v, w, u)
+    torch.cuda.synchronize()
+    assert kr.wkv_scan.launches == before + 1
+    assert out.shape == (b, t, h, n) and bool(torch.isfinite(out).all())
+    _assert_wkv_close(out, plain)
+
+
+def test_k7_refuses_what_it_does_not_take(dev):
+    r, k, v, w, u = _wkv_inputs(dev, 0, 1, 8, 2, 64, "sigmoid")
+    with pytest.raises(ValueError, match="float32"):
+        kr.wkv_scan(r.double(), k, v, w, u)
+    with pytest.raises(ValueError, match="head size"):
+        kr.wkv_scan(*(x[..., :48].contiguous() for x in (r, k, v, w, u)))
+    with pytest.raises(ValueError, match="contiguous"):
+        kr.wkv_scan(r.transpose(1, 2).contiguous().transpose(1, 2), k, v, w, u)
+    with pytest.raises(ValueError, match="u must be"):
+        kr.wkv_scan(r, k, v, w, u[:1])
+
+
+def _mamba_inputs(dev, seed, b, t, di, ds, model_range):
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    if model_range:  # dA = exp(dt A), dt in [1e-3, 0.1], A = -(1..ds); dBu = dt B u
+        dt = torch.exp(torch.empty((b, t, di), device=dev).uniform_(-6.9, -2.3, generator=g))
+        a = -torch.arange(1, ds + 1, dtype=torch.float32, device=dev)
+        da = torch.exp(dt[..., None] * a)
+        bm = torch.randn((b, t, ds), generator=g, device=dev)
+        uu = torch.randn((b, t, di), generator=g, device=dev)
+        dbu = dt[..., None] * bm[:, :, None, :] * uu[..., None]
+    else:  # tests/test_kernels.py's draws
+        da = torch.sigmoid(torch.randn((b, t, di, ds), generator=g, device=dev))
+        dbu = 0.1 * torch.randn((b, t, di, ds), generator=g, device=dev)
+    c = torch.randn((b, t, ds), generator=g, device=dev)
+    return da.contiguous(), dbu.contiguous(), c
+
+
+@pytest.mark.parametrize(
+    "b,t,di,ds,model_range",
+    [
+        (2, 128, 256, 16, False),
+        (1, 300, 4096, 16, True),     # a block of jamba's mixer, ragged T
+        (2, 45, 100, 16, True),       # ragged T and Di
+        (1, 257, 40, 8, False),       # d_state 8 (the smoke configs)
+        (1, 20, 16, 32, False),
+        (1, 7, 33, 4, True),          # fewer steps than one load group
+    ],
+)
+def test_k6_matches_plain(dev, b, t, di, ds, model_range):
+    da, dbu, c = _mamba_inputs(dev, t + di, b, t, di, ds, model_range)
+    before = km.mamba_scan.launches
+    out = km.mamba_scan(da, dbu, c)
+    plain = km.mamba_scan_plain(da, dbu, c)
+    torch.cuda.synchronize()
+    assert km.mamba_scan.launches == before + 1
+    assert out.shape == (b, t, di) and bool(torch.isfinite(out).all())
+    torch.testing.assert_close(out, plain, atol=MAMBA_TOL, rtol=MAMBA_TOL)
+
+
+def test_k6_refuses_what_it_does_not_take(dev):
+    da, dbu, c = _mamba_inputs(dev, 0, 1, 8, 16, 16, False)
+    with pytest.raises(ValueError, match="float32"):
+        km.mamba_scan(da.to(torch.bfloat16), dbu.to(torch.bfloat16), c)
+    with pytest.raises(ValueError, match="d_state"):
+        km.mamba_scan(da[..., :12].contiguous(), dbu[..., :12].contiguous(), c[..., :12].contiguous())
+    with pytest.raises(ValueError, match="contiguous"):
+        km.mamba_scan(da.transpose(1, 2).contiguous().transpose(1, 2), dbu, c)
+    with pytest.raises(ValueError, match="C must be"):
+        km.mamba_scan(da, dbu, c[:, :4])
+
+
+@pytest.mark.parametrize(
+    "arch, over, kernel, dtype, tol",
+    [
+        ("rwkv6-1.6b", {}, "wkv_scan", "float32", 1e-4),
+        ("jamba-1.5-large-398b", {"num_layers": 4}, "mamba_scan", "float32", 1e-4),
+    ],
+)
+def test_ssm_forward_through_the_kernels(dev, arch, over, kernel, dtype, tol):
+    """float32 smoke models on the card: K7 once per RWKV6 layer, K6 once
+    per Mamba layer (d_inner 256 is one block); the plain path within
+    float32 noise.  Jamba's first 4 layers (Mamba with dense and MoE FFNs)
+    leave out its attention layer, whose K4 takes bfloat16 only."""
+    import dataclasses
+
+    from repro_torch.configs import ARCH_CONFIGS, smoke_variant
+    from repro_torch.models import build_model
+
+    cfg = dataclasses.replace(smoke_variant(ARCH_CONFIGS[arch]), dtype=dtype, **over)
+    model = build_model(cfg, dev).init(0)
+    toks = torch.randint(0, cfg.vocab, (2, 100), device=dev)
+    fn = {"wkv_scan": kr.wkv_scan, "mamba_scan": km.mamba_scan}[kernel]
+    n_mixer = sum(k in ("rwkv", "mamba") for k in cfg.layer_kinds())
+    before, before_k4 = fn.launches, kf.flash_attention.launches
+    h, aux = model(toks)
+    assert fn.launches == before + n_mixer
+    n_attn = sum(k in ("global", "local") for k in cfg.layer_kinds())
+    assert kf.flash_attention.launches == before_k4 + n_attn
+    h_plain, aux_plain = model(toks, plain=True)
+    torch.cuda.synchronize()
+    rel = ((h.float() - h_plain.float()).norm() / h_plain.float().norm()).item()
+    assert rel < tol, rel
+    torch.testing.assert_close(aux, aux_plain, atol=tol, rtol=tol)
