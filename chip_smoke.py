@@ -13,10 +13,12 @@ the launch counters reset just before and read just after.
 
 Then the LM serving path at gemma2-27b's full width and depth (46 layers,
 27.2e9 random bf16 parameters from a seed): K4 and K5 against their plain
-versions at the model's shapes, ``make_prefill_step`` on one 8192-token
-prompt through K4 (one launch per layer; the kernel path held to the
-plain path at 2 full-width layers), and the ``launch/serve.py`` loop
-(batch 4, prompt 32, 32 new tokens), after which K5 runs on every
+versions at the model's shapes (K4 also at jamba-1.5-large's attention
+layer, and with gemma2's soft-cap removed, which isolates the soft-cap's
+error), ``make_prefill_step`` on one 8192-token prompt through K4 (one
+launch per layer; the kernel path held to the plain path at 2 full-width
+layers), and the ``launch/serve.py`` loop (batch 4, prompt 32, 32 new
+tokens), after which K5 runs on every
 layer's cache at the last position, on the inputs the decode step gave
 its attention there, and is held to what that attention computed.
 
@@ -589,18 +591,20 @@ def recorded_calls(module, name, keep):
 
 def flex_library(torch, plain, q, k, v, cap, reps, causal=True, window=None, valid_len=None):
     """``library_ms``: one ``torch.compile``d ``flex_attention`` call that
-    computes the kernel's function -- the soft-cap as its score_mod, the
-    causal / window / valid-length mask as its block mask, GQA -- on the
-    same q/k/v (B, S, H, Dh), laid out (B, H, S, Dh) beforehand and
-    untimed.  Held against the plain version at the attention tolerance.
-    The port itself never calls it."""
+    computes the kernel's function -- the soft-cap (if any) as its
+    score_mod, the causal / window / valid-length mask as its block mask,
+    GQA -- on the same q/k/v (B, S, H, Dh), laid out (B, H, S, Dh)
+    beforehand and untimed.  Held against the plain version at the
+    attention tolerance.  The port itself never calls it."""
     from torch.nn.attention.flex_attention import create_block_mask, flex_attention
 
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
     sq, sk = qt.shape[2], kt.shape[2]
 
-    def score_mod(score, b, h, qi, ki):
+    def capped(score, b, h, qi, ki):
         return cap * torch.tanh(score / cap)
+
+    score_mod = None if cap is None else capped
 
     def mask_mod(b, h, qi, ki):
         m = ki >= 0
@@ -628,19 +632,35 @@ def flex_library(torch, plain, q, k, v, cap, reps, causal=True, window=None, val
     return dict(library_ms=gpu_ms(torch, run, reps), library_max_abs_err_vs_plain=err)
 
 
-def phase_k4(torch, dev, smi, B=1, S=8192, H=32, KV=16, Dh=128, cap=50.0, window=4096):
-    """K4 against its plain version at gemma2-27b's layer shape."""
+def phase_k4(torch, dev, smi, B=1, S=8192):
+    """K4 against its plain version at gemma2-27b's global and local layer
+    shapes and at jamba-1.5-large's attention layer, each timed beside one
+    compiled flex_attention call; and the soft-cap's share of K4's error
+    (the global inputs with and without the cap)."""
+    from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
 
-    g = torch.Generator(device=dev)
-    g.manual_seed(4)
+    gem, jam = get_config(GEMMA), get_config(JAMBA)
     bf = torch.bfloat16
-    q = (torch.randn((B, S, H, Dh), generator=g, device=dev) * 4.0).to(bf)
-    k = torch.randn((B, S, KV, Dh), generator=g, device=dev).to(bf)
-    v = torch.randn((B, S, KV, Dh), generator=g, device=dev).to(bf)
+
+    def inputs(cfg, seed):
+        g = torch.Generator(device=dev)
+        g.manual_seed(seed)
+        H, KV, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        q = (torch.randn((B, S, H, Dh), generator=g, device=dev) * 4.0).to(bf)
+        k = torch.randn((B, S, KV, Dh), generator=g, device=dev).to(bf)
+        v = torch.randn((B, S, KV, Dh), generator=g, device=dev).to(bf)
+        return q, k, v
+
+    qkv = {GEMMA: inputs(gem, 4), JAMBA: inputs(jam, 6)}
+    shapes = {"global": (gem, None, gem.attn_logit_softcap),
+              "local": (gem, gem.sliding_window, gem.attn_logit_softcap),
+              "jamba": (jam, None, jam.attn_logit_softcap)}
     rec = {}
-    for label, win in (("global", None), ("local", window)):
-        def run(fn=flash_attention, win=win):
+    for label, (cfg, win, cap) in shapes.items():
+        q, k, v = qkv[cfg.name]
+
+        def run(fn=flash_attention, win=win, cap=cap, q=q, k=k, v=v):
             return fn(q, k, v, causal=True, window=win, logit_cap=cap)
 
         out, plain = run(), run(flash_attention_plain)
@@ -649,22 +669,39 @@ def phase_k4(torch, dev, smi, B=1, S=8192, H=32, KV=16, Dh=128, cap=50.0, window
         check(ok, f"K4 {label}: out vs plain beyond tolerance (max |d| = {err})")
         ms = gpu_ms(torch, run, 10)
         plain_ms = gpu_ms(torch, lambda: run(flash_attention_plain), 2)
-        flops = 4 * B * H * Dh * attn_pairs(S, win)
+        flops = 4 * B * cfg.n_heads * cfg.head_dim * attn_pairs(S, win)
         n_bytes = 2 * (2 * q.numel() + k.numel() + v.numel())
         bms, by = bound_ms(n_bytes, flops, PEAK_BF16_FLOPS)
         lib = flex_library(torch, plain, q, k, v, cap, 10, window=win)
-        rec[label] = dict(window=win, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+        rec[label] = dict(arch=cfg.name, H=cfg.n_heads, KV=cfg.n_kv_heads, Dh=cfg.head_dim,
+                          window=win, softcap=cap, max_abs_err=err,
+                          rel_l2=rel_err(out, plain), ms=ms, plain_ms=plain_ms,
                           bound_ms=bms, bound_by=by, flops=flops, bytes=n_bytes,
                           tflop_per_s=flops / ms / 1e9, **lib)
-    # A second yardstick: SDPA on the same q/k/v, causal, WITHOUT soft-cap
-    # or window (SDPA cannot soft-cap), so not the same function.
+        if lib.get("library_ms"):
+            rec[label]["library_tflop_per_s"] = flops / lib["library_ms"] / 1e9
+        del out, plain
+    # The soft-cap's share of the error: the kernel computes cap * tanh(x / cap)
+    # with tanh.approx.f32, the plain version with the precise tanh.  The same
+    # global inputs without the cap isolate it.
+    q, k, v = qkv[GEMMA]
+    softcap = dict(formula="cap * tanh.approx.f32(x / cap)", cap=gem.attn_logit_softcap,
+                   capped=dict(max_abs_err=rec["global"]["max_abs_err"],
+                               rel_l2=rec["global"]["rel_l2"]))
+    out = flash_attention(q, k, v, causal=True)
+    plain = flash_attention_plain(q, k, v, causal=True)
+    softcap["uncapped"] = dict(max_abs_err=max_abs(out, plain), rel_l2=rel_err(out, plain))
+    del out, plain
+    # A second yardstick: SDPA on gemma2's q/k/v, causal, WITHOUT soft-cap or
+    # window (SDPA cannot soft-cap), so not the same function.
     sdpa = torch.nn.functional.scaled_dot_product_attention
+    G = gem.n_heads // gem.n_kv_heads
     qt = q.transpose(1, 2)
-    kt = k.repeat_interleave(H // KV, dim=2).transpose(1, 2)
-    vt = v.repeat_interleave(H // KV, dim=2).transpose(1, 2)
+    kt = k.repeat_interleave(G, dim=2).transpose(1, 2)
+    vt = v.repeat_interleave(G, dim=2).transpose(1, 2)
     sdpa_ms = gpu_ms(torch, lambda: sdpa(qt, kt, vt, is_causal=True), 10)
-    out = dict(gpu=smi, shape=dict(B=B, S=S, H=H, KV=KV, Dh=Dh, dtype="bfloat16", softcap=cap),
-               results=rec, sdpa_causal_no_softcap_no_window_ms=sdpa_ms)
+    out = dict(gpu=smi, shape=dict(B=B, S=S, dtype="bfloat16"), results=rec, softcap=softcap,
+               sdpa_causal_no_softcap_no_window_ms=sdpa_ms)
     emit({"phase": "k4_flash", **out})
     return out
 
@@ -706,8 +743,22 @@ def phase_k5_long(torch, dev, smi, B=4, S=8192, H=32, KV=16, Dh=128, valid=8000,
     return rec
 
 
+def kernel_class(name):
+    """The profiler's kernel name as a class: cuBLAS/CUTLASS matrix products,
+    PyTorch's native kernels (elementwise, copies, reductions), or one of
+    the port's own kernels (csrc/*.cu, by function name)."""
+    if name.startswith("nvjet") or "gemm" in name:
+        return "matmul"
+    if "at::native::" in name:
+        return "pytorch_native"
+    if "(anonymous namespace)::" in name:
+        return name.split("(anonymous namespace)::")[1].split("<")[0].split("(")[0]
+    return "other"
+
+
 def profile_call(torch, fn):
-    """Device time by kernel over one call of ``fn`` (torch.profiler)."""
+    """Device time by kernel over one call of ``fn`` (torch.profiler): the
+    ten largest kernels and the time of every kernel class."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -727,7 +778,11 @@ def profile_call(torch, fn):
             rows.append((us, e.key, e.count))
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows) / 1e6
+    by_class = {}
+    for us, key, _ in rows:
+        by_class[kernel_class(key)] = by_class.get(kernel_class(key), 0.0) + us / 1e3
     return dict(wall_s=wall, device_busy_s=busy, idle_share=max(0.0, 1 - busy / wall),
+                ms_by_class=by_class,
                 top=[dict(kernel=k[:90], ms=us / 1e3, calls=c) for us, k, c in rows[:10]])
 
 

@@ -118,6 +118,12 @@ def _qkv(seed, b, s, h, kv, d, dtype, dev, q_scale=4.0):
         (1, 190, 6, 2, 128, True, 64, 30.0),
         (2, 128, 8, 8, 32, False, None, 50.0),       # non-causal
         (1, 64, 4, 2, 64, True, 1, None),            # window 1: the diagonal only
+        (1, 300, 64, 8, 128, True, None, None),      # jamba heads, no soft-cap
+        (2, 1, 4, 2, 64, True, None, 50.0),          # S = 1
+        (1, 129, 4, 2, 128, True, None, 50.0),       # one past a 128-key tile
+        (1, 700, 4, 2, 128, True, 128, 50.0),        # window = one key tile
+        (1, 200, 4, 2, 64, True, 500, None),         # window longer than S
+        (2, 333, 4, 2, 128, False, None, 50.0),      # non-causal, ragged S
     ],
 )
 def test_k4_matches_plain(dev, b, s, h, kv, d, causal, window, cap):
