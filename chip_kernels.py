@@ -1,0 +1,102 @@
+#!/usr/bin/env python3
+"""Times the port's kernels K1, K2, K3 and K5 of one checkout on the card.
+
+    python3 chip_kernels.py [--src DIR]
+
+``--src`` names the ``src/`` directory whose ``repro_torch`` is timed
+(default: this checkout's), so that two checkouts can be compared on one
+card in one call, in turns: ``--src A/src``, ``--src B/src``, ``--src
+B/src``, ``--src A/src``, each in its own process.  Every kernel runs on
+``chip_smoke.py``'s inputs at that script's shapes (K1: 192 cells at K = 10
+and K = 100; K2: 8 cells at K = 10^4, top_m 128; K3: the §VI grid's 192
+cells x 300 rounds x K = 10 on seeded gains; K5: the long cache) and is
+timed two ways: ``ms``, back-to-back wrapper calls between two CUDA events
+(``chip_smoke.gpu_ms``), and ``device_ms``, the sum of its kernels in a
+torch.profiler reading (``chip_smoke.device_ms``); a digest of its outputs
+says whether two checkouts compute the same bits.  Prints the card's name
+and power limit and one JSON line.  Needs a CUDA device; imports nothing of
+JAX.
+"""
+from __future__ import annotations
+
+import argparse
+import hashlib
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--src", default=str(ROOT / "src"))
+    args = ap.parse_args()
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_kernels: no CUDA device", file=sys.stderr)
+        return 2
+    src = Path(args.src).resolve()
+    sys.path.insert(0, str(src))
+    sys.path.insert(1, str(ROOT))
+    import chip_smoke as cs
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.ocean_p import ocean_p_prefix, ocean_p_topm
+    from repro_torch.kernels.ocean_traj import ocean_traj
+
+    dev = torch.device("cuda")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=30,
+    ).stdout.strip()
+    rec = {}
+
+    def timed(name, fn, reps):
+        """Both times, the device time by kernel, and a digest of the outputs
+        (the first 16 hex digits of their bytes' SHA-256), which tells
+        whether two checkouts compute the same bits."""
+        out = fn()
+        outs = out if isinstance(out, tuple) else (out,)
+        h = hashlib.sha256()
+        for t in outs:
+            h.update(t.detach().contiguous().cpu().view(torch.uint8).numpy().tobytes())
+        dev_ms, by_kernel, seen = cs.device_ms(torch, fn, reps)
+        rec[name] = dict(ms=cs.gpu_ms(torch, fn, reps), device_ms=dev_ms,
+                         device_ms_by_kernel=by_kernel, device_records_seen=seen,
+                         digest=h.hexdigest()[:16],
+                         clocks_sm_mem_power_temp=cs.clocks())
+
+    for K in (10, 100):
+        scal, rho, _ = cs._k1_inputs(torch, np, dev, 192, K, seed=K)
+        timed(f"k1_K{K}", lambda scal=scal, rho=rho: ocean_p_prefix(scal, rho), 20)
+
+    scal, work, *_ = cs._k2_inputs(torch, np, dev, 8, 10_000, 1e-5, 1.0, 128)
+    timed("k2", lambda: ocean_p_topm(scal, work, K=10_000, top_m=128), 10)
+
+    from repro_torch.core.patterns import eta_schedule
+    from repro_torch.sim import GridEngine
+
+    T, K, cells = 300, 10, 192
+    scen, pols, _ = cs._grid_args(T, K, 64)
+    cfg = GridEngine(scen, pols, solver="pallas", traj="fused", device=dev).cfg
+    rng = np.random.default_rng(3)
+    h2c = torch.tensor(rng.exponential(size=(cells, T, K)).astype(np.float32) * 2.5e-4,
+                       device=dev)
+    inc = torch.full_like(h2c, 0.15 / T)
+    eta = eta_schedule("uniform", T, device=dev).expand(cells, T).contiguous()
+    vv = torch.full((cells, T), 1e-5, device=dev)
+    timed("k3", lambda: ocean_traj(cfg, h2c, vv, eta, inc), 5)
+
+    qd, kc, vc, vl = cs._k5_inputs(torch, dev, 4, 8192, 32, 16, 128, 8000)
+    timed("k5", lambda: decode_attention(qd, kc, vc, vl, logit_cap=50.0), 50)
+
+    print(smi, flush=True)
+    print(json.dumps({"src": str(src), "gpu": smi, "kernels": rec}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -39,9 +39,11 @@ Each phase prints one JSON line; any failed check raises and the script
 exits non-zero.  The last lines are the card's name and power limit, the
 ``kernels`` record (time on the card, plain version's time, bound, launches
 and error of every kernel, and the time of one library call computing the
-same function where there is one: ``flex_attention`` for K4 and K5; K7
-also carries ``yardstick_ms``, the JAX package's chunked matrix form of
-the WKV scan in eager PyTorch), and ``{"ok": true, "device": {...}}``.  It
+same function where there is one: ``flex_attention`` for K4 and K5; K1,
+K4 and K5 also carry ``device_ms``, the profiler's kernel time per call,
+and K4/K5 flex_attention's as ``library_device_ms``; K7 also carries
+``yardstick_ms``, the JAX package's chunked matrix form of the WKV scan
+in eager PyTorch), and ``{"ok": true, "device": {...}}``.  It
 needs a CUDA device and the repository's ``src/`` beside it, and imports
 nothing of JAX.
 """
@@ -117,7 +119,8 @@ CROSS_REL = 1e-4
 OPS_F_PRIME = 9
 OPS_F_SECOND = 11
 OPS_F_SHANNON = 7
-OPS_NEWTON_STEP = OPS_F_PRIME + OPS_F_SECOND + 12
+# f''(b) reuses f'(b)'s max, division, clip and exp2 inside b_of_lam's step.
+OPS_NEWTON_STEP = OPS_F_PRIME + (OPS_F_SECOND - 4) + 12
 OPS_B_OF_LAM_SETUP = 21 + 2 * OPS_F_PRIME + 2 + 4
 
 
@@ -167,6 +170,54 @@ def gpu_ms(torch, fn, reps):
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / reps
+
+
+def device_ms(torch, fn, reps):
+    """Device time per call of ``fn`` from a ``torch.profiler`` reading of
+    ``reps`` calls (after one warm-up): each kernel's mean duration times
+    the times one call launches it (its count over ``reps``, rounded up),
+    summed; also by kernel, and the share of those launches the reading
+    recorded.  Unlike ``gpu_ms`` it leaves out the host and the gaps
+    between kernels.  Means, not sums over the calls: later readings in a
+    long process can miss some of a kernel's records (seen on the H100: a
+    sum over calls half of the graph-replayed time), which a mean does not
+    feel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    by_kernel, seen, launched = {}, 0, 0
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA or e.count == 0:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0)
+        if us > 0:
+            per_call = math.ceil(e.count / reps)
+            name = kernel_class(e.key)
+            name = e.key[:80] if name == "other" else name
+            by_kernel[name] = by_kernel.get(name, 0.0) + us / e.count / 1e3 * per_call
+            seen, launched = seen + e.count, launched + per_call * reps
+    check(by_kernel, "device_ms: the profiler saw no kernel")
+    return sum(by_kernel.values()), by_kernel, seen / launched
+
+
+def clocks():
+    """The card's SM and memory clocks, power draw and temperature as
+    ``nvidia-smi`` reads them now (a reading beside a timing window)."""
+    try:
+        return subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.sm,clocks.mem,power.draw,temperature.gpu",
+             "--format=csv,noheader"], capture_output=True, text=True, timeout=30,
+        ).stdout.strip()
+    except (OSError, subprocess.SubprocessError):
+        return "not readable"
 
 
 def draws(np, rng, C, K, zero_frac=0.2, tie_eps=None):
@@ -248,36 +299,47 @@ def phase_k1(torch, np, dev, smi, C=192, Ks=(10, 100)):
         ops = ops_sweep(counts, OUTER_ITERS, INNER_ITERS)
         n_bytes = 4 * (scal.numel() + rho.numel() + b_k.numel() + wm_k.numel())
         ms = gpu_ms(torch, lambda: ocean_p_prefix(scal, rho), 20)
+        dev_ms, _, seen = device_ms(torch, lambda: ocean_p_prefix(scal, rho), 20)
         plain_ms = gpu_ms(torch, lambda: ocean_p_prefix_plain(scal, rho), 3)
         bms, by = bound_ms(n_bytes, ops)
         rec[K] = dict(
             cells=C, K=K, max_abs_err_b=err_b, max_rel_err_w=rel_w,
-            mean_m_star=m_k.mean().item(), ms=ms, plain_ms=plain_ms,
+            mean_m_star=m_k.mean().item(), ms=ms, device_ms=dev_ms,
+            device_records_seen=seen, plain_ms=plain_ms,
             bound_ms=bms, bound_by=by, ops=ops, bytes=n_bytes,
         )
     emit({"phase": "k1_ocean_p_prefix", "gpu": smi, "results": rec})
     return rec
 
 
-def phase_k2(torch, np, dev, smi, C=8, K=10_000, top_m=128, block_k=128, oracle_cells=2):
+def _k2_inputs(torch, np, dev, C, K, v, eta, block_k):
+    """Seeded K2 inputs: queues and gains with twin near ties, the client
+    row padded with +inf to a ``block_k`` multiple, and ``scal``."""
     from repro_torch.core.energy import RadioParams
-    from repro_torch.core.selection import _RHO_ZERO_TOL, ocean_p, priorities
-    from repro_torch.kernels.ocean_p import (
-        INNER_ITERS, OUTER_ITERS, _scal, ocean_p_topm, ocean_p_topm_plain,
-    )
+    from repro_torch.core.selection import _RHO_ZERO_TOL, priorities
+    from repro_torch.kernels.ocean_p import _scal
 
     radio = RadioParams(b_min=0.1 / K)
-    rng = np.random.default_rng(2024)
-    q, h2 = draws(np, rng, C, K, tie_eps=1e-4)
-    v, eta = 1e-5, 1.0
+    q, h2 = draws(np, np.random.default_rng(2024), C, K, tie_eps=1e-4)
     qt, ht = torch.tensor(q, device=dev), torch.tensor(h2, device=dev)
     rho = priorities(qt, ht)
     n0 = (rho <= _RHO_ZERO_TOL).sum(1)
     delta = 1.0 - n0.to(torch.float32) * radio.b_min
-    K_pad = -(-K // block_k) * block_k
     work = torch.where(rho > _RHO_ZERO_TOL, rho, torch.inf)
-    work = torch.nn.functional.pad(work, (0, K_pad - K), value=torch.inf).contiguous()
+    work = torch.nn.functional.pad(work, (0, -K % block_k), value=torch.inf).contiguous()
     scal = _scal(n0, delta, torch.full((C,), v * eta, device=dev), radio, rho)
+    return scal, work, qt, ht, n0, radio
+
+
+def phase_k2(torch, np, dev, smi, C=8, K=10_000, top_m=128, block_k=128, oracle_cells=2):
+    from repro_torch.core.selection import ocean_p
+    from repro_torch.kernels.ocean_p import (
+        INNER_ITERS, OUTER_ITERS, ocean_p_topm, ocean_p_topm_plain,
+    )
+
+    v, eta = 1e-5, 1.0
+    scal, work, qt, ht, n0, radio = _k2_inputs(torch, np, dev, C, K, v, eta, block_k)
+    K_pad = work.shape[1]
 
     b_k, wm_k = ocean_p_topm(scal, work, K=K, top_m=top_m)
     b_p, wm_p = ocean_p_topm_plain(scal, work, K=K, top_m=top_m)
@@ -494,10 +556,16 @@ def phase_scan(torch, dev, smi, res_fused, near_cells, T=300, K=10, seeds=64):
           f"scan vs fused: {int((~same & ~near).sum())} cells differ without a near tie")
     err = (res.b[same] - res_fused.b[same]).abs().max().item()
     check(err <= B_ATOL, f"scan vs fused: max |b| diff {err}")
+    # Where the scan's wall goes: device busy and idle share, K1's share.
+    try:
+        prof = profile_call(torch, lambda: run_grid(scen, pols, sd, solver="pallas",
+                                                    traj="scan", device=dev))
+    except Exception as exc:  # the profiler is a reading, not a check
+        prof = {"error": repr(exc)}
     out = dict(gpu=smi, launches=launches, wall_s=wall,
                rounds_cells_per_s=P * S * N * T / wall,
                cells=int(same.numel()), cells_identical_decisions=int(same.sum()),
-               cells_with_near_tie=int(near.sum()), max_abs_err_b=err)
+               cells_with_near_tie=int(near.sum()), max_abs_err_b=err, profile=prof)
     emit({"phase": "k1_scan_path", **out})
     return out
 
@@ -595,7 +663,8 @@ def flex_library(torch, plain, q, k, v, cap, reps, causal=True, window=None, val
     score_mod, the causal / window / valid-length mask as its block mask,
     GQA -- on the same q/k/v (B, S, H, Dh), laid out (B, H, S, Dh)
     beforehand and untimed.  Held against the plain version at the
-    attention tolerance.  The port itself never calls it."""
+    attention tolerance; its ``device_ms`` reading is ``library_device_ms``.
+    The port itself never calls it."""
     from torch.nn.attention.flex_attention import create_block_mask, flex_attention
 
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
@@ -629,7 +698,10 @@ def flex_library(torch, plain, q, k, v, cap, reps, causal=True, window=None, val
         return dict(library_ms=None, library_error=repr(exc)[:400])
     err, ok = att_close(out, plain)
     check(ok, f"flex_attention vs plain beyond tolerance (max |d| = {err}): not the same function")
-    return dict(library_ms=gpu_ms(torch, run, reps), library_max_abs_err_vs_plain=err)
+    dev, by_kernel, seen = device_ms(torch, run, reps)
+    return dict(library_ms=gpu_ms(torch, run, reps), library_device_ms=dev,
+                library_device_ms_by_kernel=by_kernel, library_device_records_seen=seen,
+                library_max_abs_err_vs_plain=err)
 
 
 def phase_k4(torch, dev, smi, B=1, S=8192):
@@ -668,6 +740,7 @@ def phase_k4(torch, dev, smi, B=1, S=8192):
         err, ok = att_close(out, plain)
         check(ok, f"K4 {label}: out vs plain beyond tolerance (max |d| = {err})")
         ms = gpu_ms(torch, run, 10)
+        dev_ms, _, seen = device_ms(torch, run, 10)
         plain_ms = gpu_ms(torch, lambda: run(flash_attention_plain), 2)
         flops = 4 * B * cfg.n_heads * cfg.head_dim * attn_pairs(S, win)
         n_bytes = 2 * (2 * q.numel() + k.numel() + v.numel())
@@ -675,7 +748,8 @@ def phase_k4(torch, dev, smi, B=1, S=8192):
         lib = flex_library(torch, plain, q, k, v, cap, 10, window=win)
         rec[label] = dict(arch=cfg.name, H=cfg.n_heads, KV=cfg.n_kv_heads, Dh=cfg.head_dim,
                           window=win, softcap=cap, max_abs_err=err,
-                          rel_l2=rel_err(out, plain), ms=ms, plain_ms=plain_ms,
+                          rel_l2=rel_err(out, plain), ms=ms, device_ms=dev_ms,
+                          device_records_seen=seen, plain_ms=plain_ms,
                           bound_ms=bms, bound_by=by, flops=flops, bytes=n_bytes,
                           tflop_per_s=flops / ms / 1e9, **lib)
         if lib.get("library_ms"):
@@ -706,28 +780,45 @@ def phase_k4(torch, dev, smi, B=1, S=8192):
     return out
 
 
-def phase_k5_long(torch, dev, smi, B=4, S=8192, H=32, KV=16, Dh=128, valid=8000, cap=50.0):
-    """K5 against its plain version on a long cache."""
-    from repro_torch.kernels.decode_attention import decode_attention, decode_attention_plain
-
+def _k5_inputs(torch, dev, B, S, H, KV, Dh, valid):
+    """Seeded bf16 q (B, H, Dh), caches (B, S, KV, Dh) and an int64 valid_len."""
     g = torch.Generator(device=dev)
     g.manual_seed(5)
     bf = torch.bfloat16
     q = (torch.randn((B, H, Dh), generator=g, device=dev) * 4.0).to(bf)
     kc = torch.randn((B, S, KV, Dh), generator=g, device=dev).to(bf)
     vc = torch.randn((B, S, KV, Dh), generator=g, device=dev).to(bf)
-    vl = torch.tensor(valid, device=dev)
+    return q, kc, vc, torch.tensor(valid, device=dev)
+
+
+def phase_k5_long(torch, dev, smi, B=4, S=8192, H=32, KV=16, Dh=128, valid=8000, cap=50.0):
+    """K5 against its plain version on a long cache."""
+    from repro_torch.kernels.decode_attention import decode_attention, decode_attention_plain
+
+    q, kc, vc, vl = _k5_inputs(torch, dev, B, S, H, KV, Dh, valid)
     out = decode_attention(q, kc, vc, vl, logit_cap=cap)
     plain = decode_attention_plain(q, kc, vc, vl, logit_cap=cap)
     err, ok = att_close(out, plain)
     check(ok, f"K5 long cache: out vs plain beyond tolerance (max |d| = {err})")
+    # valid_len as an int64 tensor (the kernel reads it where it lies), an
+    # int32 one and a Python int: the same output.
+    for alt in (vl.to(torch.int32), valid):
+        check(torch.equal(decode_attention(q, kc, vc, alt, logit_cap=cap), out),
+              f"K5 long cache: valid_len as {type(alt).__name__} changes the output")
     ms = gpu_ms(torch, lambda: decode_attention(q, kc, vc, vl, logit_cap=cap), 50)
+    dev_ms, dev_by_kernel, seen = device_ms(
+        torch, lambda: decode_attention(q, kc, vc, vl, logit_cap=cap), 50)
+    clocks_after = clocks()
     plain_ms = gpu_ms(torch, lambda: decode_attention_plain(q, kc, vc, vl, logit_cap=cap), 3)
     flops = 4 * B * H * valid * Dh
     n_bytes = 2 * (2 * B * valid * KV * Dh + 2 * q.numel())
     bms, by = bound_ms(n_bytes, flops, PEAK_BF16_FLOPS)
     lib = flex_library(torch, plain[:, None], q[:, None], kc, vc, cap, 50, causal=False,
                        valid_len=valid)
+    # The soft-cap's share of the error: tanh.approx.f32 in the kernel, the
+    # precise tanh in the plain version; the same inputs without the cap.
+    out_nc, plain_nc = decode_attention(q, kc, vc, vl), decode_attention_plain(q, kc, vc, vl)
+    nocap = dict(max_abs_err=max_abs(out_nc, plain_nc), rel_l2=rel_err(out_nc, plain_nc))
     # A second yardstick: SDPA over the valid slots, WITHOUT the soft-cap.
     sdpa = torch.nn.functional.scaled_dot_product_attention
     qt = q[:, :, None]
@@ -736,8 +827,13 @@ def phase_k5_long(torch, dev, smi, B=4, S=8192, H=32, KV=16, Dh=128, valid=8000,
     sdpa_ms = gpu_ms(torch, lambda: sdpa(qt, kt, vt), 50)
     rec = dict(gpu=smi, shape=dict(B=B, S=S, H=H, KV=KV, Dh=Dh, valid_len=valid,
                                    dtype="bfloat16", softcap=cap),
-               max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+               max_abs_err=err, rel_l2=rel_err(out, plain), uncapped=nocap,
+               ms=ms, device_ms=dev_ms, device_ms_by_kernel=dev_by_kernel,
+               device_records_seen=seen,
+               clocks_sm_mem_power_temp=clocks_after,
+               plain_ms=plain_ms, bound_ms=bms, bound_by=by,
                flops=flops, bytes=n_bytes, gb_per_s=n_bytes / ms / 1e6,
+               device_gb_per_s=n_bytes / dev_ms / 1e6, hbm_share=bms / dev_ms,
                sdpa_no_softcap_ms=sdpa_ms, **lib)
     emit({"phase": "k5_long_cache", **rec})
     return rec
@@ -1433,8 +1529,8 @@ def main() -> int:
              replaces="src/repro/kernels/ocean_p.py:48",
              launches=scan["launches"]["ocean_p_prefix"],
              max_abs_err=max(r["max_abs_err_b"] for r in k1.values()),
-             ms=k1_main["ms"], plain_ms=k1_main["plain_ms"], bound_ms=k1_main["bound_ms"],
-             bound_by=k1_main["bound_by"], library_ms=None),
+             ms=k1_main["ms"], device_ms=k1_main["device_ms"], plain_ms=k1_main["plain_ms"],
+             bound_ms=k1_main["bound_ms"], bound_by=k1_main["bound_by"], library_ms=None),
         dict(name="ocean_p_topm", route="cuda", source="src/repro_torch/csrc/ocean_p.cu",
              replaces="src/repro/kernels/ocean_p.py:232",
              launches=topm["launches"]["ocean_p_topm"], max_abs_err=k2["max_abs_err_b"],
@@ -1449,16 +1545,19 @@ def main() -> int:
              replaces="src/repro/kernels/flash_attention.py:32",
              launches=prefill["k4_launches"],
              max_abs_err=max(r["max_abs_err"] for r in k4["results"].values()),
-             ms=k4["results"]["global"]["ms"], plain_ms=k4["results"]["global"]["plain_ms"],
+             ms=k4["results"]["global"]["ms"], device_ms=k4["results"]["global"]["device_ms"],
+             plain_ms=k4["results"]["global"]["plain_ms"],
              bound_ms=k4["results"]["global"]["bound_ms"],
              bound_by=k4["results"]["global"]["bound_by"],
-             library_ms=k4["results"]["global"]["library_ms"]),
+             library_ms=k4["results"]["global"]["library_ms"],
+             library_device_ms=k4["results"]["global"].get("library_device_ms")),
         dict(name="decode_attention", route="cuda", source="src/repro_torch/csrc/decode_attention.cu",
              replaces="src/repro/kernels/decode_attention.py:27",
              launches=serve["launches"]["decode_attention"],
              max_abs_err=max(k5["max_abs_err"], serve["k5_max_abs_err_vs_attention_decode"]),
-             ms=k5["ms"], plain_ms=k5["plain_ms"], bound_ms=k5["bound_ms"],
-             bound_by=k5["bound_by"], library_ms=k5["library_ms"]),
+             ms=k5["ms"], device_ms=k5["device_ms"], plain_ms=k5["plain_ms"],
+             bound_ms=k5["bound_ms"], bound_by=k5["bound_by"], library_ms=k5["library_ms"],
+             library_device_ms=k5.get("library_device_ms")),
         dict(name="mamba_scan", route="cuda", source="src/repro_torch/csrc/mamba_scan.cu",
              replaces="src/repro/kernels/mamba_scan.py:27",
              launches=jamba_prefill["launches"]["mamba_scan"],

@@ -1,6 +1,8 @@
 // Shared device code of the OCEAN kernels (K1 ocean_p_prefix, K2 ocean_p_topm,
 // K3 ocean_traj): the Shannon-inversion math, the safeguarded Newton
-// waterfilling of one P4 candidate, and the sequential K+1-prefix sweep.
+// waterfilling of one P4 candidate, and two K+1-prefix sweeps over it: the
+// sequential one (a block walks the candidates in order; K2, K3) and the
+// candidate-parallel one (a warp per candidate; K1).
 //
 // The math follows the reference line for line:
 //   f, f', f''            repro/core/energy.py:128-151
@@ -11,10 +13,12 @@
 // for op (no FMA contraction, exp2 rounded from double); the two differ
 // only in the order of block sums.
 //
-// Layout: one thread block owns one cell.  Every block-uniform scalar
-// (lam, its bracket, the running argmax) is computed redundantly by all
-// threads from block reductions whose results every thread reads, so all
-// branches around __syncthreads() are uniform.
+// Layout: one thread block owns one cell.  A candidate is evaluated by a
+// team: the whole block (sequential sweep) or one warp (parallel sweep).
+// Every team-uniform scalar (lam, its bracket, the running argmax) is
+// computed redundantly by all of the team's threads from team reductions
+// whose results every thread reads, so all branches around
+// __syncthreads() are uniform.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -86,11 +90,17 @@ __device__ float b_of_lam(float lam, float rho, float beta, float b_min,
   const bool at_min = f_prime(lo, beta) >= t;
   const bool at_max = f_prime(hi, beta) <= t;
   for (int i = 0; i < iters; ++i) {
-    const float g = f_prime(b, beta) - t;
+    // f'(b) and f''(b) of f_prime / f_second, op for op, sharing their one
+    // 2^{beta/b}: the same pure function of the same argument.
+    const float sb = jmax(b, kSafeDivFloor);
+    const float y = beta / sb;
+    const float p2 = exp2_clipped(y);
+    const float g = (p2 * (1.f - kLn2 * y) - 1.f) - t;
+    const float fs = (kLn2 * kLn2) * p2 * (beta * beta) / (sb * sb * sb);
     const bool below = g < 0.f;
     lo = below ? b : lo;
     hi = below ? hi : b;
-    const float bn = b - g / jmax(f_second(b, beta), 1e-30f);
+    const float bn = b - g / jmax(fs, 1e-30f);
     const bool ok = (bn >= lo) && (bn <= hi) && isfinite(bn);
     b = ok ? bn : 0.5f * (lo + hi);
   }
@@ -182,118 +192,228 @@ __device__ void block_argmin(float& v, int& i, float* scratch_v, int* scratch_i)
 }
 
 // ---------------------------------------------------------------------------
-// The K+1-prefix sweep of P3 (Theorem 1), candidates in order, keeping only
-// the running argmax (strict >: ties keep the smaller m).
+// Teams.  A team evaluates one candidate: its threads stride over the
+// candidate's members from ``tid`` by ``nt`` and reduce with ``all`` /
+// ``sum2``.  A 32-thread block and a warp reduce alike (warp_all), so at
+// K <= 32 the two sweeps compute every W and b with the same operations
+// in the same order.
+// ---------------------------------------------------------------------------
+struct BlockTeam {
+  int tid, nt;
+  float* scratch;
+  __device__ BlockTeam(float* s) : tid(threadIdx.x), nt(blockDim.x), scratch(s) {}
+  template <class Op>
+  __device__ float all(float v) const { return block_all<Op>(v, scratch); }
+  __device__ float2 sum2(float a, float b) const { return block_sum2(a, b, scratch); }
+};
+
+struct WarpTeam {
+  int tid, nt;
+  __device__ WarpTeam() : tid(threadIdx.x & 31), nt(32) {}
+  template <class Op>
+  __device__ float all(float v) const { return warp_all<Op>(v); }
+  __device__ float2 sum2(float a, float b) const {
+    return make_float2(warp_all<Sum>(a), warp_all<Sum>(b));
+  }
+};
+
+// ---------------------------------------------------------------------------
+// One candidate m of P3 (Theorem 1): the safeguarded-Newton waterfilling of
+// its members, the exact budget repair, and its objective W.
 //
 //   rho[0, L)      the ranked priorities (shared memory)
 //   start          first slot of the positive-rho region: candidate m owns
 //                  slots [start, start + m)
-//   n_cands        candidates m = 1..n_cands are considered (m = 0 always is)
 //   n0f, kf        |S0| and K: W = V eta (n0 + m) - scale cost; m <= K - n0
-//   mask_nonfinite K2's rule: a non-finite W is not an answer
-//   b, best        shared scratch of L floats; ``best`` ends as the winner's
-//                  allocation (0 outside it)
-// Candidates whose W the reference would set to NEG_INF (infeasible m, or a
-// member with rho = +inf, whose cost is +inf or NaN) are skipped: they can
-// never win the strict comparison, so the result is the same.
+//   b              the team's row of L floats; ends as the allocation of
+//                  slots [start, start + m), each written and read by the
+//                  thread that owns it ((i - start) % nt == tid)
+// Returns false, computing nothing, for a candidate whose W the reference
+// would set to NEG_INF: an infeasible m, or a member with rho = +inf (whose
+// cost is +inf or NaN).  Both conditions are monotone in m.
 // ---------------------------------------------------------------------------
 struct SweepParams {
   float n0f, kf, delta, v_eta, beta, b_min, scale;
   int outer, inner;
 };
 
+template <class Team>
+__device__ bool candidate_w(const Team& tm, const float* rho, int L, int start, int m,
+                            const SweepParams& p, float fp_min, float* b, float& w_out) {
+  const float mf = (float)m;
+  if (!(mf <= p.kf - p.n0f) || start + m > L) return false;
+  const int lo_i = start, hi_i = start + m;
+  const float b_max = jmax(p.delta - jmax(mf - 1.f, 0.f) * p.b_min, p.b_min);
+
+  float mx = 0.f, mn = INFINITY;
+  for (int i = lo_i + tm.tid; i < hi_i; i += tm.nt) {
+    mx = jmax(mx, rho[i]);
+    mn = jmin(mn, rho[i]);
+  }
+  const float rho_max = tm.template all<Max>(mx);
+  if (!isfinite(rho_max)) return false;
+  float rho_min = tm.template all<Min>(mn);
+  rho_min = isfinite(rho_min) ? rho_min : 0.f;
+
+  const float lam_hi = rho_max * fp_min * 1.000001f + 1e-30f;
+  const float b_eq = jclip(p.delta / jmax(mf, 1.f), p.b_min, b_max);
+  float lam = jclip(sqrtf(jmax(rho_min * rho_max, 1e-30f)) *
+                        jmax(-f_prime(b_eq, p.beta), 1e-30f),
+                    0.f, lam_hi);
+  float lo = 0.f, hi = lam_hi;
+
+  for (int it = 0; it < p.outer; ++it) {
+    float rs = 0.f, ds = 0.f;
+    for (int i = lo_i + tm.tid; i < hi_i; i += tm.nt) {
+      const float bi = b_of_lam(lam, rho[i], p.beta, p.b_min, b_max, p.inner);
+      rs += bi;
+      if (bi > p.b_min && bi < b_max)
+        ds += -1.f / (jmax(rho[i], 1e-30f) * jmax(f_second(bi, p.beta), 1e-30f));
+    }
+    const float2 s = tm.sum2(rs, ds);
+    const float r = s.x - p.delta;
+    const bool too_big = r > 0.f;
+    lo = too_big ? lam : lo;
+    hi = too_big ? hi : lam;
+    const float lam_n = lam - r / jmin(s.y, -1e-30f);
+    const bool ok = (lam_n >= lo) && (lam_n <= hi) && isfinite(lam_n);
+    lam = ok ? lam_n : sqrtf(jmax(lo, 1e-6f * hi) * jmax(hi, 1e-30f));
+  }
+
+  // Final allocation and the exact budget repair.
+  float sb = 0.f;
+  for (int i = lo_i + tm.tid; i < hi_i; i += tm.nt) {
+    const float bi = b_of_lam(lam, rho[i], p.beta, p.b_min, b_max, p.inner);
+    b[i] = bi;
+    sb += bi;
+  }
+  const float s = tm.template all<Sum>(sb);
+  float hr = 0.f, sl = 0.f;
+  for (int i = lo_i + tm.tid; i < hi_i; i += tm.nt) {
+    hr += jmax(b_max - b[i], 0.f);
+    sl += jmax(b[i] - p.b_min, 0.f);
+  }
+  const float2 hs = tm.sum2(hr, sl);
+  const float residual = p.delta - s;
+  const float hden = jmax(hs.x, 1e-30f), sden = jmax(hs.y, 1e-30f);
+  float cs = 0.f;
+  for (int i = lo_i + tm.tid; i < hi_i; i += tm.nt) {
+    float bi = b[i];
+    bi = residual >= 0.f ? bi + residual * (jmax(b_max - bi, 0.f) / hden)
+                         : bi + residual * (jmax(bi - p.b_min, 0.f) / sden);
+    bi = jclip(bi, p.b_min, b_max);
+    b[i] = bi;
+    cs += rho[i] * f_shannon(jmax(bi, p.b_min), p.beta);
+  }
+  const float cost = tm.template all<Sum>(cs);
+  w_out = p.v_eta * (p.n0f + mf) - p.scale * cost;
+  return true;
+}
+
+// W of m = 0: nothing selected beyond S0, cost 0.
+__device__ __forceinline__ float w_of_none(const SweepParams& p, bool mask_nonfinite) {
+  float w = p.v_eta * (p.n0f + 0.f) - p.scale * 0.f;
+  if (mask_nonfinite && !isfinite(w)) w = kNegInf;
+  return w;
+}
+
+// ---------------------------------------------------------------------------
+// The sequential K+1-prefix sweep: the block is one team and walks the
+// candidates m = 1..n_cands in order, keeping only the running argmax
+// (strict >: ties keep the smaller m, NaN never wins).
+//
+//   mask_nonfinite K2's rule: a non-finite W is not an answer
+//   b, best        shared scratch of L floats; ``best`` ends as the winner's
+//                  allocation (0 outside it)
+// The first masked candidate ends the sweep: every larger m is masked too.
+// ---------------------------------------------------------------------------
 __device__ void prefix_sweep(const float* rho, int L, int start, int n_cands,
                              const SweepParams& p, bool mask_nonfinite,
                              float* b, float* best, float* scratch,
                              float& w_out, float& m_out) {
-  const int tid = threadIdx.x, nt = blockDim.x;
-  for (int i = tid; i < L; i += nt) best[i] = 0.f;
+  const BlockTeam tm(scratch);
+  for (int i = tm.tid; i < L; i += tm.nt) best[i] = 0.f;
   __syncthreads();  // the winner copy below maps slots to threads differently
-  // m = 0: nothing selected beyond S0, cost 0.
-  float best_w = p.v_eta * (p.n0f + 0.f) - p.scale * 0.f;
-  if (mask_nonfinite && !isfinite(best_w)) best_w = kNegInf;
+  float best_w = w_of_none(p, mask_nonfinite);
   float best_m = 0.f;
   const float fp_min = -f_prime(p.b_min, p.beta);
 
   for (int m = 1; m <= n_cands; ++m) {
-    const float mf = (float)m;
-    if (!(mf <= p.kf - p.n0f) || start + m > L) break;  // infeasible from here on
-    const int lo_i = start, hi_i = start + m;
-    const float b_max = jmax(p.delta - jmax(mf - 1.f, 0.f) * p.b_min, p.b_min);
-
-    float mx = 0.f, mn = INFINITY;
-    for (int i = lo_i + tid; i < hi_i; i += nt) {
-      mx = jmax(mx, rho[i]);
-      mn = jmin(mn, rho[i]);
-    }
-    const float rho_max = block_all<Max>(mx, scratch);
-    if (!isfinite(rho_max)) break;  // +inf member: this and every larger m lose
-    float rho_min = block_all<Min>(mn, scratch);
-    rho_min = isfinite(rho_min) ? rho_min : 0.f;
-
-    const float lam_hi = rho_max * fp_min * 1.000001f + 1e-30f;
-    const float b_eq = jclip(p.delta / jmax(mf, 1.f), p.b_min, b_max);
-    float lam = jclip(sqrtf(jmax(rho_min * rho_max, 1e-30f)) *
-                          jmax(-f_prime(b_eq, p.beta), 1e-30f),
-                      0.f, lam_hi);
-    float lo = 0.f, hi = lam_hi;
-
-    for (int it = 0; it < p.outer; ++it) {
-      float rs = 0.f, ds = 0.f;
-      for (int i = lo_i + tid; i < hi_i; i += nt) {
-        const float bi = b_of_lam(lam, rho[i], p.beta, p.b_min, b_max, p.inner);
-        rs += bi;
-        if (bi > p.b_min && bi < b_max)
-          ds += -1.f / (jmax(rho[i], 1e-30f) * jmax(f_second(bi, p.beta), 1e-30f));
-      }
-      const float2 s = block_sum2(rs, ds, scratch);
-      const float r = s.x - p.delta;
-      const bool too_big = r > 0.f;
-      lo = too_big ? lam : lo;
-      hi = too_big ? hi : lam;
-      const float lam_n = lam - r / jmin(s.y, -1e-30f);
-      const bool ok = (lam_n >= lo) && (lam_n <= hi) && isfinite(lam_n);
-      lam = ok ? lam_n : sqrtf(jmax(lo, 1e-6f * hi) * jmax(hi, 1e-30f));
-    }
-
-    // Final allocation and the exact budget repair.
-    float sb = 0.f;
-    for (int i = lo_i + tid; i < hi_i; i += nt) {
-      const float bi = b_of_lam(lam, rho[i], p.beta, p.b_min, b_max, p.inner);
-      b[i] = bi;
-      sb += bi;
-    }
-    const float s = block_all<Sum>(sb, scratch);
-    float hr = 0.f, sl = 0.f;
-    for (int i = lo_i + tid; i < hi_i; i += nt) {
-      hr += jmax(b_max - b[i], 0.f);
-      sl += jmax(b[i] - p.b_min, 0.f);
-    }
-    const float2 hs = block_sum2(hr, sl, scratch);
-    const float residual = p.delta - s;
-    const float hden = jmax(hs.x, 1e-30f), sden = jmax(hs.y, 1e-30f);
-    float cs = 0.f;
-    for (int i = lo_i + tid; i < hi_i; i += nt) {
-      float bi = b[i];
-      bi = residual >= 0.f ? bi + residual * (jmax(b_max - bi, 0.f) / hden)
-                           : bi + residual * (jmax(bi - p.b_min, 0.f) / sden);
-      bi = jclip(bi, p.b_min, b_max);
-      b[i] = bi;
-      cs += rho[i] * f_shannon(jmax(bi, p.b_min), p.beta);
-    }
-    const float cost = block_all<Sum>(cs, scratch);
-    float w = p.v_eta * (p.n0f + mf) - p.scale * cost;
+    float w;
+    if (!candidate_w(tm, rho, L, start, m, p, fp_min, b, w)) break;
     if (mask_nonfinite && !isfinite(w)) w = kNegInf;
     if (w > best_w) {  // block-uniform
       best_w = w;
-      best_m = mf;
+      best_m = (float)m;
       // Prefixes grow with m, so the old winner's slots lie inside this one.
-      for (int i = lo_i + tid; i < hi_i; i += nt) best[i] = b[i];
+      for (int i = start + tm.tid; i < start + m; i += tm.nt) best[i] = b[i];
     }
   }
   __syncthreads();
   w_out = best_w;
   m_out = best_m;
+}
+
+// ---------------------------------------------------------------------------
+// The candidate-parallel K+1-prefix sweep: each warp of the block is a team
+// that evaluates m = warp + 1, warp + 1 + nw, ... (nw warps) in increasing
+// order, keeping its own running argmax; the block then takes the argmax
+// over the warps, lexicographic in (W descending, m ascending).  That is
+// the sequential sweep's winner: the largest W over m = 0 and the unmasked
+// candidates, ties to the smaller m, and NaN never wins (a warp's best
+// starts at W(0) and only a strictly greater W replaces it).  A masked
+// candidate is skipped, which the sequential sweep's early end equals
+// because both masks are monotone in m.  A non-finite W is kept as it is
+// (K1's rule; K2's masking stays with the sequential sweep).
+//
+//   rows           shared scratch of 2 * nw * L floats: warp w's working row
+//                  at rows + 2 w L, its best row (its winner's allocation,
+//                  0 outside it) at rows + (2 w + 1) L
+//   scratch        at least 2 * 32 floats
+// On return every thread holds the block's W*, m* and the warp whose best
+// row is the winner's allocation.
+// ---------------------------------------------------------------------------
+__device__ void prefix_sweep_parallel(const float* rho, int L, int start, int n_cands,
+                                      const SweepParams& p, float* rows, float* scratch,
+                                      float& w_out, float& m_out, int& winner) {
+  const WarpTeam tm;
+  const int warp = threadIdx.x >> 5, nw = blockDim.x >> 5;
+  float* b = rows + 2 * (size_t)warp * L;
+  float* best = b + L;
+  for (int i = tm.tid; i < L; i += tm.nt) best[i] = 0.f;
+  __syncwarp();  // the winner copy below maps slots to lanes differently
+  float best_w = w_of_none(p, false);
+  float best_m = 0.f;
+  const float fp_min = -f_prime(p.b_min, p.beta);
+
+  for (int m = warp + 1; m <= n_cands; m += nw) {
+    float w;
+    if (!candidate_w(tm, rho, L, start, m, p, fp_min, b, w)) continue;
+    if (w > best_w) {  // warp-uniform
+      best_w = w;
+      best_m = (float)m;
+      for (int i = start + tm.tid; i < start + m; i += tm.nt) best[i] = b[i];
+    }
+  }
+  __syncwarp();
+  if (tm.tid == 0) {
+    scratch[warp] = best_w;
+    scratch[32 + warp] = best_m;
+  }
+  __syncthreads();  // also publishes every warp's best row
+  float bw = scratch[0], bm = scratch[32];
+  int bi = 0;
+  for (int i = 1; i < nw; ++i) {
+    const float w2 = scratch[i], m2 = scratch[32 + i];
+    if (w2 > bw || (w2 == bw && m2 < bm)) {
+      bw = w2;
+      bm = m2;
+      bi = i;
+    }
+  }
+  w_out = bw;
+  m_out = bm;
+  winner = bi;
 }
 
 }  // namespace ocean

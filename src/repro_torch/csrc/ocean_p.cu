@@ -2,21 +2,27 @@
 //
 // K1 replaces repro/kernels/ocean_p.py:48 ``_fused_kernel`` (pallas_call at
 // :208): all K+1 prefix candidates of the rho-sorted order, each a
-// safeguarded-Newton waterfilling (12 outer x 9 inner), keeping only the
-// running argmax.  K2 replaces :232 ``_topm_kernel`` (pallas_call at :481):
-// top_m rounds of (min, lowest index) extraction over client-order rho, the
-// same sweep on the compact top_m row, and the scatter back to client order.
+// safeguarded-Newton waterfilling (12 outer x 9 inner), and their argmax.
+// K2 replaces :232 ``_topm_kernel`` (pallas_call at :481): top_m rounds of
+// (min, lowest index) extraction over client-order rho, the same sweep on
+// the compact top_m row, and the scatter back to client order.
 //
 // What bounds them on the H100: neither moves more than a few KB per cell,
-// so bytes never bound them.  The operations — per candidate m, about
-// 12 * 10 * m evaluations of exp2f/division chains — form a sequential
-// dependency chain per cell (each outer Newton step needs the block sum of
-// the previous one), so they are bound by the latency of that chain, far
-// above the card's f32 rate.  The design answers with parallelism across
-// cells: one block per cell, every cell's row resident in shared memory,
-// client-parallel inner work, two-value block sums to halve the barriers.
-// At K = 10 a block uses 10 of its 32 lanes; that is the first thing to
-// redesign (several cells per warp).
+// so bytes never bound them.  The operations -- per candidate m, about
+// 12 * 10 * m evaluations of exp2/division chains -- form a dependency
+// chain per candidate (each outer Newton step needs the team sum of the
+// previous one), so they are bound by the latency of that chain, far
+// above the card's f32 rate.
+//
+// K1's design answers with parallelism across candidates as well as cells:
+// one block per cell, its rho row in shared memory, one warp per candidate
+// (ocean_common.cuh, prefix_sweep_parallel), the candidates being
+// independent given the ranked row.  A cell's chain is then its longest
+// candidate's, not the sum over K+1 of them; at K = 10, 192 cells x 10
+// warps fit the card in one wave.  Past the warps one block can hold (the
+// register file and 32 warps cap it), a warp walks m = w, w + nw, ...
+// K2 keeps the sequential sweep (a block walks the candidates in order)
+// after its extraction, as does K3.
 #include "ocean_common.cuh"
 
 using namespace ocean;
@@ -29,10 +35,10 @@ __global__ void ocean_p_prefix_kernel(const float* __restrict__ scal,
                                       float* __restrict__ wm, int K,
                                       int n_cands, int outer, int inner) {
   extern __shared__ float smem[];
-  float* s_rho = smem;        // K
-  float* s_b = s_rho + K;     // K
-  float* s_best = s_b + K;    // K
-  float* s_red = s_best + K;  // 64
+  const int nw = blockDim.x >> 5;
+  float* s_rho = smem;                  // K
+  float* s_rows = s_rho + K;            // 2 * nw * K: each warp's b and best rows
+  float* s_red = s_rows + 2 * nw * K;   // 64
   const int c = blockIdx.x, tid = threadIdx.x, nt = blockDim.x;
   const float* sc = scal + (size_t)c * 8;
   SweepParams p;
@@ -50,8 +56,10 @@ __global__ void ocean_p_prefix_kernel(const float* __restrict__ scal,
   // Sorted rank r is in the positive region iff r >= n0.
   const int start = (int)fminf(fmaxf(ceilf(p.n0f), 0.f), (float)K);
   float w, m;
-  prefix_sweep(s_rho, K, start, n_cands, p, false, s_b, s_best, s_red, w, m);
-  for (int i = tid; i < K; i += nt) b_out[(size_t)c * K + i] = s_best[i];
+  int winner;
+  prefix_sweep_parallel(s_rho, K, start, n_cands, p, s_rows, s_red, w, m, winner);
+  const float* best = s_rows + (2 * (size_t)winner + 1) * K;
+  for (int i = tid; i < K; i += nt) b_out[(size_t)c * K + i] = best[i];
   if (tid == 0) {
     wm[2 * c] = w;
     wm[2 * c + 1] = m;
@@ -138,29 +146,40 @@ cudaError_t prepare(const void* fn, size_t smem) {
                               (int)smem);
 }
 
-}  // namespace
+// Shared bytes of K1 with nw warps.
+size_t prefix_smem(int K, int nw) { return ((size_t)K * (1 + 2 * (size_t)nw) + 64) * sizeof(float); }
 
-extern "C" int ocean_p_prefix_launch(const float* scal, const float* rho,
-                                     float* b, float* wm, int C, int K,
-                                     int n_cands, int outer, int inner,
-                                     void* stream) {
-  const size_t smem = (3 * (size_t)K + 64) * sizeof(float);
-  cudaError_t err = prepare((const void*)ocean_p_prefix_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  const int nt = threads_for((const void*)ocean_p_prefix_kernel, K, 1024);
-  ocean_p_prefix_kernel<<<C, nt, smem, (cudaStream_t)stream>>>(
-      scal, rho, b, wm, K, n_cands, outer, inner);
-  return (int)cudaGetLastError();
-}
-
-// The current device's per-block shared-memory limit (with opt-in).
-extern "C" int smem_optin_bytes() {
+int smem_optin() {
   int dev = 0, bytes = 0;
   if (cudaGetDevice(&dev) != cudaSuccess) return 0;
   if (cudaDeviceGetAttribute(&bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) != cudaSuccess)
     return 0;
   return bytes;
 }
+
+}  // namespace
+
+// K1: one block per cell, one warp per candidate up to what a block holds:
+// at most 32 warps (the argmax scratch), the register file's limit
+// (threads_for) and the shared rows' limit.
+extern "C" int ocean_p_prefix_launch(const float* scal, const float* rho,
+                                     float* b, float* wm, int C, int K,
+                                     int n_cands, int outer, int inner,
+                                     void* stream) {
+  const void* fn = (const void*)ocean_p_prefix_kernel;
+  int nw = threads_for(fn, 32 * (n_cands > 0 ? n_cands : 1), 1024) / 32;
+  const size_t optin = (size_t)smem_optin();
+  while (nw > 1 && prefix_smem(K, nw) > optin) --nw;
+  const size_t smem = prefix_smem(K, nw);
+  cudaError_t err = prepare(fn, smem);
+  if (err != cudaSuccess) return (int)err;
+  ocean_p_prefix_kernel<<<C, 32 * nw, smem, (cudaStream_t)stream>>>(
+      scal, rho, b, wm, K, n_cands, outer, inner);
+  return (int)cudaGetLastError();
+}
+
+// The current device's per-block shared-memory limit (with opt-in).
+extern "C" int smem_optin_bytes() { return smem_optin(); }
 
 // Shared bytes K2 needs with the working copy resident (the wrapper falls
 // back to a global scratch row above the card's per-block limit).

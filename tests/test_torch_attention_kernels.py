@@ -155,3 +155,49 @@ def test_wrappers_refuse_mismatched_inputs():
 def test_k5_plain_with_nothing_valid_is_zero():
     q, k = torch.ones(1, 2, 32), torch.ones(1, 8, 1, 32)
     assert torch.equal(decode_attention_plain(q, k, k, 0), torch.zeros(1, 2, 32))
+
+
+@pytest.mark.parametrize("valid", [0, 1, 17, 63, 64])
+def test_k5_valid_len_as_int_int32_int64_agree(valid):
+    """The wrapper's plain path gives one output for valid_len as a Python
+    int, a 0-d and a 1-element int32 tensor and an int64 tensor."""
+    rng = np.random.default_rng(valid + 7)
+    q = torch.from_numpy(rng.standard_normal((2, 8, 32)).astype(np.float32))
+    k = torch.from_numpy(rng.standard_normal((2, 64, 4, 32)).astype(np.float32))
+    v = torch.from_numpy(rng.standard_normal((2, 64, 4, 32)).astype(np.float32))
+    outs = [
+        decode_attention(q, k, v, vl, logit_cap=50.0)
+        for vl in (
+            valid,
+            torch.tensor(valid, dtype=torch.int32),
+            torch.tensor([valid], dtype=torch.int32),
+            torch.tensor(valid, dtype=torch.int64),
+        )
+    ]
+    for out in outs[1:]:
+        assert torch.equal(out, outs[0])
+    assert torch.equal(outs[0], decode_attention_plain(q, k, v, valid, logit_cap=50.0))
+
+
+def test_k5_valid_len_reaches_the_kernel_as_it_lies():
+    """What the kernel is handed: an int32 or int64 tensor as itself (no
+    cast kernel), another integer dtype cast to int32, an int by value
+    clamped to [0, S]; anything else is refused."""
+    from repro_torch.kernels.decode_attention import _valid_arg
+
+    cpu = torch.device("cpu")
+    t32 = torch.tensor(7, dtype=torch.int32)
+    t64 = torch.tensor([9], dtype=torch.int64)
+    kind, value, t = _valid_arg(t32, cpu, 64)
+    assert (kind, value) == (1, 0) and t.data_ptr() == t32.data_ptr()
+    kind, value, t = _valid_arg(t64, cpu, 64)
+    assert (kind, value) == (2, 0) and t.data_ptr() == t64.data_ptr()
+    kind, _, t = _valid_arg(torch.tensor(5, dtype=torch.int16), cpu, 64)
+    assert kind == 1 and t.dtype == torch.int32 and int(t) == 5
+    assert _valid_arg(40, cpu, 64) == (0, 40, None)
+    assert _valid_arg(-3, cpu, 64) == (0, 0, None)
+    assert _valid_arg(100, cpu, 64) == (0, 64, None)
+    with pytest.raises(ValueError, match="integer"):
+        _valid_arg(torch.tensor(3.0), cpu, 64)
+    with pytest.raises(ValueError, match="one element"):
+        _valid_arg(torch.tensor([1, 2]), cpu, 64)

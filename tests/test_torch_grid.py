@@ -164,7 +164,8 @@ def _package_imports(path):
 
 
 def test_port_imports_no_jax_and_nothing_of_the_reference():
-    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+        ROOT / "chip_smoke.py", ROOT / "chip_kernels.py"]
     assert len(files) > 10
     for f in files:
         for mod in _package_imports(f):

@@ -56,6 +56,56 @@ def test_k1_matches_plain(dev, k):
     torch.testing.assert_close(wm[:, 0], wm_p[:, 0], rtol=W_RTOL, atol=0)
 
 
+def _k1_case(dev, seed, c, k, case):
+    """Seeded sorted rho and scal for K1, chip_smoke.py's draws: queues and
+    gains, a fifth of the queues 0; ``twins`` pairs clients into near-identical
+    twins (chip_smoke.draws' tie_eps = 1e-4), ``inf_member`` gives every
+    cell one client of rho = +inf (its gain 0), ``no_positive`` zeroes every
+    queue (n0 = K)."""
+    rng = np.random.default_rng(seed)
+    if case == "twins":
+        half = (k + 1) // 2
+        q = np.repeat(rng.uniform(0.01, 0.2, (c, half)), 2, 1)[:, :k]
+        q = q * (1.0 + rng.uniform(-1e-4, 1e-4, (c, k)))
+        h2 = np.repeat(rng.uniform(0.5, 2.0, (c, half)), 2, 1)[:, :k] * 2.5e-4
+        h2 = h2 * (1.0 + rng.uniform(-1e-4, 1e-4, (c, k)))
+    else:
+        q = rng.uniform(0.01, 0.2, (c, k))
+        h2 = rng.uniform(0.5, 2.0, (c, k)) * 2.5e-4
+    q[rng.random((c, k)) < 0.2] = 0.0
+    if case == "no_positive":
+        q[:] = 0.0
+    rho = priorities(torch.tensor(q, dtype=torch.float32), torch.tensor(h2, dtype=torch.float32))
+    if case == "inf_member":
+        rho[np.arange(c), rng.integers(0, k, c)] = torch.inf
+    radio = RadioParams(b_min=min(0.02, 0.5 / k))
+    _, rho_s, n0, delta = prefix_inputs(rho.to(dev), radio)
+    v_eta = torch.tensor(rng.uniform(0.2, 1.8, c) * 1e-5 * k, dtype=torch.float32, device=dev)
+    return tk._scal(n0, delta, v_eta, radio, rho_s), rho_s.contiguous(), n0
+
+
+@pytest.mark.parametrize("case", ["draws", "twins", "inf_member", "no_positive"])
+@pytest.mark.parametrize("k", [1, 2, 31, 32, 33, 100])
+def test_k1_candidate_edges_match_plain(dev, k, case):
+    """K1's warp-per-candidate sweep around a warp's width (K = 31, 32, 33),
+    past the warps a block holds (K = 100), and at K = 1, 2; with twin
+    clients, a member of rho = +inf (no candidate holding it may win) and
+    no positive-rho client (m* = 0): m* exactly the plain version's."""
+    scal, rho, n0 = _k1_case(dev, 100 * k + len(case), 48, k, case)
+    before = tk.ocean_p_prefix.launches
+    b, wm = tk.ocean_p_prefix(scal, rho)
+    b_p, wm_p = tk.ocean_p_prefix_plain(scal, rho)
+    torch.cuda.synchronize()
+    assert tk.ocean_p_prefix.launches == before + 1
+    assert torch.equal(wm[:, 1], wm_p[:, 1])
+    torch.testing.assert_close(b, b_p, atol=B_ATOL, rtol=0)
+    torch.testing.assert_close(wm[:, 0], wm_p[:, 0], rtol=W_RTOL, atol=0)
+    if case == "no_positive":
+        assert (wm[:, 1] == 0).all() and (b == 0).all()
+    if case == "inf_member":  # the +inf client sorts last: m* stops before it
+        assert (wm[:, 1] < k - n0.to(torch.float32)).all()
+
+
 def test_k2_matches_plain_and_the_sorted_sweep(dev):
     K = 3000
     q, h2 = (x.to(dev) for x in _draws(5, 2, K))
@@ -169,6 +219,53 @@ def test_k5_matches_plain(dev, dtype, b, h, kv, d, s, valid):
     torch.cuda.synchronize()
     assert kd.decode_attention.launches == before + 1
     torch.testing.assert_close(out.float(), plain.float(), atol=ATT_TOL[dtype], rtol=ATT_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize(
+    "b,h,kv,d,s",
+    [
+        (2, 16, 8, 128, 1000),    # G = 2 at gemma2's head dim
+        (1, 64, 8, 128, 2100),    # jamba's heads: G = 8
+        (2, 8, 8, 64, 777),       # G = 1
+        (1, 8, 2, 256, 600),
+        (3, 4, 1, 32, 300),       # MQA, G = 4
+    ],
+)
+def test_k5_valid_len_edges_and_types(dev, dtype, b, h, kv, d, s):
+    """valid_len at 1, 255, 256, 257, S and around a tile (WT slots), a
+    warp's run (a quarter of a split) and a split of the shape's grid, each
+    given as an int32 tensor, an int64 tensor and a Python int: the three
+    give the same output, within the dtype's tolerance of the plain one."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(s + d)
+    q = (torch.randn((b, h, d), generator=g, device=dev) * 4.0).to(dtype)
+    kc = torch.randn((b, s, kv, d), generator=g, device=dev).to(dtype)
+    vc = torch.randn((b, s, kv, d), generator=g, device=dev).to(dtype)
+    per_split = kd._launchers()["split"](b, s, h, kv, d, int(dtype == torch.bfloat16))
+    assert per_split > 0 and per_split % 4 == 0
+    tile = min(32, 256 // (d * q.element_size() // 16))
+    edges = {1, 255, 256, 257, s - 1, s}
+    for n in (tile, per_split // 4, per_split, 2 * per_split):
+        edges |= {n - 1, n, n + 1}
+    tol = ATT_TOL[dtype]
+    for valid in sorted(v for v in edges if 0 < v <= s):
+        plain = kd.decode_attention_plain(q, kc, vc, valid, logit_cap=50.0).float()
+        outs = [
+            kd.decode_attention(q, kc, vc, vl, logit_cap=50.0)
+            for vl in (
+                torch.tensor(valid, dtype=torch.int32, device=dev),
+                torch.tensor([valid], dtype=torch.int64, device=dev),
+                valid,
+            )
+        ]
+        torch.cuda.synchronize()
+        for out in outs:
+            assert torch.equal(out, outs[0]), valid
+        torch.testing.assert_close(outs[0].float(), plain, atol=tol, rtol=tol,
+                                   msg=lambda m, valid=valid: f"valid_len={valid}: {m}")
+    # the merging blocks reset their arrival counters for the next call
+    assert all(int(c.count_nonzero()) == 0 for c in kd._ARRIVALS.values())
 
 
 def test_decoder_forward_through_k4(dev, monkeypatch):
