@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Times the port's kernels K1, K2, K3 and K5 of one checkout on the card.
+"""Times the port's kernels K1, K2, K3, K5, K6 and K7 of one checkout on the card.
 
     python3 chip_kernels.py [--src DIR]
 
@@ -9,7 +9,10 @@ card in one call, in turns: ``--src A/src``, ``--src B/src``, ``--src
 B/src``, ``--src A/src``, each in its own process.  Every kernel runs on
 ``chip_smoke.py``'s inputs at that script's shapes (K1: 192 cells at K = 10
 and K = 100; K2: 8 cells at K = 10^4, top_m 128; K3: the §VI grid's 192
-cells x 300 rounds x K = 10 on seeded gains; K5: the long cache) and is
+cells x 300 rounds x K = 10 on seeded gains, and 192 cells x 40 rounds x
+K = 100; K5: the long cache; K6: one 4096-channel block of jamba's mixer
+over 8192 steps; K7: the rwkv6 prefill layer, 8 x 8192 x 32 heads of 64,
+and at B = 4, 128 (b, h) chains, fewer than the card's 132 SMs) and is
 timed two ways: ``ms``, back-to-back wrapper calls between two CUDA events
 (``chip_smoke.gpu_ms``), and ``device_ms``, the sum of its kernels in a
 torch.profiler reading (``chip_smoke.device_ms``); a digest of its outputs
@@ -44,8 +47,10 @@ def main() -> int:
     sys.path.insert(1, str(ROOT))
     import chip_smoke as cs
     from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.mamba_scan import mamba_scan
     from repro_torch.kernels.ocean_p import ocean_p_prefix, ocean_p_topm
     from repro_torch.kernels.ocean_traj import ocean_traj
+    from repro_torch.kernels.rwkv6_scan import wkv_scan
 
     dev = torch.device("cuda")
     smi = subprocess.run(
@@ -89,9 +94,22 @@ def main() -> int:
     eta = eta_schedule("uniform", T, device=dev).expand(cells, T).contiguous()
     vv = torch.full((cells, T), 1e-5, device=dev)
     timed("k3", lambda: ocean_traj(cfg, h2c, vv, eta, inc), 5)
+    k3_large = cs._k3_inputs(torch, np, dev, 192, 40, 100, seed=3)
+    timed("k3_K100", lambda: ocean_traj(*k3_large), 3)
+    del h2c, inc, k3_large
 
     qd, kc, vc, vl = cs._k5_inputs(torch, dev, 4, 8192, 32, 16, 128, 8000)
     timed("k5", lambda: decode_attention(qd, kc, vc, vl, logit_cap=50.0), 50)
+    del qd, kc, vc, vl
+
+    da, dbu, c = cs._k6_inputs(torch, dev, 8192 + 4096, 1, 8192, 4096, 16)
+    timed("k6", lambda: mamba_scan(da, dbu, c), 10)
+    del da, dbu, c
+    for B, name in ((8, "k7"), (4, "k7_B4")):
+        r, k, v, u, decays = cs._k7_inputs(torch, dev, B, 8192, 32, 64)
+        w = decays["model"]
+        timed(name, lambda: wkv_scan(r, k, v, w, u), 10)
+        del r, k, v, u, decays, w
 
     print(smi, flush=True)
     print(json.dumps({"src": str(src), "gpu": smi, "kernels": rec}), flush=True)

@@ -7,9 +7,10 @@ Builds the port's kernels from ``src/repro_torch/csrc`` with nvcc, holds
 each against its plain PyTorch version on the card, drives OCEAN's main
 path through the user entry point ``run_grid`` (the paper's §VI grid:
 3 scenarios x 64 seeds, K = 10, T = 300, through kernel K3), replays every
-(cell, round) of it against the plain round, and drives the paths of K1
-(the scan trajectory) and K2 (the sort-free top-m solve at K = 10^4) with
-the launch counters reset just before and read just after.
+(cell, round) of it against the plain round, holds K3 alone to its plain
+version at K = 100 and K = 2048, and drives the paths of K1 (the scan
+trajectory) and K2 (the sort-free top-m solve at K = 10^4) with the launch
+counters reset just before and read just after.
 
 Then the LM serving path at gemma2-27b's full width and depth (46 layers,
 27.2e9 random bf16 parameters from a seed): K4 and K5 against their plain
@@ -39,8 +40,8 @@ Each phase prints one JSON line; any failed check raises and the script
 exits non-zero.  The last lines are the card's name and power limit, the
 ``kernels`` record (time on the card, plain version's time, bound, launches
 and error of every kernel, and the time of one library call computing the
-same function where there is one: ``flex_attention`` for K4 and K5; K1,
-K4 and K5 also carry ``device_ms``, the profiler's kernel time per call,
+same function where there is one: ``flex_attention`` for K4 and K5; every
+kernel but K2 also carries ``device_ms``, the profiler's kernel time per call,
 and K4/K5 flex_attention's as ``library_device_ms``; K7 also carries
 ``yardstick_ms``, the JAX package's chunked matrix form of the WKV scan
 in eager PyTorch), and ``{"ok": true, "device": {...}}``.  It
@@ -456,7 +457,7 @@ def teacher_forced(torch, dev, cfg, res, p_idx, eta, v):
                 max_abs_err_b=err_b, near=near.reshape(S * N, T))
 
 
-def phase_main(torch, np, dev, smi, T=300, K=10, seeds=64):
+def phase_main(torch, np, dev, smi, k1_device_ms, T=300, K=10, seeds=64):
     from repro_torch.core.patterns import eta_schedule
     from repro_torch.kernels.ocean_p import INNER_ITERS, OUTER_ITERS, ocean_p_prefix, ocean_p_topm
     from repro_torch.kernels.ocean_traj import ocean_traj, ocean_traj_plain
@@ -496,6 +497,7 @@ def phase_main(torch, np, dev, smi, T=300, K=10, seeds=64):
     eta_u = eta_schedule("uniform", T, device=dev).expand(C, T).contiguous()
     vv = torch.full((C, T), v, device=dev)
     ms = gpu_ms(torch, lambda: ocean_traj(cfg, h2c, vv, eta_u, inc), 5)
+    dev_ms, _, seen = device_ms(torch, lambda: ocean_traj(cfg, h2c, vv, eta_u, inc), 5)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     plain = ocean_traj_plain(cfg, h2c, vv, eta_u, inc)
@@ -521,7 +523,9 @@ def phase_main(torch, np, dev, smi, T=300, K=10, seeds=64):
         gpu=smi, launches=launches, wall_s=wall,
         rounds_cells_per_s=rounds_cells / wall,
         k3_rounds_cells_per_s=C * T / (ms / 1e3),
-        teacher_forced=tf, k3_ms=ms, k3_plain_ms=plain_ms,
+        teacher_forced=tf, k3_ms=ms, k3_device_ms=dev_ms, k3_device_records_seen=seen,
+        # the chain floor of K3's candidate body: T rounds of K1 at this shape
+        t_x_k1_ms=T * k1_device_ms, k3_plain_ms=plain_ms,
         bound_ms=bms, bound_by=by, ops=ops, bytes=n_bytes,
     )
     emit({"phase": "k3_main_path", **out})
@@ -529,6 +533,53 @@ def phase_main(torch, np, dev, smi, T=300, K=10, seeds=64):
           "ratio": e_mean / 0.15})
     err = max(r["max_abs_err_b"] for r in tf.values())
     return res, out, err, torch.stack(nears).any(-1)
+
+
+def _k3_inputs(torch, np, dev, C, T, K, seed):
+    """Seeded K3 inputs at any K: exponential gains, b_min = min(0.02,
+    0.5/K) so that every client fits the band, frames of 13 rounds, the
+    per-round budget share, V = 1e-5 and the ascending eta schedule."""
+    from repro_torch.core.energy import RadioParams
+    from repro_torch.core.ocean import OceanConfig
+    from repro_torch.core.patterns import eta_schedule
+
+    cfg = OceanConfig(num_clients=K, num_rounds=T, radio=RadioParams(b_min=min(0.02, 0.5 / K)),
+                      frame_len=13, solver="pallas", traj="fused")
+    h2 = torch.tensor(
+        np.random.default_rng(seed).exponential(size=(C, T, K)).astype(np.float32) * 2.5e-4,
+        device=dev)
+    v = torch.full((C, T), 1e-5, device=dev)
+    eta = eta_schedule("ascend", T, device=dev).expand(C, T).contiguous()
+    return cfg, h2, v, eta, torch.full_like(h2, 0.15 / T)
+
+
+def phase_k3_large(torch, np, dev, smi, cases=((100, 16, 40), (2048, 2, 3))):
+    """K3 beyond a warp's width against its plain version, whole
+    trajectories: K = 100 (more candidates than a block has warps) and
+    K = 2048 (the warps cut by the shared-memory limit)."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.ocean_traj import ocean_traj, ocean_traj_plain
+
+    lib = _build.load("ocean_traj")
+    rec = {}
+    for K, C, T in cases:
+        args = _k3_inputs(torch, np, dev, C, T, K, seed=K)
+        out = ocean_traj(*args)
+        plain = ocean_traj_plain(*args)
+        torch.cuda.synchronize()
+        check(torch.equal(out.a, plain.a), f"K3 K={K}: selections differ from the plain version")
+        check(torch.equal(out.nsel, plain.nsel), f"K3 K={K}: nsel differs from the plain version")
+        err_b = (out.b - plain.b).abs().max().item()
+        check(err_b <= B_ATOL, f"K3 K={K}: max |b - b_plain| = {err_b}")
+        dq = (out.q_final - plain.q_final).abs()
+        over = (dq - Q_ATOL - Q_RTOL * plain.q_final.abs()).max().item()
+        check(over <= 0, f"K3 K={K}: final queues differ by {dq.max().item()}")
+        rec[K] = dict(cells=C, T=T, warps=lib.ocean_traj_warps(K), max_abs_err_b=err_b,
+                      max_abs_err_q_final=dq.max().item(),
+                      mean_selected=out.nsel.float().mean().item(),
+                      ms=gpu_ms(torch, lambda: ocean_traj(*args), 3))
+    emit({"phase": "k3_large_K", "gpu": smi, "results": rec})
+    return rec
 
 
 def phase_scan(torch, dev, smi, res_fused, near_cells, T=300, K=10, seeds=64):
@@ -1099,19 +1150,26 @@ def mamba_bound(B, T, Di, Ds):
     return n_bytes, ops
 
 
-def phase_k7(torch, dev, smi, B=8, T=8192, H=32, N=64):
-    """K7 against its plain version at the rwkv6 prefill layer shape."""
-    from repro_torch.kernels.rwkv6_scan import wkv_scan, wkv_scan_plain
-
+def _k7_inputs(torch, dev, B, T, H, N):
+    """Seeded r, k, v, u and two decays: rwkv6's range at init,
+    exp(-exp(-6 + U)), and tests/test_kernels.py's sigmoid."""
     g = torch.Generator(device=dev)
     g.manual_seed(7)
     shape = (B, T, H, N)
     r, k, v = (torch.randn(shape, generator=g, device=dev) for _ in range(3))
     u = 0.5 * torch.randn((H, N), generator=g, device=dev)
-    decays = {  # rwkv6's range at init, exp(-exp(-6 + U)); tests/test_kernels.py's sigmoid
+    decays = {
         "model": torch.exp(-torch.exp(-6.0 + torch.rand(shape, generator=g, device=dev))),
         "sigmoid": torch.sigmoid(torch.randn(shape, generator=g, device=dev)),
     }
+    return r, k, v, u, decays
+
+
+def phase_k7(torch, dev, smi, B=8, T=8192, H=32, N=64):
+    """K7 against its plain version at the rwkv6 prefill layer shape."""
+    from repro_torch.kernels.rwkv6_scan import wkv_scan, wkv_scan_plain
+
+    r, k, v, u, decays = _k7_inputs(torch, dev, B, T, H, N)
     rec = {}
     for label, w in decays.items():
         out = wkv_scan(r, k, v, w, u)
@@ -1125,6 +1183,7 @@ def phase_k7(torch, dev, smi, B=8, T=8192, H=32, N=64):
         del out, plain
     w = decays["model"]
     ms = gpu_ms(torch, lambda: wkv_scan(r, k, v, w, u), 10)
+    dev_ms, _, seen = device_ms(torch, lambda: wkv_scan(r, k, v, w, u), 10)
     plain_ms = gpu_ms(torch, lambda: wkv_scan_plain(r, k, v, w, u), 1)
     n_bytes, ops = wkv_bound(B, T, H, N)
     bms, by = bound_ms(n_bytes, ops)
@@ -1135,8 +1194,10 @@ def phase_k7(torch, dev, smi, B=8, T=8192, H=32, N=64):
     yard_ms = gpu_ms(torch, lambda: wkv_chunk_matrix(torch, r, k, v, w, u), 2)
     out = dict(gpu=smi, shape=dict(B=B, T=T, H=H, N=N, dtype="float32"), results=rec,
                max_abs_err=max(x["max_abs"] for x in rec.values()),
-               ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by, bytes=n_bytes, ops=ops,
-               gb_per_s=n_bytes / ms / 1e6, yardstick_ms=yard_ms,
+               ms=ms, device_ms=dev_ms, device_records_seen=seen, plain_ms=plain_ms,
+               bound_ms=bms, bound_by=by, bytes=n_bytes, ops=ops,
+               gb_per_s=n_bytes / ms / 1e6,
+               device_gb_per_s=n_bytes / dev_ms / 1e6, yardstick_ms=yard_ms,
                yardstick_rel_l2_vs_plain=y_rel, library_ms=None)
     emit({"phase": "k7_wkv", **out})
     del r, k, v, u, decays, plain_model, ym
@@ -1144,28 +1205,33 @@ def phase_k7(torch, dev, smi, B=8, T=8192, H=32, N=64):
     return out
 
 
+def _k6_inputs(torch, dev, seed, B, t, di, Ds):
+    """Seeded dA, dBu and C of jamba's mixer: dt = softplus(...) in [1e-3,
+    0.1] at init (log-uniform dt_bias), A = -(1..Ds), discretised by the
+    model's own code."""
+    from repro_torch.models.mamba import discretize
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    dt = torch.exp(torch.empty((B, t, di), device=dev).uniform_(-6.9078, -2.3026, generator=g))
+    a = -torch.arange(1, Ds + 1, dtype=torch.float32, device=dev).expand(di, Ds)
+    bm = torch.randn((B, t, Ds), generator=g, device=dev)
+    uu = torch.randn((B, t, di), generator=g, device=dev)
+    c = torch.randn((B, t, Ds), generator=g, device=dev)
+    da, dbu = discretize(dt, bm, uu, a)
+    return da, dbu, c
+
+
 def phase_k6(torch, dev, smi, B=1, T=8192, Ds=16):
     """K6 against its plain version at one d_inner block of jamba's mixer
     (model ranges of dt and A, discretised by the model's own code), and
     at a ragged T and Di."""
     from repro_torch.kernels.mamba_scan import mamba_scan, mamba_scan_plain
-    from repro_torch.models.mamba import DISCRETIZE_BLOCK, discretize
-
-    def inputs(seed, t, di):
-        g = torch.Generator(device=dev)
-        g.manual_seed(seed)
-        # dt = softplus(...) lies in [1e-3, 0.1] at init (log-uniform dt_bias)
-        dt = torch.exp(torch.empty((B, t, di), device=dev).uniform_(-6.9078, -2.3026, generator=g))
-        a = -torch.arange(1, Ds + 1, dtype=torch.float32, device=dev).expand(di, Ds)
-        bm = torch.randn((B, t, Ds), generator=g, device=dev)
-        uu = torch.randn((B, t, di), generator=g, device=dev)
-        c = torch.randn((B, t, Ds), generator=g, device=dev)
-        da, dbu = discretize(dt, bm, uu, a)
-        return da, dbu, c
+    from repro_torch.models.mamba import DISCRETIZE_BLOCK
 
     rec = {}
     for label, (t, di) in (("ragged", (T - 1, DISCRETIZE_BLOCK - 96)), ("block", (T, DISCRETIZE_BLOCK))):
-        da, dbu, c = inputs(t + di, t, di)
+        da, dbu, c = _k6_inputs(torch, dev, t + di, B, t, di, Ds)
         out = mamba_scan(da, dbu, c)
         plain = mamba_scan_plain(da, dbu, c)
         check(bool(torch.isfinite(out).all()), f"K6 {label}: non-finite output")
@@ -1174,13 +1240,16 @@ def phase_k6(torch, dev, smi, B=1, T=8192, Ds=16):
         rec[label] = dict(T=t, Di=di, **rd)
         del out, plain
     ms = gpu_ms(torch, lambda: mamba_scan(da, dbu, c), 10)
+    dev_ms, _, seen = device_ms(torch, lambda: mamba_scan(da, dbu, c), 10)
     plain_ms = gpu_ms(torch, lambda: mamba_scan_plain(da, dbu, c), 1)
     n_bytes, ops = mamba_bound(B, T, DISCRETIZE_BLOCK, Ds)
     bms, by = bound_ms(n_bytes, ops)
     out = dict(gpu=smi, shape=dict(B=B, T=T, Di=DISCRETIZE_BLOCK, Ds=Ds, dtype="float32"),
                results=rec, max_abs_err=max(x["max_abs"] for x in rec.values()),
-               ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by, bytes=n_bytes, ops=ops,
-               gb_per_s=n_bytes / ms / 1e6, library_ms=None)
+               ms=ms, device_ms=dev_ms, device_records_seen=seen, plain_ms=plain_ms,
+               bound_ms=bms, bound_by=by, bytes=n_bytes, ops=ops,
+               gb_per_s=n_bytes / ms / 1e6,
+               device_gb_per_s=n_bytes / dev_ms / 1e6, library_ms=None)
     emit({"phase": "k6_mamba", **out})
     del da, dbu, c
     torch.cuda.empty_cache()
@@ -1500,7 +1569,8 @@ def main() -> int:
     smi = phase_card(torch)
     k1 = phase_k1(torch, np, dev, smi)
     k2 = phase_k2(torch, np, dev, smi)
-    res, main_out, k3_err, near_cells = phase_main(torch, np, dev, smi)
+    res, main_out, k3_err, near_cells = phase_main(torch, np, dev, smi, k1[10]["device_ms"])
+    k3_large = phase_k3_large(torch, np, dev, smi)
     scan = phase_scan(torch, dev, smi, res, near_cells)
     topm = phase_topm_path(torch, dev, smi)
     del res
@@ -1538,8 +1608,10 @@ def main() -> int:
              bound_by=k2["bound_by"], library_ms=None),
         dict(name="ocean_traj", route="cuda", source="src/repro_torch/csrc/ocean_traj.cu",
              replaces="src/repro/kernels/ocean_traj.py:96",
-             launches=main_out["launches"]["ocean_traj"], max_abs_err=k3_err,
-             ms=main_out["k3_ms"], plain_ms=main_out["k3_plain_ms"],
+             launches=main_out["launches"]["ocean_traj"],
+             max_abs_err=max([k3_err] + [r["max_abs_err_b"] for r in k3_large.values()]),
+             ms=main_out["k3_ms"], device_ms=main_out["k3_device_ms"],
+             plain_ms=main_out["k3_plain_ms"],
              bound_ms=main_out["bound_ms"], bound_by=main_out["bound_by"], library_ms=None),
         dict(name="flash_attention", route="cuda", source="src/repro_torch/csrc/flash_attention.cu",
              replaces="src/repro/kernels/flash_attention.py:32",
@@ -1562,14 +1634,16 @@ def main() -> int:
              replaces="src/repro/kernels/mamba_scan.py:27",
              launches=jamba_prefill["launches"]["mamba_scan"],
              max_abs_err=max(k6["max_abs_err"], jamba_prefill["kernel_vs_plain"]["k6_worst_max_abs"]),
-             ms=k6["ms"], plain_ms=k6["plain_ms"], bound_ms=k6["bound_ms"],
+             ms=k6["ms"], device_ms=k6["device_ms"], plain_ms=k6["plain_ms"],
+             bound_ms=k6["bound_ms"],
              bound_by=k6["bound_by"], library_ms=None),
         dict(name="wkv_scan", route="cuda", source="src/repro_torch/csrc/rwkv6_scan.cu",
              replaces="src/repro/kernels/rwkv6_scan.py:29",
              launches=rwkv_prefill["k7_launches"],
              max_abs_err=max([k7["max_abs_err"]] + [
                  rd["max_abs"] for rd in rwkv_prefill["kernel_vs_plain"]["per_layer"]]),
-             ms=k7["ms"], plain_ms=k7["plain_ms"], bound_ms=k7["bound_ms"],
+             ms=k7["ms"], device_ms=k7["device_ms"], plain_ms=k7["plain_ms"],
+             bound_ms=k7["bound_ms"],
              bound_by=k7["bound_by"], library_ms=None, yardstick_ms=k7["yardstick_ms"]),
     ]
     emit({"phase": "lm_rates", "gpu": smi,

@@ -1,8 +1,8 @@
 // Shared device code of the OCEAN kernels (K1 ocean_p_prefix, K2 ocean_p_topm,
 // K3 ocean_traj): the Shannon-inversion math, the safeguarded Newton
 // waterfilling of one P4 candidate, and two K+1-prefix sweeps over it: the
-// sequential one (a block walks the candidates in order; K2, K3) and the
-// candidate-parallel one (a warp per candidate; K1).
+// sequential one (a block walks the candidates in order; K2) and the
+// candidate-parallel one (a warp per candidate; K1, K3).
 //
 // The math follows the reference line for line:
 //   f, f', f''            repro/core/energy.py:128-151
@@ -14,7 +14,8 @@
 // only in the order of block sums.
 //
 // Layout: one thread block owns one cell.  A candidate is evaluated by a
-// team: the whole block (sequential sweep) or one warp (parallel sweep).
+// team: the whole block (sequential sweep), or one warp or half warp
+// (parallel sweep).
 // Every team-uniform scalar (lam, its bracket, the running argmax) is
 // computed redundantly by all of the team's threads from team reductions
 // whose results every thread reads, so all branches around
@@ -207,13 +208,26 @@ struct BlockTeam {
   __device__ float2 sum2(float a, float b) const { return block_sum2(a, b, scratch); }
 };
 
-struct WarpTeam {
+// A team of NT lanes of one warp (NT = 32: the warp; NT = 16: a half
+// warp, two teams to a warp).  Its butterfly leaves out the xor steps of
+// 16 and up; at K <= 16 a 32-lane butterfly's step 16 adds the identity
+// to every lane of a member-holding half (0 to a sum, 0 to a max of
+// rho >= 0, +inf to a min), so both give the same bits.
+template <int NT>
+struct LaneTeam {
   int tid, nt;
-  __device__ WarpTeam() : tid(threadIdx.x & 31), nt(32) {}
+  unsigned mask;
+  __device__ LaneTeam()
+      : tid(threadIdx.x & (NT - 1)), nt(NT),
+        mask((0xffffffffu >> (32 - NT)) << (threadIdx.x & 31 & ~(NT - 1))) {}
   template <class Op>
-  __device__ float all(float v) const { return warp_all<Op>(v); }
+  __device__ float all(float v) const {
+#pragma unroll
+    for (int o = NT / 2; o > 0; o >>= 1) v = Op::op(v, __shfl_xor_sync(mask, v, o));
+    return v;
+  }
   __device__ float2 sum2(float a, float b) const {
-    return make_float2(warp_all<Sum>(a), warp_all<Sum>(b));
+    return make_float2(all<Sum>(a), all<Sum>(b));
   }
 };
 
@@ -355,55 +369,57 @@ __device__ void prefix_sweep(const float* rho, int L, int start, int n_cands,
 }
 
 // ---------------------------------------------------------------------------
-// The candidate-parallel K+1-prefix sweep: each warp of the block is a team
-// that evaluates m = warp + 1, warp + 1 + nw, ... (nw warps) in increasing
-// order, keeping its own running argmax; the block then takes the argmax
-// over the warps, lexicographic in (W descending, m ascending).  That is
-// the sequential sweep's winner: the largest W over m = 0 and the unmasked
-// candidates, ties to the smaller m, and NaN never wins (a warp's best
-// starts at W(0) and only a strictly greater W replaces it).  A masked
-// candidate is skipped, which the sequential sweep's early end equals
-// because both masks are monotone in m.  A non-finite W is kept as it is
-// (K1's rule; K2's masking stays with the sequential sweep).
+// The candidate-parallel K+1-prefix sweep: the block's teams of NT lanes
+// (nteams of them) evaluate m = team + 1, team + 1 + nteams, ... in
+// increasing order, each keeping its own running argmax; the block then
+// takes the argmax over the teams, lexicographic in (W descending, m
+// ascending).  That is the sequential sweep's winner: the largest W over
+// m = 0 and the unmasked candidates, ties to the smaller m, and NaN never
+// wins (a team's best starts at W(0) and only a strictly greater W
+// replaces it).  A masked candidate is skipped, which the sequential
+// sweep's early end equals because both masks are monotone in m.  A
+// non-finite W is kept as it is (K1's rule; K2's masking stays with the
+// sequential sweep).
 //
-//   rows           shared scratch of 2 * nw * L floats: warp w's working row
-//                  at rows + 2 w L, its best row (its winner's allocation,
-//                  0 outside it) at rows + (2 w + 1) L
-//   scratch        at least 2 * 32 floats
-// On return every thread holds the block's W*, m* and the warp whose best
+//   rows           shared scratch of 2 * nteams * L floats: team u's working
+//                  row at rows + 2 u L, its best row (its winner's
+//                  allocation, 0 outside it) at rows + (2 u + 1) L
+//   scratch        at least 2 * 32 floats; nteams <= 32
+// On return every thread holds the block's W*, m* and the team whose best
 // row is the winner's allocation.
 // ---------------------------------------------------------------------------
+template <int NT = 32>
 __device__ void prefix_sweep_parallel(const float* rho, int L, int start, int n_cands,
                                       const SweepParams& p, float* rows, float* scratch,
                                       float& w_out, float& m_out, int& winner) {
-  const WarpTeam tm;
-  const int warp = threadIdx.x >> 5, nw = blockDim.x >> 5;
-  float* b = rows + 2 * (size_t)warp * L;
+  const LaneTeam<NT> tm;
+  const int team = threadIdx.x / NT, nteams = blockDim.x / NT;
+  float* b = rows + 2 * (size_t)team * L;
   float* best = b + L;
   for (int i = tm.tid; i < L; i += tm.nt) best[i] = 0.f;
-  __syncwarp();  // the winner copy below maps slots to lanes differently
+  __syncwarp(tm.mask);  // the winner copy below maps slots to lanes differently
   float best_w = w_of_none(p, false);
   float best_m = 0.f;
   const float fp_min = -f_prime(p.b_min, p.beta);
 
-  for (int m = warp + 1; m <= n_cands; m += nw) {
+  for (int m = team + 1; m <= n_cands; m += nteams) {
     float w;
     if (!candidate_w(tm, rho, L, start, m, p, fp_min, b, w)) continue;
-    if (w > best_w) {  // warp-uniform
+    if (w > best_w) {  // team-uniform
       best_w = w;
       best_m = (float)m;
       for (int i = start + tm.tid; i < start + m; i += tm.nt) best[i] = b[i];
     }
   }
-  __syncwarp();
+  __syncwarp(tm.mask);
   if (tm.tid == 0) {
-    scratch[warp] = best_w;
-    scratch[32 + warp] = best_m;
+    scratch[team] = best_w;
+    scratch[32 + team] = best_m;
   }
-  __syncthreads();  // also publishes every warp's best row
+  __syncthreads();  // also publishes every team's best row
   float bw = scratch[0], bm = scratch[32];
   int bi = 0;
-  for (int i = 1; i < nw; ++i) {
+  for (int i = 1; i < nteams; ++i) {
     const float w2 = scratch[i], m2 = scratch[32 + i];
     if (w2 > bw || (w2 == bw && m2 < bm)) {
       bw = w2;
@@ -414,6 +430,35 @@ __device__ void prefix_sweep_parallel(const float* rho, int L, int start, int n_
   w_out = bw;
   m_out = bm;
   winner = bi;
+}
+
+// ---------------------------------------------------------------------------
+// Launch helpers (host).
+// ---------------------------------------------------------------------------
+// Threads for n items: whole warps, at least one, at most ``cap`` and at most
+// what the kernel's register use allows in one block (at 80 registers a
+// thread, a block of 1024 would need more than the SM's 65,536).
+inline int threads_for(const void* fn, int n, int cap) {
+  cudaFuncAttributes attr;
+  if (cudaFuncGetAttributes(&attr, fn) == cudaSuccess && attr.maxThreadsPerBlock < cap)
+    cap = attr.maxThreadsPerBlock & ~31;
+  int t = ((n + 31) / 32) * 32;
+  return t < 32 ? 32 : (t > cap ? cap : t);
+}
+
+// Opt a kernel into ``smem`` bytes of dynamic shared memory past 48 KB.
+inline cudaError_t prepare(const void* fn, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
+// The current device's per-block shared-memory limit (with opt-in).
+inline int smem_optin() {
+  int dev = 0, bytes = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
+  if (cudaDeviceGetAttribute(&bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) != cudaSuccess)
+    return 0;
+  return bytes;
 }
 
 }  // namespace ocean

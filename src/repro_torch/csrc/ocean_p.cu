@@ -22,7 +22,7 @@
 // warps fit the card in one wave.  Past the warps one block can hold (the
 // register file and 32 warps cap it), a warp walks m = w, w + nw, ...
 // K2 keeps the sequential sweep (a block walks the candidates in order)
-// after its extraction, as does K3.
+// after its extraction; K3 runs K1's sweep inside each of its rounds.
 #include "ocean_common.cuh"
 
 using namespace ocean;
@@ -129,33 +129,8 @@ __global__ void ocean_p_topm_kernel(const float* __restrict__ scal,
   }
 }
 
-// Threads for n items: whole warps, at most ``cap`` and at most what the
-// kernel's register use allows in one block (at 80 registers a thread, a
-// block of 1024 would need more than the SM's 65,536).
-int threads_for(const void* fn, int n, int cap) {
-  cudaFuncAttributes attr;
-  if (cudaFuncGetAttributes(&attr, fn) == cudaSuccess && attr.maxThreadsPerBlock < cap)
-    cap = attr.maxThreadsPerBlock & ~31;
-  int t = ((n + 31) / 32) * 32;
-  return t < 32 ? 32 : (t > cap ? cap : t);
-}
-
-cudaError_t prepare(const void* fn, size_t smem) {
-  if (smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)smem);
-}
-
 // Shared bytes of K1 with nw warps.
 size_t prefix_smem(int K, int nw) { return ((size_t)K * (1 + 2 * (size_t)nw) + 64) * sizeof(float); }
-
-int smem_optin() {
-  int dev = 0, bytes = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
-  if (cudaDeviceGetAttribute(&bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) != cudaSuccess)
-    return 0;
-  return bytes;
-}
 
 }  // namespace
 

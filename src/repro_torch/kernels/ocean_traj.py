@@ -3,8 +3,10 @@
 K3 replaces ``repro/kernels/ocean_traj.py::_traj_kernel`` (:96,
 ``pallas_call`` at :532).  The CUDA source is ``csrc/ocean_traj.cu``: one
 persistent block per cell runs all T rounds of Alg. 1 with the queues and
-the spent energy resident in shared memory; its header states what bounds
-it on the H100 and what the design does about it.
+the spent energy resident in shared memory, each round's prefix
+candidates side by side (a warp, or at K <= 16 a half warp, per
+candidate: K1's sweep); its header states what bounds it on the H100 and
+what the design does about it.
 
 * ``ocean_traj`` — the wrapper: launches K3 for CUDA tensors (counting
   launches in ``ocean_traj.launches``, raising on CUDA errors) and runs

@@ -18,6 +18,7 @@ from repro_torch.core.energy import RadioParams  # noqa: E402
 from repro_torch.core.ocean import OceanConfig  # noqa: E402
 from repro_torch.core.patterns import eta_schedule  # noqa: E402
 from repro_torch.core.selection import ocean_p, prefix_inputs, priorities  # noqa: E402
+from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import ocean_p as tk  # noqa: E402
 from repro_torch.kernels import ocean_traj as tt  # noqa: E402
 
@@ -118,25 +119,83 @@ def test_k2_matches_plain_and_the_sorted_sweep(dev):
     torch.testing.assert_close(got.objective, ref.objective, rtol=W_RTOL, atol=0)
 
 
-@pytest.mark.parametrize("T,K,C", [(40, 6, 8), (3, 700, 2)])
-def test_k3_matches_plain(dev, T, K, C):
-    """K = 700 sorts 1024 slots, more than one block's threads at K3's
-    register count: the loops must stride."""
+def _k3_inputs(dev, seed, C, T, K):
+    """chip_smoke.py's K3 draws: exponential gains, the per-round budget
+    share, V = 1e-5 and the ascending eta schedule."""
     cfg = OceanConfig(num_clients=K, num_rounds=T, radio=RadioParams(b_min=min(0.02, 0.5 / K)),
-                      frame_len=13, solver="pallas")
+                      frame_len=13, solver="pallas", traj="fused")
     h2 = torch.tensor(
-        np.random.default_rng(3).exponential(size=(C, T, K)).astype(np.float32) * 2.5e-4,
+        np.random.default_rng(seed).exponential(size=(C, T, K)).astype(np.float32) * 2.5e-4,
         device=dev,
     )
     v = torch.full((C, T), 1e-5, device=dev)
     eta = eta_schedule("ascend", T, device=dev).expand(C, T).contiguous()
     inc = torch.full_like(h2, 0.15 / T)
+    return cfg, h2, v, eta, inc
+
+
+@pytest.mark.parametrize("T,K,C", [(40, 6, 8), (3, 700, 2)])
+def test_k3_matches_plain(dev, T, K, C):
+    """K = 700 sorts 1024 slots, more than one block's threads at K3's
+    register count: the loops must stride."""
+    cfg, h2, v, eta, inc = _k3_inputs(dev, 3, C, T, K)
     out = tt.ocean_traj(cfg, h2, v, eta, inc)
     plain = tt.ocean_traj_plain(cfg, h2, v, eta, inc)
     torch.cuda.synchronize()
     assert torch.equal(out.a, plain.a) and torch.equal(out.nsel, plain.nsel)
     torch.testing.assert_close(out.b, plain.b, atol=B_ATOL, rtol=0)
     torch.testing.assert_close(out.q_final, plain.q_final, atol=1e-6, rtol=1e-5)
+
+
+@pytest.mark.parametrize("T,K,C", [(20, 1, 8), (20, 2, 8), (20, 16, 8), (20, 17, 8), (20, 31, 8),
+                                   (20, 32, 8), (20, 33, 8), (20, 100, 8), (2, 2048, 2)])
+def test_k3_candidate_parallel_edges_match_plain(dev, T, K, C):
+    """K3's teams per candidate around a half warp's width (K = 16: half
+    warps, K = 17: whole warps) and a warp's (K = 31, 32, 33: the sort's 32
+    slots and past them), past the warps a block holds
+    (K = 100), and at K = 2048, where the shared rows cut the block's
+    warps below the register file's limit."""
+    lib = _build.load("ocean_traj")
+    if K == 2048:
+        assert lib.ocean_traj_warps(K) < lib.ocean_traj_warps(64)
+    cfg, h2, v, eta, inc = _k3_inputs(dev, K, C, T, K)
+    before = tt.ocean_traj.launches
+    out = tt.ocean_traj(cfg, h2, v, eta, inc)
+    plain = tt.ocean_traj_plain(cfg, h2, v, eta, inc)
+    torch.cuda.synchronize()
+    assert tt.ocean_traj.launches == before + 1
+    assert torch.equal(out.a, plain.a) and torch.equal(out.nsel, plain.nsel)
+    assert bool((out.nsel > 0).any())
+    torch.testing.assert_close(out.b, plain.b, atol=B_ATOL, rtol=0)
+    torch.testing.assert_close(out.q_final, plain.q_final, atol=1e-6, rtol=1e-5)
+
+
+@pytest.mark.parametrize("K", [10, 17, 32])
+def test_k3_rounds_equal_k1_scan_rounds_bitwise(dev, K):
+    """Every round of K3, teacher-forced: its own q_pre through one
+    traj="scan" round with solver="pallas" (K1).  Both run one warp per
+    candidate through the same candidate body, and the ranking, S0 fix-up
+    and unsort are the same float operations, so a, nsel and b are equal
+    bit for bit."""
+    import dataclasses
+
+    from repro_torch.core.ocean import OceanState, ocean_round
+
+    C, T = 12, 30
+    cfg, h2, v, eta, inc = _k3_inputs(dev, 7 * K, C, T, K)
+    out = tt.ocean_traj(cfg, h2, v, eta, inc)
+    CT = C * T
+    state = OceanState(q=out.q_pre.reshape(CT, K),
+                       t=torch.arange(T, dtype=torch.int32, device=dev).repeat(C),
+                       energy_spent=torch.zeros((CT, K), device=dev))
+    before = tk.ocean_p_prefix.launches
+    _, dec = ocean_round(state, h2.reshape(CT, K), 1e-5, eta.reshape(CT),
+                         dataclasses.replace(cfg, traj="scan"), budget_inc=inc.reshape(CT, K))
+    torch.cuda.synchronize()
+    assert tk.ocean_p_prefix.launches == before + 1
+    assert torch.equal(dec.a, out.a.reshape(CT, K))
+    assert torch.equal(dec.num_selected, out.nsel.reshape(CT))
+    assert torch.equal(dec.b, out.b.reshape(CT, K))
 
 
 # ---------------------------------------------------------------------------
@@ -362,6 +421,26 @@ def test_k7_matches_plain(dev, b, t, h, n, decay):
     assert kr.wkv_scan.launches == before + 1
     assert out.shape == (b, t, h, n) and bool(torch.isfinite(out).all())
     _assert_wkv_close(out, plain)
+
+
+@pytest.mark.parametrize("b,h", [(1, 3), (5, 32)])
+@pytest.mark.parametrize("t", [1, 31, 33, 8192])
+@pytest.mark.parametrize("n", [32, 64])
+def test_k7_row_groups_match_plain(dev, n, t, b, h):
+    """K7's state tiles (a column's row tiles in adjacent lanes, their
+    partial sums joined by a shuffle butterfly) at both head sizes, around
+    a chunk of 32 steps and at the prefill's 8192, with fewer (b, h) chains
+    than SMs and more."""
+    r, k, v, w, u = _wkv_inputs(dev, n + t + b, b, t, h, n, "model")
+    before = kr.wkv_scan.launches
+    out = kr.wkv_scan(r, k, v, w, u)
+    plain = kr.wkv_scan_plain(r, k, v, w, u)
+    torch.cuda.synchronize()
+    assert kr.wkv_scan.launches == before + 1
+    assert bool(torch.isfinite(out).all())
+    _assert_wkv_close(out, plain)
+    rel = ((out - plain).norm() / plain.norm()).item()
+    assert rel <= 1e-4, rel
 
 
 def test_k7_refuses_what_it_does_not_take(dev):
