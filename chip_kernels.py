@@ -1,14 +1,16 @@
 #!/usr/bin/env python3
 """Times the port's kernels K1, K2, K3, K5, K6 and K7 of one checkout on the card.
 
-    python3 chip_kernels.py [--src DIR]
+    python3 chip_kernels.py [--src DIR] [--save FILE]
 
 ``--src`` names the ``src/`` directory whose ``repro_torch`` is timed
 (default: this checkout's), so that two checkouts can be compared on one
 card in one call, in turns: ``--src A/src``, ``--src B/src``, ``--src
-B/src``, ``--src A/src``, each in its own process.  Every kernel runs on
-``chip_smoke.py``'s inputs at that script's shapes (K1: 192 cells at K = 10
-and K = 100; K2: 8 cells at K = 10^4, top_m 128; K3: the §VI grid's 192
+B/src``, ``--src A/src``, each in its own process; ``--save FILE`` keeps
+K2's outputs, to hold two checkouts' against each other.  Every kernel
+runs on ``chip_smoke.py``'s inputs at that script's shapes (K1: 192 cells
+at K = 10 and K = 100; K2: 8 cells at K = 10^4, top_m 128, at V = 1e-5
+(m* <= 8) and 1e-3 (m* ~ 62); K3: the §VI grid's 192
 cells x 300 rounds x K = 10 on seeded gains, and 192 cells x 40 rounds x
 K = 100; K5: the long cache; K6: one 4096-channel block of jamba's mixer
 over 8192 steps; K7: the rwkv6 prefill layer, 8 x 8192 x 32 heads of 64,
@@ -16,7 +18,8 @@ and at B = 4, 128 (b, h) chains, fewer than the card's 132 SMs) and is
 timed two ways: ``ms``, back-to-back wrapper calls between two CUDA events
 (``chip_smoke.gpu_ms``), and ``device_ms``, the sum of its kernels in a
 torch.profiler reading (``chip_smoke.device_ms``); a digest of its outputs
-says whether two checkouts compute the same bits.  Prints the card's name
+says whether two checkouts compute the same bits.  K3 at K = 100 also
+carries its bound (``chip_smoke.k3_bound``).  Prints the card's name
 and power limit and one JSON line.  Needs a CUDA device; imports nothing of
 JAX.
 """
@@ -35,6 +38,7 @@ ROOT = Path(__file__).resolve().parent
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--src", default=str(ROOT / "src"))
+    ap.add_argument("--save", help="file to torch.save K2's outputs (b, wm) in, by reading")
     args = ap.parse_args()
     import numpy as np
     import torch
@@ -78,8 +82,13 @@ def main() -> int:
         scal, rho, _ = cs._k1_inputs(torch, np, dev, 192, K, seed=K)
         timed(f"k1_K{K}", lambda scal=scal, rho=rho: ocean_p_prefix(scal, rho), 20)
 
-    scal, work, *_ = cs._k2_inputs(torch, np, dev, 8, 10_000, 1e-5, 1.0, 128)
-    timed("k2", lambda: ocean_p_topm(scal, work, K=10_000, top_m=128), 10)
+    k2_out = {}
+    for name, v in (("k2", 1e-5), ("k2_V1e-3", 1e-3)):
+        scal, work, *_ = cs._k2_inputs(torch, np, dev, 8, 10_000, v, 1.0, 128)
+        timed(name, lambda: ocean_p_topm(scal, work, K=10_000, top_m=128), 10)
+        k2_out[name] = [t.cpu() for t in ocean_p_topm(scal, work, K=10_000, top_m=128)]
+    if args.save:
+        torch.save(k2_out, args.save)
 
     from repro_torch.core.patterns import eta_schedule
     from repro_torch.sim import GridEngine
@@ -96,6 +105,8 @@ def main() -> int:
     timed("k3", lambda: ocean_traj(cfg, h2c, vv, eta, inc), 5)
     k3_large = cs._k3_inputs(torch, np, dev, 192, 40, 100, seed=3)
     timed("k3_K100", lambda: ocean_traj(*k3_large), 3)
+    rec["k3_K100"]["bound_ms"], rec["k3_K100"]["bound_by"] = cs.k3_bound(
+        torch, ocean_traj(*k3_large).rho)[:2]
     del h2c, inc, k3_large
 
     qd, kc, vc, vl = cs._k5_inputs(torch, dev, 4, 8192, 32, 16, 128, 8000)

@@ -9,8 +9,9 @@ path through the user entry point ``run_grid`` (the paper's §VI grid:
 3 scenarios x 64 seeds, K = 10, T = 300, through kernel K3), replays every
 (cell, round) of it against the plain round, holds K3 alone to its plain
 version at K = 100 and K = 2048, and drives the paths of K1 (the scan
-trajectory) and K2 (the sort-free top-m solve at K = 10^4) with the launch
-counters reset just before and read just after.
+trajectory) and K2 (the sort-free top-m solve at K = 10^4, one cluster
+of CTAs per cell) with the launch counters reset just before and read
+just after.
 
 Then the LM serving path at gemma2-27b's full width and depth (46 layers,
 27.2e9 random bf16 parameters from a seed): K4 and K5 against their plain
@@ -41,7 +42,7 @@ exits non-zero.  The last lines are the card's name and power limit, the
 ``kernels`` record (time on the card, plain version's time, bound, launches
 and error of every kernel, and the time of one library call computing the
 same function where there is one: ``flex_attention`` for K4 and K5; every
-kernel but K2 also carries ``device_ms``, the profiler's kernel time per call,
+kernel also carries ``device_ms``, the profiler's kernel time per call,
 and K4/K5 flex_attention's as ``library_device_ms``; K7 also carries
 ``yardstick_ms``, the JAX package's chunked matrix form of the WKV scan
 in eager PyTorch), and ``{"ok": true, "device": {...}}``.  It
@@ -173,40 +174,77 @@ def gpu_ms(torch, fn, reps):
     return t0.elapsed_time(t1) / reps
 
 
+# Host time the profiler's window holds on each side of the calls it reads.
+# The profiler keeps only the kernels that it places inside its window, and
+# places them by a clock that drifts from the window's as the process ages:
+# on the H100, readings late in a long run kept 30-50 % of the launches, and
+# once none.  Idle time on both sides keeps the drifted kernels inside.
+PROFILE_PAD_S = (0.25, 2.0)
+
+
+@contextlib.contextmanager
+def profiled(torch, pad_s):
+    """A ``torch.profiler`` window over the block, with ``pad_s`` seconds of
+    idle host time before and after it (see ``PROFILE_PAD_S``)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        time.sleep(pad_s)
+        yield prof
+        torch.cuda.synchronize()
+        time.sleep(pad_s)
+
+
 def device_ms(torch, fn, reps):
     """Device time per call of ``fn`` from a ``torch.profiler`` reading of
     ``reps`` calls (after one warm-up): each kernel's mean duration times
     the times one call launches it (its count over ``reps``, rounded up),
     summed; also by kernel, and the share of those launches the reading
     recorded.  Unlike ``gpu_ms`` it leaves out the host and the gaps
-    between kernels.  Means, not sums over the calls: later readings in a
-    long process can miss some of a kernel's records (seen on the H100: a
-    sum over calls half of the graph-replayed time), which a mean does not
-    feel."""
+    between kernels.  Means, not sums over the calls, so that a reading
+    that misses some records is still a kernel's time.  A reading that
+    misses any is taken again with a wider window (``PROFILE_PAD_S``); if
+    the profiler still sees no kernel, the time is the median over
+    ``reps`` calls of CUDA events around one call (host launch gap
+    included), ``by_kernel`` is ``{"cuda_events": ms}`` and the share
+    seen is 0."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
+    for pad in PROFILE_PAD_S:
+        with profiled(torch, pad) as prof:
+            for _ in range(reps):
+                fn()
+        by_kernel, seen, launched = {}, 0, 0
+        for e in prof.key_averages():
+            if e.device_type != DeviceType.CUDA or e.count == 0:
+                continue
+            us = getattr(e, "self_device_time_total", None)
+            if us is None:
+                us = getattr(e, "self_cuda_time_total", 0)
+            if us > 0:
+                per_call = math.ceil(e.count / reps)
+                name = kernel_class(e.key)
+                name = e.key[:80] if name == "other" else name
+                by_kernel[name] = by_kernel.get(name, 0.0) + us / e.count / 1e3 * per_call
+                seen, launched = seen + e.count, launched + per_call * reps
+        if by_kernel and seen == launched:
+            break
+    if by_kernel:
+        return sum(by_kernel.values()), by_kernel, seen / launched
+    times = []
+    for _ in range(reps):
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
         torch.cuda.synchronize()
-    by_kernel, seen, launched = {}, 0, 0
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA or e.count == 0:
-            continue
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = getattr(e, "self_cuda_time_total", 0)
-        if us > 0:
-            per_call = math.ceil(e.count / reps)
-            name = kernel_class(e.key)
-            name = e.key[:80] if name == "other" else name
-            by_kernel[name] = by_kernel.get(name, 0.0) + us / e.count / 1e3 * per_call
-            seen, launched = seen + e.count, launched + per_call * reps
-    check(by_kernel, "device_ms: the profiler saw no kernel")
-    return sum(by_kernel.values()), by_kernel, seen / launched
+        t0.record()
+        fn()
+        t1.record()
+        torch.cuda.synchronize()
+        times.append(t0.elapsed_time(t1))
+    ms = sorted(times)[len(times) // 2]
+    return ms, {"cuda_events": ms}, 0.0
 
 
 def clocks():
@@ -335,7 +373,7 @@ def _k2_inputs(torch, np, dev, C, K, v, eta, block_k):
 def phase_k2(torch, np, dev, smi, C=8, K=10_000, top_m=128, block_k=128, oracle_cells=2):
     from repro_torch.core.selection import ocean_p
     from repro_torch.kernels.ocean_p import (
-        INNER_ITERS, OUTER_ITERS, ocean_p_topm, ocean_p_topm_plain,
+        INNER_ITERS, OUTER_ITERS, ocean_p_topm, ocean_p_topm_plain, topm_shape,
     )
 
     v, eta = 1e-5, 1.0
@@ -350,6 +388,12 @@ def phase_k2(torch, np, dev, smi, C=8, K=10_000, top_m=128, block_k=128, oracle_
     rel_w = ((wm_k[:, 0] - wm_p[:, 0]).abs() / wm_p[:, 0].abs()).max().item()
     check(err_b <= B_ATOL, f"K2: max |b - b_plain| = {err_b}")
     check(rel_w <= W_RTOL, f"K2: max rel W error = {rel_w}")
+    # Every cluster size computes the same bits: the extraction is exact
+    # and each candidate is one warp's work wherever it runs.
+    for R in (16, 4, 2):
+        b_r, wm_r = ocean_p_topm(scal, work, K=K, top_m=top_m, cluster=R)
+        check(torch.equal(b_r, b_k) and torch.equal(wm_r, wm_k),
+              f"K2: clusters of {R} compute other bits than the chosen shape")
 
     # The sort + bisect oracle on a few cells.  Its sweep clipped to the
     # top_m best candidates (ranking="topm") equals the full sorted sweep
@@ -357,7 +401,9 @@ def phase_k2(torch, np, dev, smi, C=8, K=10_000, top_m=128, block_k=128, oracle_
     # At b_min = 0.1/K the bisect's level bracket spans ~1e27, so 42
     # halvings leave its allocation unconverged (its W is the lower one):
     # selections and W are held to it, the allocation to the converged
-    # Newton sweep, at the reference test's tolerances.
+    # Newton sweep, at the reference test's tolerances.  The K1 path
+    # (solver="pallas", ranking="topm") runs each candidate through the
+    # same warp body on the same extracted values, so it gives K2's bits.
     sl = slice(0, oracle_cells)
     got = ocean_p(qt[sl], ht[sl], v, eta, radio, solver="pallas_tiled",
                   ranking="topm", top_m=top_m, block_k=block_k)
@@ -365,6 +411,8 @@ def phase_k2(torch, np, dev, smi, C=8, K=10_000, top_m=128, block_k=128, oracle_
                   ranking="topm", top_m=top_m)
     newton = ocean_p(qt[sl], ht[sl], v, eta, radio, solver="newton",
                      ranking="topm", top_m=top_m)
+    k1 = ocean_p(qt[sl], ht[sl], v, eta, radio, solver="pallas",
+                 ranking="topm", top_m=top_m)
     check(bool(((ref.num_selected - n0[sl]) < top_m).all()),
           "K2 oracle: the optimum does not fit top_m, pick a smaller V")
     check(torch.equal(got.a, ref.a), "K2 vs bisect: selections differ")
@@ -374,21 +422,39 @@ def phase_k2(torch, np, dev, smi, C=8, K=10_000, top_m=128, block_k=128, oracle_
     check(torch.equal(got.a, newton.a), "K2 vs newton: selections differ")
     check(torch.allclose(got.b, newton.b, rtol=TOPM_B_RTOL, atol=TOPM_B_ATOL),
           f"K2 vs newton: b differs by {(got.b - newton.b).abs().max().item()}")
+    for f in ("a", "num_selected", "b", "objective"):
+        check(torch.equal(getattr(got, f), getattr(k1, f)),
+              f"K2 vs the K1 top-m path: {f} differs")
 
     finite = torch.isfinite(work).sum(1).clamp(max=top_m)
     counts = torch.minimum(finite, K - n0).tolist()
-    ops = ops_sweep(counts, OUTER_ITERS, INNER_ITERS) + C * top_m * K_pad * 3
+    # one pass over the row: its key, a compare against the running list
+    ops = ops_sweep(counts, OUTER_ITERS, INNER_ITERS) + C * K_pad * 3
     n_bytes = 4 * (scal.numel() + 2 * work.numel() + wm_k.numel())
-    ms = gpu_ms(torch, lambda: ocean_p_topm(scal, work, K=K, top_m=top_m), 10)
+    call = lambda: ocean_p_topm(scal, work, K=K, top_m=top_m)  # noqa: E731
+    ms = gpu_ms(torch, call, 10)
+    dev_ms, _, seen = device_ms(torch, call, 10)
     plain_ms = gpu_ms(torch, lambda: ocean_p_topm_plain(scal, work, K=K, top_m=top_m), 2)
     bms, by = bound_ms(n_bytes, ops)
+    shape = topm_shape(C, K_pad, top_m)
+    # The cluster size read both ways: 16 CTAs of fewer warps, 8 of more.
+    by_cluster = {}
+    for R in (16, 8):
+        sh = topm_shape(C, K_pad, top_m, R)
+        by_cluster[R] = dict(nw=sh.nw, cap=sh.cap, device_ms=device_ms(
+            torch, lambda R=R: ocean_p_topm(scal, work, K=K, top_m=top_m, cluster=R), 10)[0])
+    # The fixed cost: the extraction and one candidate of one member.
+    top_m1_ms = device_ms(torch, lambda: ocean_p_topm(scal, work, K=K, top_m=1), 10)[0]
     rec = dict(
-        cells=C, K=K, top_m=top_m, max_abs_err_b=err_b, max_rel_err_w=rel_w,
+        cells=C, K=K, top_m=top_m, cluster=shape.R, warps=shape.nw, cap=shape.cap,
+        max_abs_err_b=err_b, max_rel_err_w=rel_w,
         m_star=wm_k[:, 1].tolist(), oracle_cells=oracle_cells,
         bisect_max_abs_diff_b=(got.b - ref.b).abs().max().item(),
         newton_max_abs_err_b=(got.b - newton.b).abs().max().item(),
         w_minus_bisect_w=(got.objective - ref.objective).tolist(),
-        ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by, ops=ops, bytes=n_bytes,
+        ms=ms, device_ms=dev_ms, device_records_seen=seen, by_cluster=by_cluster,
+        top_m1_device_ms=top_m1_ms,
+        plain_ms=plain_ms, bound_ms=bms, bound_by=by, ops=ops, bytes=n_bytes,
     )
     emit({"phase": "k2_ocean_p_topm", "gpu": smi, **rec})
     return rec
@@ -459,7 +525,7 @@ def teacher_forced(torch, dev, cfg, res, p_idx, eta, v):
 
 def phase_main(torch, np, dev, smi, k1_device_ms, T=300, K=10, seeds=64):
     from repro_torch.core.patterns import eta_schedule
-    from repro_torch.kernels.ocean_p import INNER_ITERS, OUTER_ITERS, ocean_p_prefix, ocean_p_topm
+    from repro_torch.kernels.ocean_p import ocean_p_prefix, ocean_p_topm
     from repro_torch.kernels.ocean_traj import ocean_traj, ocean_traj_plain
     from repro_torch.sim import GridEngine, run_grid
 
@@ -505,16 +571,8 @@ def phase_main(torch, np, dev, smi, k1_device_ms, T=300, K=10, seeds=64):
     plain_ms = 1e3 * (time.perf_counter() - t0)
     check(bool(torch.isfinite(plain.b).all()), "plain K3: non-finite b")
 
-    # Bound from this run's data (policy ocean-u): per cell-round the sweep
-    # runs K - n0 candidates; the sort is P log2(P)(log2(P)+1)/4 exchanges.
-    rho0 = res.q[0].reshape(C, T, K) / torch.clamp(h2c, min=1e-30)
-    counts = (K - (rho0 <= 1e-30).sum(-1)).reshape(-1).tolist()
-    Pp = max(32, 1 << (K - 1).bit_length())
-    lg = int(math.log2(Pp))
-    sort_ops = Pp * lg * (lg + 1) // 4 * 8
-    ops = ops_sweep(counts, OUTER_ITERS, INNER_ITERS) + C * T * (sort_ops + 30 * K)
-    n_bytes = C * T * K * (4 * 2 + 4 * 4 + 1) + C * T * 4 * 4 + C * K * 4 * 2
-    bms, by = bound_ms(n_bytes, ops)
+    # Bound from this run's data (policy ocean-u).
+    bms, by, ops, n_bytes = k3_bound(torch, res.q[0].reshape(C, T, K) / torch.clamp(h2c, min=1e-30))
 
     rounds_cells = P * C * T
     e_mean = res.e.sum(-2).mean().item()
@@ -533,6 +591,22 @@ def phase_main(torch, np, dev, smi, k1_device_ms, T=300, K=10, seeds=64):
           "ratio": e_mean / 0.15})
     err = max(r["max_abs_err_b"] for r in tf.values())
     return res, out, err, torch.stack(nears).any(-1)
+
+
+def k3_bound(torch, rho):
+    """K3's bound on (C, T, K) priorities: per cell-round the sweep runs
+    K - n0 candidates; the sort is P log2(P)(log2(P)+1)/4 exchanges.
+    Returns (bound ms, what bounds it, operations, bytes)."""
+    from repro_torch.kernels.ocean_p import INNER_ITERS, OUTER_ITERS
+
+    C, T, K = rho.shape
+    counts = (K - (rho <= 1e-30).sum(-1)).reshape(-1).tolist()
+    Pp = max(32, 1 << (K - 1).bit_length())
+    lg = int(math.log2(Pp))
+    sort_ops = Pp * lg * (lg + 1) // 4 * 8
+    ops = ops_sweep(counts, OUTER_ITERS, INNER_ITERS) + C * T * (sort_ops + 30 * K)
+    n_bytes = C * T * K * (4 * 2 + 4 * 4 + 1) + C * T * 4 * 4 + C * K * 4 * 2
+    return (*bound_ms(n_bytes, ops), ops, n_bytes)
 
 
 def _k3_inputs(torch, np, dev, C, T, K, seed):
@@ -556,7 +630,8 @@ def _k3_inputs(torch, np, dev, C, T, K, seed):
 def phase_k3_large(torch, np, dev, smi, cases=((100, 16, 40), (2048, 2, 3))):
     """K3 beyond a warp's width against its plain version, whole
     trajectories: K = 100 (more candidates than a block has warps) and
-    K = 2048 (the warps cut by the shared-memory limit)."""
+    K = 2048 (the warps cut by the shared-memory limit); each with its
+    time, its plain version's and its bound."""
     from repro_torch.kernels import _build
     from repro_torch.kernels.ocean_traj import ocean_traj, ocean_traj_plain
 
@@ -565,8 +640,11 @@ def phase_k3_large(torch, np, dev, smi, cases=((100, 16, 40), (2048, 2, 3))):
     for K, C, T in cases:
         args = _k3_inputs(torch, np, dev, C, T, K, seed=K)
         out = ocean_traj(*args)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
         plain = ocean_traj_plain(*args)
         torch.cuda.synchronize()
+        plain_ms = 1e3 * (time.perf_counter() - t0)
         check(torch.equal(out.a, plain.a), f"K3 K={K}: selections differ from the plain version")
         check(torch.equal(out.nsel, plain.nsel), f"K3 K={K}: nsel differs from the plain version")
         err_b = (out.b - plain.b).abs().max().item()
@@ -574,10 +652,12 @@ def phase_k3_large(torch, np, dev, smi, cases=((100, 16, 40), (2048, 2, 3))):
         dq = (out.q_final - plain.q_final).abs()
         over = (dq - Q_ATOL - Q_RTOL * plain.q_final.abs()).max().item()
         check(over <= 0, f"K3 K={K}: final queues differ by {dq.max().item()}")
+        bms, by, ops, n_bytes = k3_bound(torch, out.rho)
         rec[K] = dict(cells=C, T=T, warps=lib.ocean_traj_warps(K), max_abs_err_b=err_b,
                       max_abs_err_q_final=dq.max().item(),
                       mean_selected=out.nsel.float().mean().item(),
-                      ms=gpu_ms(torch, lambda: ocean_traj(*args), 3))
+                      ms=gpu_ms(torch, lambda: ocean_traj(*args), 3), plain_ms=plain_ms,
+                      bound_ms=bms, bound_by=by, ops=ops, bytes=n_bytes)
     emit({"phase": "k3_large_K", "gpu": smi, "results": rec})
     return rec
 
@@ -907,9 +987,8 @@ def profile_call(torch, fn):
     """Device time by kernel over one call of ``fn`` (torch.profiler): the
     ten largest kernels and the time of every kernel class."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profiled(torch, PROFILE_PAD_S[0]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -1604,8 +1683,9 @@ def main() -> int:
         dict(name="ocean_p_topm", route="cuda", source="src/repro_torch/csrc/ocean_p.cu",
              replaces="src/repro/kernels/ocean_p.py:232",
              launches=topm["launches"]["ocean_p_topm"], max_abs_err=k2["max_abs_err_b"],
-             ms=k2["ms"], plain_ms=k2["plain_ms"], bound_ms=k2["bound_ms"],
-             bound_by=k2["bound_by"], library_ms=None),
+             ms=k2["ms"], device_ms=k2["device_ms"], plain_ms=k2["plain_ms"],
+             bound_ms=k2["bound_ms"], bound_by=k2["bound_by"], library_ms=None,
+             cluster=k2["cluster"], warps=k2["warps"]),
         dict(name="ocean_traj", route="cuda", source="src/repro_torch/csrc/ocean_traj.cu",
              replaces="src/repro/kernels/ocean_traj.py:96",
              launches=main_out["launches"]["ocean_traj"],

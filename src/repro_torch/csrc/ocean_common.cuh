@@ -1,8 +1,7 @@
 // Shared device code of the OCEAN kernels (K1 ocean_p_prefix, K2 ocean_p_topm,
 // K3 ocean_traj): the Shannon-inversion math, the safeguarded Newton
-// waterfilling of one P4 candidate, and two K+1-prefix sweeps over it: the
-// sequential one (a block walks the candidates in order; K2) and the
-// candidate-parallel one (a warp per candidate; K1, K3).
+// waterfilling of one P4 candidate, and the candidate-parallel K+1-prefix
+// sweep over it (a warp or half warp per candidate; K1, K2, K3).
 //
 // The math follows the reference line for line:
 //   f, f', f''            repro/core/energy.py:128-151
@@ -11,15 +10,14 @@
 //   _budget_repair        repro/core/solvers.py:335
 // Elementwise, each kernel computes what its plain PyTorch version does op
 // for op (no FMA contraction, exp2 rounded from double); the two differ
-// only in the order of block sums.
+// only in the order of team sums.
 //
-// Layout: one thread block owns one cell.  A candidate is evaluated by a
-// team: the whole block (sequential sweep), or one warp or half warp
-// (parallel sweep).
+// Layout: a team of NT lanes (a warp, or a half warp) evaluates one
+// candidate; a block, or for K2 a cluster of blocks, holds a cell's teams.
 // Every team-uniform scalar (lam, its bracket, the running argmax) is
-// computed redundantly by all of the team's threads from team reductions
-// whose results every thread reads, so all branches around
-// __syncthreads() are uniform.
+// computed redundantly by all of the team's lanes from shuffle reductions
+// whose results every lane reads, so all branches around the team's
+// __syncwarp() are uniform.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -112,10 +110,8 @@ __device__ float b_of_lam(float lam, float rho, float beta, float b_min,
 }
 
 // ---------------------------------------------------------------------------
-// Block reductions.  Warp butterflies leave the identical value in every
-// lane (float + is commutative), then warp partials go through shared
-// memory and every thread folds them in the same order.  ``scratch`` holds
-// at least 2 * 32 floats.
+// Warp reductions: the butterfly leaves the identical value in every lane
+// (float + is commutative).
 // ---------------------------------------------------------------------------
 struct Sum { __device__ static float op(float a, float b) { return a + b; } };
 struct Max { __device__ static float op(float a, float b) { return jmax(a, b); } };
@@ -128,86 +124,11 @@ __device__ __forceinline__ float warp_all(float v) {
   return v;
 }
 
-template <class Op>
-__device__ float block_all(float v, float* scratch) {
-  v = warp_all<Op>(v);
-  if (blockDim.x <= 32) return v;
-  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
-  const int nw = (blockDim.x + 31) >> 5;
-  __syncthreads();  // the previous reduction's readers are done with scratch
-  if (lane == 0) scratch[wid] = v;
-  __syncthreads();
-  float r = scratch[0];
-  for (int i = 1; i < nw; ++i) r = Op::op(r, scratch[i]);
-  return r;
-}
-
-// Two sums in one pass (halves the barriers of the Newton loop).
-__device__ float2 block_sum2(float a, float b, float* scratch) {
-  a = warp_all<Sum>(a);
-  b = warp_all<Sum>(b);
-  if (blockDim.x <= 32) return make_float2(a, b);
-  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
-  const int nw = (blockDim.x + 31) >> 5;
-  __syncthreads();
-  if (lane == 0) {
-    scratch[wid] = a;
-    scratch[32 + wid] = b;
-  }
-  __syncthreads();
-  float ra = scratch[0], rb = scratch[32];
-  for (int i = 1; i < nw; ++i) {
-    ra += scratch[i];
-    rb += scratch[32 + i];
-  }
-  return make_float2(ra, rb);
-}
-
-// (value, index) lexicographic min: the first occurrence of the minimum.
-__device__ __forceinline__ void argmin_op(float& v, int& i, float v2, int i2) {
-  if (v2 < v || (v2 == v && i2 < i)) {
-    v = v2;
-    i = i2;
-  }
-}
-
-__device__ void block_argmin(float& v, int& i, float* scratch_v, int* scratch_i) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    const float v2 = __shfl_xor_sync(0xffffffffu, v, o);
-    const int i2 = __shfl_xor_sync(0xffffffffu, i, o);
-    argmin_op(v, i, v2, i2);
-  }
-  if (blockDim.x <= 32) return;
-  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
-  const int nw = (blockDim.x + 31) >> 5;
-  __syncthreads();
-  if (lane == 0) {
-    scratch_v[wid] = v;
-    scratch_i[wid] = i;
-  }
-  __syncthreads();
-  v = scratch_v[0];
-  i = scratch_i[0];
-  for (int w = 1; w < nw; ++w) argmin_op(v, i, scratch_v[w], scratch_i[w]);
-}
-
 // ---------------------------------------------------------------------------
 // Teams.  A team evaluates one candidate: its threads stride over the
 // candidate's members from ``tid`` by ``nt`` and reduce with ``all`` /
-// ``sum2``.  A 32-thread block and a warp reduce alike (warp_all), so at
-// K <= 32 the two sweeps compute every W and b with the same operations
-// in the same order.
+// ``sum2``.
 // ---------------------------------------------------------------------------
-struct BlockTeam {
-  int tid, nt;
-  float* scratch;
-  __device__ BlockTeam(float* s) : tid(threadIdx.x), nt(blockDim.x), scratch(s) {}
-  template <class Op>
-  __device__ float all(float v) const { return block_all<Op>(v, scratch); }
-  __device__ float2 sum2(float a, float b) const { return block_sum2(a, b, scratch); }
-};
-
 // A team of NT lanes of one warp (NT = 32: the warp; NT = 16: a half
 // warp, two teams to a warp).  Its butterfly leaves out the xor steps of
 // 16 and up; at K <= 16 a 32-lane butterfly's step 16 adds the identity
@@ -332,79 +253,49 @@ __device__ __forceinline__ float w_of_none(const SweepParams& p, bool mask_nonfi
 }
 
 // ---------------------------------------------------------------------------
-// The sequential K+1-prefix sweep: the block is one team and walks the
-// candidates m = 1..n_cands in order, keeping only the running argmax
-// (strict >: ties keep the smaller m, NaN never wins).
+// The candidate-parallel K+1-prefix sweep: teams of NT lanes evaluate
+// m = g + 1, g + 1 + nteams, ... in increasing order, g being the team's
+// index among all ``nteams`` (by default one block holds them all and g
+// is the block's own team index; K2 spreads them over a cluster and
+// passes g), each keeping its own running
+// argmax; the block then takes the argmax over its teams, lexicographic
+// in (W descending, m ascending).  Over all teams that is the sequential
+// sweep's winner: the largest W over m = 0 and the unmasked candidates,
+// ties to the smaller m, and NaN never wins (a team's best starts at W(0)
+// and only a strictly greater W replaces it).  A masked candidate is
+// skipped, which a sequential sweep's early end equals because both masks
+// are monotone in m.
 //
-//   mask_nonfinite K2's rule: a non-finite W is not an answer
-//   b, best        shared scratch of L floats; ``best`` ends as the winner's
-//                  allocation (0 outside it)
-// The first masked candidate ends the sweep: every larger m is masked too.
+//   MaskNonfinite  K2's rule: a non-finite W (W(0) included) is not an
+//                  answer and counts as NEG_INF; K1 and K3 keep W as it is
+//   rows           shared scratch of 2 * (teams in the block) * L floats:
+//                  team u's working row at rows + 2 u L, its best row (its
+//                  winner's allocation, 0 outside it) at rows + (2 u + 1) L
+//   scratch        at least 2 * 32 floats; a block holds at most 32 teams
+// On return every thread holds the block's W*, m* and the (block-local)
+// team whose best row is the winner's allocation.
 // ---------------------------------------------------------------------------
-__device__ void prefix_sweep(const float* rho, int L, int start, int n_cands,
-                             const SweepParams& p, bool mask_nonfinite,
-                             float* b, float* best, float* scratch,
-                             float& w_out, float& m_out) {
-  const BlockTeam tm(scratch);
-  for (int i = tm.tid; i < L; i += tm.nt) best[i] = 0.f;
-  __syncthreads();  // the winner copy below maps slots to threads differently
-  float best_w = w_of_none(p, mask_nonfinite);
-  float best_m = 0.f;
-  const float fp_min = -f_prime(p.b_min, p.beta);
-
-  for (int m = 1; m <= n_cands; ++m) {
-    float w;
-    if (!candidate_w(tm, rho, L, start, m, p, fp_min, b, w)) break;
-    if (mask_nonfinite && !isfinite(w)) w = kNegInf;
-    if (w > best_w) {  // block-uniform
-      best_w = w;
-      best_m = (float)m;
-      // Prefixes grow with m, so the old winner's slots lie inside this one.
-      for (int i = start + tm.tid; i < start + m; i += tm.nt) best[i] = b[i];
-    }
-  }
-  __syncthreads();
-  w_out = best_w;
-  m_out = best_m;
-}
-
-// ---------------------------------------------------------------------------
-// The candidate-parallel K+1-prefix sweep: the block's teams of NT lanes
-// (nteams of them) evaluate m = team + 1, team + 1 + nteams, ... in
-// increasing order, each keeping its own running argmax; the block then
-// takes the argmax over the teams, lexicographic in (W descending, m
-// ascending).  That is the sequential sweep's winner: the largest W over
-// m = 0 and the unmasked candidates, ties to the smaller m, and NaN never
-// wins (a team's best starts at W(0) and only a strictly greater W
-// replaces it).  A masked candidate is skipped, which the sequential
-// sweep's early end equals because both masks are monotone in m.  A
-// non-finite W is kept as it is (K1's rule; K2's masking stays with the
-// sequential sweep).
-//
-//   rows           shared scratch of 2 * nteams * L floats: team u's working
-//                  row at rows + 2 u L, its best row (its winner's
-//                  allocation, 0 outside it) at rows + (2 u + 1) L
-//   scratch        at least 2 * 32 floats; nteams <= 32
-// On return every thread holds the block's W*, m* and the team whose best
-// row is the winner's allocation.
-// ---------------------------------------------------------------------------
-template <int NT = 32>
+template <int NT = 32, bool MaskNonfinite = false>
 __device__ void prefix_sweep_parallel(const float* rho, int L, int start, int n_cands,
                                       const SweepParams& p, float* rows, float* scratch,
-                                      float& w_out, float& m_out, int& winner) {
+                                      float& w_out, float& m_out, int& winner,
+                                      int g = -1, int nteams = 0) {
   const LaneTeam<NT> tm;
-  const int team = threadIdx.x / NT, nteams = blockDim.x / NT;
+  const int team = threadIdx.x / NT, block_teams = blockDim.x / NT;
+  if (g < 0) g = team;
+  if (nteams == 0) nteams = block_teams;
   float* b = rows + 2 * (size_t)team * L;
   float* best = b + L;
   for (int i = tm.tid; i < L; i += tm.nt) best[i] = 0.f;
   __syncwarp(tm.mask);  // the winner copy below maps slots to lanes differently
-  float best_w = w_of_none(p, false);
+  float best_w = w_of_none(p, MaskNonfinite);
   float best_m = 0.f;
   const float fp_min = -f_prime(p.b_min, p.beta);
 
-  for (int m = team + 1; m <= n_cands; m += nteams) {
+  for (int m = g + 1; m <= n_cands; m += nteams) {
     float w;
     if (!candidate_w(tm, rho, L, start, m, p, fp_min, b, w)) continue;
+    if (MaskNonfinite && !isfinite(w)) w = kNegInf;
     if (w > best_w) {  // team-uniform
       best_w = w;
       best_m = (float)m;
@@ -419,7 +310,7 @@ __device__ void prefix_sweep_parallel(const float* rho, int L, int start, int n_
   __syncthreads();  // also publishes every team's best row
   float bw = scratch[0], bm = scratch[32];
   int bi = 0;
-  for (int i = 1; i < nteams; ++i) {
+  for (int i = 1; i < block_teams; ++i) {
     const float w2 = scratch[i], m2 = scratch[32 + i];
     if (w2 > bw || (w2 == bw && m2 < bm)) {
       bw = w2;

@@ -25,7 +25,8 @@ Inputs carry the cell axis: ``scal`` is (C, 8) float32 =
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import functools
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
@@ -280,12 +281,133 @@ def ocean_p_topm_plain(scal, rho, *, K, top_m, outer=OUTER_ITERS, inner=INNER_IT
     return b, wm
 
 
-def ocean_p_topm(scal, rho, *, K, top_m, outer=OUTER_ITERS, inner=INNER_ITERS):
+class TopmShape(NamedTuple):
+    """K2's launch shape: ``R`` CTAs a cell's cluster, ``nw`` warps a CTA,
+    an append buffer of ``cap`` keys a CTA."""
+
+    R: int
+    nw: int
+    cap: int
+
+
+# The most keys a CTA appends between two merges: one merge covers a
+# slice of up to this many clients (K = 10^4 over 8 CTAs is 1264).
+TOPM_CAP_MAX = 4096
+# Cluster sizes in order of preference where the estimates tie.  On the
+# H100 at 8 cells x K = 10^4 x top_m = 128, where 16 and 8 tie (128 teams
+# either way), 8 CTAs of 16 warps read 0.232 ms and 16 of 8 warps 0.270
+# (chip_smoke.py, phase_k2).
+TOPM_CLUSTERS = (8, 16, 4, 2)
+
+
+def topm_smem_bytes(top_m: int, nw: int, cap: int) -> int:
+    """Shared bytes of one K2 CTA (``csrc/ocean_p.cu::topm_smem``): the key
+    list and append buffer, later each warp's two sweep rows and the argmax
+    scratch; the compact row; the CTA's best (W, m) and counter."""
+    region_a = max(8 * (top_m + cap), 4 * (2 * nw * top_m + 64))
+    return region_a + 8 * top_m + 16
+
+
+def topm_team_chain(top_m: int, teams: int) -> int:
+    """The longest team's work in member steps: team g sweeps
+    m = g + 1, g + 1 + teams, ..., and a candidate of m members costs each
+    of its 32 lanes ceil(m / 32) of them."""
+    return max(
+        sum(-(-m // 32) for m in range(g + 1, top_m + 1, teams))
+        for g in range(min(teams, top_m))
+    )
+
+
+def _topm_fit(K_pad, top_m, R, optin, max_threads):
+    """(nw, cap) for clusters of R, or None where no CTA fits.
+
+    Warps: enough that the cluster's teams give every candidate its own
+    (at least 4, for the extraction's pass), at most 32 (the sweep's
+    argmax scratch) and what the registers allow, then fewer while the
+    sweep rows overflow shared memory.  Buffer: the slice rounded up to
+    whole tiles of the block's threads, so one merge covers it, cut to
+    TOPM_CAP_MAX and to what shared memory leaves, never below one tile.
+    """
+    nw = min(max(4, -(-top_m // R)), 32, max_threads // 32)
+    while nw >= 1 and topm_smem_bytes(top_m, nw, 32 * nw) > optin:
+        nw -= 1
+    if nw < 1:
+        return None
+    nt = 32 * nw
+    slice_ = -(-K_pad // R)
+    want = min(-(-slice_ // nt) * nt, TOPM_CAP_MAX)
+    room = (optin - 16) // 8 - 2 * top_m  # cap where the key region sets the size
+    return nw, max(nt, min(want, room))
+
+
+def topm_launch_shape(
+    C: int,
+    K_pad: int,
+    top_m: int,
+    *,
+    optin: int,
+    max_threads: int,
+    clusters_of: Callable[[int, int, int], int],
+    cluster: Optional[int] = None,
+) -> TopmShape:
+    """Choose K2's launch shape from the cells, the row and the card.
+
+    For each cluster size R (``cluster`` alone if given, else those of
+    TOPM_CLUSTERS) that ``clusters_of(R, nw, cap)`` -- the clusters the
+    card holds at once, from the occupancy query -- can place, the
+    estimated time is the waves of clusters times the longest team's
+    chain; the least wins, ties to the earlier R of TOPM_CLUSTERS.
+    Raises ValueError where no shape fits the card.
+    """
+    if cluster is not None and cluster not in (1, 2, 4, 8, 16):
+        raise ValueError(f"cluster={cluster} must be a power of two in [1, 16]")
+    best = None
+    for R in (cluster,) if cluster is not None else TOPM_CLUSTERS:
+        fit = _topm_fit(K_pad, top_m, R, optin, max_threads)
+        if fit is None:
+            continue
+        nw, cap = fit
+        active = clusters_of(R, nw, cap)
+        if active < 1:
+            continue
+        cost = -(-max(C, 1) // active) * topm_team_chain(top_m, R * nw)
+        if best is None or cost < best[0]:
+            best = (cost, TopmShape(R, nw, cap))
+    if best is None:
+        raise ValueError(
+            f"ocean_p_topm: no cluster shape fits top_m={top_m} on this card "
+            f"({optin} shared bytes a block, {max_threads} threads)"
+        )
+    return best[1]
+
+
+@functools.lru_cache(maxsize=None)
+def topm_shape(C: int, K_pad: int, top_m: int, cluster: Optional[int] = None) -> TopmShape:
+    """K2's launch shape on the current card (``topm_launch_shape``)."""
+    from repro_torch.kernels import _build
+
+    lib = _build.load("ocean_p")
+    clusters = lib.ocean_p_topm_clusters
+    clusters.restype = ctypes.c_int
+    return topm_launch_shape(
+        C, K_pad, top_m,
+        optin=lib.smem_optin_bytes(),
+        max_threads=lib.ocean_p_topm_max_threads(),
+        clusters_of=lambda R, nw, cap: clusters(
+            ctypes.c_int(top_m), ctypes.c_int(R), ctypes.c_int(nw), ctypes.c_int(cap)
+        ),
+        cluster=cluster,
+    )
+
+
+def ocean_p_topm(scal, rho, *, K, top_m, outer=OUTER_ITERS, inner=INNER_ITERS, cluster=None):
     """K2: the sort-free P3 solve on client-order rho.
 
     ``rho`` (C, K_pad) holds rho where rho > 1e-30 and +inf elsewhere
     (S0 clients and padding).  Returns ``b`` (C, K_pad) in client order
-    and ``wm`` (C, 2) = [W*, m*].
+    and ``wm`` (C, 2) = [W*, m*].  ``cluster`` fixes the CTAs a cell's
+    cluster on the card (a power of two up to 16; default: chosen by
+    ``topm_launch_shape``).
     """
     _check_f32("scal", scal, 2)
     _check_f32("rho", rho, 2)
@@ -299,20 +421,17 @@ def ocean_p_topm(scal, rho, *, K, top_m, outer=OUTER_ITERS, inner=INNER_ITERS):
     from repro_torch.kernels import _build
 
     lib = _build.load("ocean_p")
-    smem_of = lib.ocean_p_topm_smem_bytes
-    smem_of.restype = ctypes.c_longlong
-    optin = lib.smem_optin_bytes()
-    resident = smem_of(ctypes.c_int(K_pad), ctypes.c_int(top_m), ctypes.c_int(1)) <= optin
-    work = None if resident else torch.empty_like(rho)
     fn = lib.ocean_p_topm_launch
     fn.restype = ctypes.c_int
     b = torch.empty_like(rho)
     wm = torch.empty((C, 2), dtype=torch.float32, device=rho.device)
     if C == 0:
         return b, wm
+    shape = topm_shape(C, K_pad, top_m, cluster)
     err = fn(
-        _ptr(scal), _ptr(rho), _ptr(b), _ptr(wm), _ptr(work), ctypes.c_int(C),
+        _ptr(scal), _ptr(rho), _ptr(b), _ptr(wm), ctypes.c_int(C),
         ctypes.c_int(K), ctypes.c_int(K_pad), ctypes.c_int(top_m),
+        ctypes.c_int(shape.R), ctypes.c_int(shape.nw), ctypes.c_int(shape.cap),
         ctypes.c_int(outer), ctypes.c_int(inner), _stream(),
     )
     _build.check(err, lib, "ocean_p_topm")

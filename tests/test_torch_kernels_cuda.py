@@ -108,15 +108,168 @@ def test_k1_candidate_edges_match_plain(dev, k, case):
 
 
 def test_k2_matches_plain_and_the_sorted_sweep(dev):
+    """K2 on the ocean_p path against the K1 ranking="topm" path, which
+    runs each candidate through the same warp body on the same extracted
+    values: equal bits."""
     K = 3000
     q, h2 = (x.to(dev) for x in _draws(5, 2, K))
     radio = RadioParams(b_min=0.1 / K)
     got = ocean_p(q, h2, 1e-5, 1.0, radio, solver="pallas_tiled", ranking="topm", top_m=64)
     ref = ocean_p(q, h2, 1e-5, 1.0, radio, solver="pallas", ranking="topm", top_m=64)
     torch.cuda.synchronize()
-    assert torch.equal(got.a, ref.a) and torch.equal(got.num_selected, ref.num_selected)
-    torch.testing.assert_close(got.b, ref.b, atol=B_ATOL, rtol=0)
-    torch.testing.assert_close(got.objective, ref.objective, rtol=W_RTOL, atol=0)
+    for f in ("a", "num_selected", "b", "objective"):
+        assert torch.equal(getattr(got, f), getattr(ref, f)), f
+    assert bool((got.num_selected > (q == 0).sum(1)).all())
+
+
+def _k2_case(seed, C, K_pad, case, K=None):
+    """Client-order K2 inputs (CPU tensors): chip_smoke.py's draws, a fifth
+    of the queues 0 (rho = +inf in the row), V*eta log-uniform in [1e-5,
+    1e-2] a cell so m* spans 0 to top_m, b_min = 0.1 / K.  Clients past K
+    are padding (+inf).  Cases: ``dead_slices`` makes the first 60 % of
+    each row +inf (whole CTAs' slices without a finite client);
+    ``few_finite`` keeps 20 finite clients a row; ``none_finite`` leaves
+    row 0 without any; ``duplicates`` draws rho from 40 values (exact ties
+    within and across slices); ``huge_rho`` keeps 40 clients a row and
+    gives 5 more rho = 1e30, so candidates holding them cost +inf and W is
+    not finite; ``nonfinite_v`` gives cell 0 V*eta = +inf and cell 1 NaN,
+    so W(0) itself is not finite."""
+    K = K_pad if K is None else K
+    rng = np.random.default_rng(seed)
+    q = rng.uniform(0.01, 0.2, (C, K_pad))
+    q[rng.random((C, K_pad)) < 0.2] = 0.0
+    rho = q / (rng.uniform(0.5, 2.0, (C, K_pad)) * 2.5e-4)
+    if case == "duplicates":
+        rho = np.where(q > 0, rng.uniform(40.0, 800.0, 40)[rng.integers(0, 40, (C, K_pad))], 0.0)
+    if case == "dead_slices":
+        rho[:, : int(0.6 * K_pad)] = 0.0
+    if case in ("few_finite", "huge_rho"):
+        keep = np.zeros_like(rho, dtype=bool)
+        for row in keep:
+            row[rng.choice(K, 45 if case == "huge_rho" else 20, replace=False)] = True
+        rho = np.where(keep, np.maximum(rho, 40.0), 0.0)
+        if case == "huge_rho":
+            for c in range(C):
+                rho[c, np.flatnonzero(keep[c])[:5]] = 1e30
+    if case == "none_finite":
+        rho[0] = 0.0
+    rho[:, K:] = 0.0
+    rho = torch.tensor(rho, dtype=torch.float32)
+    n0 = (rho[:, :K] <= 1e-30).sum(1)
+    radio = RadioParams(b_min=0.1 / K)
+    v_eta = 10.0 ** rng.uniform(-5.0, -2.0, C)
+    if case == "nonfinite_v":
+        v_eta[0], v_eta[1] = np.inf, np.nan
+    work = torch.where(rho > 1e-30, rho, torch.inf).contiguous()
+    delta = 1.0 - n0.to(torch.float32) * radio.b_min
+    scal = tk._scal(n0, delta, torch.tensor(v_eta, dtype=torch.float32), radio, work)
+    return scal, work, K
+
+
+def _k1_topm(scal, work, K, top_m):
+    """K1 on the extracted row, as ``core.selection``'s ``solver="pallas",
+    ranking="topm"`` path runs it: the extracted values at sorted slots
+    [n0, n0 + top_m), K1's sweep clipped to top_m candidates, its winner
+    scattered back to client order."""
+    C, K_pad = work.shape
+    vals, idx = tk.extract_min_plain(work, top_m)
+    n0 = scal[:, 0].long()
+    slots = n0[:, None] + torch.arange(top_m, device=work.device)[None, :]
+    buf = torch.full((C, K + top_m), torch.inf, device=work.device)
+    buf.scatter_(1, slots, vals)
+    b_s, wm = tk.ocean_p_prefix(scal, buf[:, :K].contiguous(), n_cands=min(top_m, K))
+    b_c = torch.gather(torch.cat([b_s, torch.zeros_like(vals)], 1), 1, slots)
+    sel = torch.arange(top_m, device=work.device)[None, :] < wm[:, 1:]
+    zero = torch.zeros((), device=work.device)
+    b = torch.zeros_like(work).scatter_add_(1, idx, torch.where(sel, b_c, zero))
+    return b, wm
+
+
+K2_CASES = [
+    # C, K_pad, top_m, case, K
+    (4, 3000, 1, "draws", None),
+    (4, 3000, 31, "draws", None),
+    (4, 3000, 32, "draws", None),
+    (4, 3000, 33, "draws", None),
+    (4, 3000, 128, "draws", None),
+    (4, 3000, 129, "draws", None),
+    (6, 1001, 64, "draws", None),           # K_pad not a multiple of any R
+    (4, 3072, 96, "draws", 3000),           # the fused path's +inf padding
+    (6, 2000, 64, "dead_slices", None),
+    (6, 2000, 128, "few_finite", None),     # fewer finite clients than top_m
+    (3, 500, 64, "none_finite", None),
+    (6, 2000, 128, "duplicates", None),
+    (4, 300, 300, "draws", None),           # top_m = K_pad
+    (2, 200_000, 128, "draws", None),       # slices past one merge buffer
+    (1, 10_000, 128, "draws", None),
+    (200, 2000, 128, "draws", None),        # more clusters than one wave
+    (6, 2000, 128, "huge_rho", None),
+    (4, 2000, 64, "nonfinite_v", None),
+]
+
+
+@pytest.mark.parametrize("C,K_pad,top_m,case,K", K2_CASES)
+def test_k2_cluster_matches_plain_and_k1(dev, C, K_pad, top_m, case, K):
+    """K2's cluster kernel: m* and the selections exactly the plain
+    version's, b within B_ATOL, W within W_RTOL; where every candidate's W
+    is finite and K1 holds the row (K <= 10^4), b and [W*, m*] equal the
+    K1 path's bit for bit.  Where W is not finite (huge_rho, nonfinite_v)
+    K2's rule, a non-finite W never wins, is held to the plain version's."""
+    scal, work, K = _k2_case(K_pad + top_m + len(case), C, K_pad, case, K)
+    scal, work = scal.to(dev), work.to(dev)
+    before = tk.ocean_p_topm.launches
+    b, wm = tk.ocean_p_topm(scal, work, K=K, top_m=top_m)
+    b_p, wm_p = tk.ocean_p_topm_plain(scal, work, K=K, top_m=top_m)
+    torch.cuda.synchronize()
+    assert tk.ocean_p_topm.launches == before + 1
+    assert torch.equal(wm[:, 1], wm_p[:, 1])
+    assert torch.equal(b > 0, b_p > 0)
+    torch.testing.assert_close(b, b_p, atol=B_ATOL, rtol=0)
+    torch.testing.assert_close(wm[:, 0], wm_p[:, 0], rtol=W_RTOL, atol=0)
+    if case not in ("huge_rho", "nonfinite_v") and K <= 10_000:
+        b1, wm1 = _k1_topm(scal, work, K, top_m)
+        torch.cuda.synchronize()
+        assert torch.equal(wm, wm1) and torch.equal(b, b1)
+    if case == "none_finite":
+        assert wm[0, 1] == 0 and not bool(b[0].any())
+    if case == "nonfinite_v":
+        neg_inf = torch.tensor(tk.NEG_INF, dtype=torch.float32).item()
+        assert wm[:2].tolist() == [[neg_inf, 0.0]] * 2
+        assert not bool(b[:2].any())
+    if case == "huge_rho":  # no candidate holding a client of rho = 1e30 wins
+        assert bool((wm[:, 1] <= 40).all()) and not bool(b[work > 1e29].any())
+    if case == "draws":
+        assert bool((wm[:, 1] > 0).any())
+
+
+@pytest.mark.parametrize("top_m", [33, 128])
+def test_k2_every_cluster_size_gives_the_same_bits(dev, top_m):
+    """R = 1 to 16 CTAs a cell: the extraction is exact and each candidate
+    is one warp's work wherever it runs, so b and [W*, m*] do not move."""
+    scal, work, K = _k2_case(7, 5, 4000, "draws")
+    scal, work = scal.to(dev), work.to(dev)
+    outs = [tk.ocean_p_topm(scal, work, K=K, top_m=top_m, cluster=R) for R in (1, 2, 4, 8, 16)]
+    torch.cuda.synchronize()
+    for b, wm in outs[1:]:
+        assert torch.equal(b, outs[0][0]) and torch.equal(wm, outs[0][1])
+
+
+def test_k2_launch_shape_and_shared_bytes(dev):
+    """The host's mirror of the kernel's shared bytes, the shape chosen at
+    the K = 10^4 path's 8 cells (R = 8, 16 warps: a warp per candidate),
+    and a top_m past shared memory refused with a clear error."""
+    import ctypes
+
+    lib = _build.load("ocean_p")
+    smem = lib.ocean_p_topm_smem_bytes
+    smem.restype = ctypes.c_longlong
+    for top_m, nw, cap in [(1, 4, 128), (128, 8, 768), (129, 16, 4096), (14504, 1, 46)]:
+        assert smem(top_m, nw, cap) == tk.topm_smem_bytes(top_m, nw, cap)
+    assert tk.topm_shape(8, 10_112, 128) == tk.TopmShape(8, 16, 1536)
+    work = torch.ones((1, 20_000), device=dev)
+    scal = torch.zeros((1, 8), device=dev)
+    with pytest.raises(ValueError, match="no cluster shape fits"):
+        tk.ocean_p_topm(scal, work, K=20_000, top_m=20_000)
 
 
 def _k3_inputs(dev, seed, C, T, K):
