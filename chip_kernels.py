@@ -12,7 +12,9 @@ runs on ``chip_smoke.py``'s inputs at that script's shapes (K1: 192 cells
 at K = 10 and K = 100; K2: 8 cells at K = 10^4, top_m 128, at V = 1e-5
 (m* <= 8) and 1e-3 (m* ~ 62); K3: the §VI grid's 192
 cells x 300 rounds x K = 10 on seeded gains, and 192 cells x 40 rounds x
-K = 100; K5: the long cache; K6: one 4096-channel block of jamba's mixer
+K = 100; K3's streamed-radio instance and its failure instance under each
+failure mode at the §VI shape, on seeded radio and delivery streams (where
+the checkout has them); K5: the long cache; K6: one 4096-channel block of jamba's mixer
 over 8192 steps; K7: the rwkv6 prefill layer, 8 x 8192 x 32 heads of 64,
 and at B = 4, 128 (b, h) chains, fewer than the card's 132 SMs) and is
 timed two ways: ``ms``, back-to-back wrapper calls between two CUDA events
@@ -71,6 +73,8 @@ def main() -> int:
         outs = out if isinstance(out, tuple) else (out,)
         h = hashlib.sha256()
         for t in outs:
+            if t is None:  # an output the instance does not write
+                continue
             h.update(t.detach().contiguous().cpu().view(torch.uint8).numpy().tobytes())
         dev_ms, by_kernel, seen = cs.device_ms(torch, fn, reps)
         rec[name] = dict(ms=cs.gpu_ms(torch, fn, reps), device_ms=dev_ms,
@@ -103,6 +107,29 @@ def main() -> int:
     eta = eta_schedule("uniform", T, device=dev).expand(cells, T).contiguous()
     vv = torch.full((cells, T), 1e-5, device=dev)
     timed("k3", lambda: ocean_traj(cfg, h2c, vv, eta, inc), 5)
+    try:
+        from repro_torch.env.failure import TracedFailure
+        from repro_torch.env.radio import traced_radio
+    except ImportError:  # a checkout without the environment processes
+        TracedFailure = None
+    if TracedFailure is not None:
+        import dataclasses
+
+        share = torch.tensor(rng.uniform(0.5, 1.0, (cells, T)), dtype=torch.float32, device=dev)
+        radio = traced_radio(cfg.radio, T).map(lambda x: x.to(dev).expand(cells, T).contiguous())
+        bw = radio.bandwidth_hz * share
+        radio = radio._replace(bandwidth_hz=bw, beta=radio.model_bits / (radio.deadline_s * bw),
+                               energy_scale=radio.deadline_s * radio.noise_w * bw)
+        timed("k3_radio", lambda: ocean_traj(cfg, h2c, vv, eta, inc, radio=radio), 5)
+        fail = TracedFailure(
+            delivered=torch.tensor((rng.random((cells, T, K)) < 0.7).astype(np.float32),
+                                   device=dev),
+            rate=torch.full((cells, K), 0.7, device=dev))
+        for mode in ("plain", "overprovision", "reallocate"):
+            cfg_m = dataclasses.replace(cfg, failure_mode=mode)
+            timed(f"k3_failure_{mode}",
+                  lambda cfg_m=cfg_m: ocean_traj(cfg_m, h2c, vv, eta, inc, failure=fail), 5)
+        del radio, fail
     k3_large = cs._k3_inputs(torch, np, dev, 192, 40, 100, seed=3)
     timed("k3_K100", lambda: ocean_traj(*k3_large), 3)
     rec["k3_K100"]["bound_ms"], rec["k3_K100"]["bound_by"] = cs.k3_bound(

@@ -466,9 +466,16 @@ def _grid_args(T, K, seeds):
     return paper_scenarios(T, K), ["ocean-u", "ocean-a"], range(seeds)
 
 
-def teacher_forced(torch, dev, cfg, res, p_idx, eta, v):
+def teacher_forced(torch, dev, cfg, res, p_idx, eta, v, radio=None, failure=None, obj=None):
     """Replay every (cell, round) of policy ``p_idx`` through the plain round
-    on the kernel's own q_pre; return the per-round comparison."""
+    on the kernel's own q_pre; return the per-round comparison.  ``radio``
+    (a TracedRadio of (S, N, T) leaves) and ``failure`` (a TracedFailure of
+    (S, N, T, K) masks and (S, N, K) rates) are the grid's streams; with a
+    failure process the delivery masks and reallocation flags must agree
+    too, and ``committed`` (the plain mode's count) is returned.  ``obj``
+    (the kernel's (S * N * T,) P3 values on the same queues) must lie within
+    W_RTOL x (|P3| + v eta) of the plain round's: relative to the value,
+    with one client's utility as the floor where the value is near 0."""
     from repro_torch.core.ocean import OceanState, ocean_round
     from repro_torch.core.selection import prefix_inputs, priorities
     from repro_torch.core.solvers import PALLAS_PLAIN
@@ -482,13 +489,18 @@ def teacher_forced(torch, dev, cfg, res, p_idx, eta, v):
     t_idx = torch.arange(T, device=dev, dtype=torch.int32).repeat(S * N)
     eta_c = eta.repeat(S * N)
     plain_cfg = dataclasses.replace(cfg, solver=PALLAS_PLAIN, traj="scan")
+    rows = cfg.radio if radio is None else radio.map(lambda x: x.reshape(CT))
+    kw = {"radio": None if radio is None else rows}
+    if failure is not None:
+        kw["delivered"] = failure.delivered.reshape(CT, K)
+        kw["fail_rate"] = failure.rate[:, :, None, :].expand(S, N, T, K).reshape(CT, K)
     state = OceanState(q=q_pre, t=t_idx, energy_spent=torch.zeros_like(q_pre))
-    nxt, dec = ocean_round(state, h2, v, eta_c, plain_cfg, budget_inc=inc)
+    nxt, dec = ocean_round(state, h2, v, eta_c, plain_cfg, budget_inc=inc, **kw)
 
     # near-tie margins of the plain version: best minus runner-up W
     rho = priorities(q_pre, h2)
-    _, rho_sorted, n0, delta = prefix_inputs(rho, cfg.radio)
-    w = prefix_objectives_plain(_scal(n0, delta, v * eta_c, cfg.radio, rho_sorted), rho_sorted)
+    _, rho_sorted, n0, delta = prefix_inputs(rho, rows)
+    w = prefix_objectives_plain(_scal(n0, delta, v * eta_c, rows, rho_sorted), rho_sorted)
     top2 = torch.topk(w, 2, dim=1).values
     near = (top2[:, 0] - top2[:, 1]) <= W_RTOL * top2[:, 0].abs()
 
@@ -502,6 +514,18 @@ def teacher_forced(torch, dev, cfg, res, p_idx, eta, v):
     check(err_b <= B_ATOL, f"K3: max |b - b_plain| = {err_b}")
     ns_k = res.num_selected[p_idx].reshape(CT)
     check(torch.equal(ns_k[ok], dec.num_selected[ok]), "K3: num_selected differs")
+    out = {}
+    if obj is not None:
+        rel = ((obj - dec.objective).abs() / (dec.objective.abs() + v * eta_c))[ok].max().item()
+        check(rel <= W_RTOL, f"K3: P3 value off the plain round's by {rel} (relative)")
+        out["max_rel_err_obj"] = rel
+    if failure is not None:
+        dlv_k = res.delivered[p_idx].reshape(CT, K)
+        check(torch.equal(dlv_k[ok], dec.delivered[ok]), "K3: delivered differs from the plain round")
+        committed = ocean_round(state, h2, v, eta_c, dataclasses.replace(
+            plain_cfg, failure_mode="plain"), budget_inc=inc, **kw)[1].num_selected
+        out["committed"] = committed.reshape(S * N, T)
+        out["realloc"] = dec.realloc.reshape(S * N, T)
     # next round's queues: the kernel's q_pre at t+1 (no reset inside a frame)
     q_next_k = res.q[p_idx].reshape(S * N, T, K)[:, 1:].reshape(-1, K)
     q_next_p = nxt.q.reshape(S * N, T, K)[:, :-1].reshape(-1, K)
@@ -520,7 +544,7 @@ def teacher_forced(torch, dev, cfg, res, p_idx, eta, v):
         )
         raise AssertionError(f"K3: next-round queues differ beyond tolerance: {detail}")
     return dict(near_tie_rounds=int(near.sum()), flipped_rounds=int(flip.sum()),
-                max_abs_err_b=err_b, near=near.reshape(S * N, T))
+                max_abs_err_b=err_b, near=near.reshape(S * N, T), **out)
 
 
 def phase_main(torch, np, dev, smi, k1_device_ms, T=300, K=10, seeds=64):
@@ -593,10 +617,24 @@ def phase_main(torch, np, dev, smi, k1_device_ms, T=300, K=10, seeds=64):
     return res, out, err, torch.stack(nears).any(-1)
 
 
-def k3_bound(torch, rho):
+def ops_waterfill(n, outer, inner, grid):
+    """One masked P4 of n members (ocean_common.cuh, masked_waterfill)."""
+    setup = 3 * n + 20 + 2 * OPS_F_PRIME
+    levels = grid * (n * (ops_b_of_lam(inner) + 1) + 8)
+    per_outer = n * (ops_b_of_lam(inner) + 1 + 2 + OPS_F_SECOND + 4) + 14
+    final = n * (ops_b_of_lam(inner) + 1) + n * (4 + 8) + 12
+    return setup + levels + outer * per_outer + final
+
+
+def k3_bound(torch, rho, radio=False, failure=False, solves=()):
     """K3's bound on (C, T, K) priorities: per cell-round the sweep runs
-    K - n0 candidates; the sort is P log2(P)(log2(P)+1)/4 exchanges.
+    K - n0 candidates; the sort is P log2(P)(log2(P)+1)/4 exchanges.  The
+    streamed-radio instance also reads 3 floats a cell-round; the failure
+    instance reads the (C, T, K) mask and (C, K) rates, writes the
+    delivered mask and the reallocation flags, and runs one masked P4 for
+    each member count in ``solves`` (the re-solves this run's data needed).
     Returns (bound ms, what bounds it, operations, bytes)."""
+    from repro_torch.core.solvers import newton_iteration_budgets
     from repro_torch.kernels.ocean_p import INNER_ITERS, OUTER_ITERS
 
     C, T, K = rho.shape
@@ -606,6 +644,12 @@ def k3_bound(torch, rho):
     sort_ops = Pp * lg * (lg + 1) // 4 * 8
     ops = ops_sweep(counts, OUTER_ITERS, INNER_ITERS) + C * T * (sort_ops + 30 * K)
     n_bytes = C * T * K * (4 * 2 + 4 * 4 + 1) + C * T * 4 * 4 + C * K * 4 * 2
+    if radio:
+        n_bytes += C * T * 3 * 4
+    if failure:
+        n_bytes += C * T * K * (4 + 1) + C * T * 4 + C * K * 4
+        wf = newton_iteration_budgets(torch.float32, K)
+        ops += C * T * 10 * K + sum(ops_waterfill(n, *wf) for n in solves)
     return (*bound_ms(n_bytes, ops), ops, n_bytes)
 
 
@@ -653,7 +697,7 @@ def phase_k3_large(torch, np, dev, smi, cases=((100, 16, 40), (2048, 2, 3))):
         over = (dq - Q_ATOL - Q_RTOL * plain.q_final.abs()).max().item()
         check(over <= 0, f"K3 K={K}: final queues differ by {dq.max().item()}")
         bms, by, ops, n_bytes = k3_bound(torch, out.rho)
-        rec[K] = dict(cells=C, T=T, warps=lib.ocean_traj_warps(K), max_abs_err_b=err_b,
+        rec[K] = dict(cells=C, T=T, warps=lib.ocean_traj_warps(K, 0), max_abs_err_b=err_b,
                       max_abs_err_q_final=dq.max().item(),
                       mean_selected=out.nsel.float().mean().item(),
                       ms=gpu_ms(torch, lambda: ocean_traj(*args), 3), plain_ms=plain_ms,
@@ -726,6 +770,319 @@ def phase_topm_path(torch, dev, smi, K=10_000, T=4, seeds=8, top_m=128):
                mean_selected=res.num_selected.float().mean().item(), K=K, T=T, cells=seeds)
     emit({"phase": "k2_topm_path", **out})
     return out
+
+
+# ---------------------------------------------------------------------------
+# the environment processes: the reliability grid, the radio grid, and the
+# paper's baselines
+# ---------------------------------------------------------------------------
+# The failure cells of benchmarks/reliability_sweep.py:52-59 and the radio
+# lattice of benchmarks/radio_sweep.py:26-31.
+FAILURE_CELLS = (
+    ("drop_light", "iid_dropout", {"p_deliver": 0.9}),
+    ("drop_heavy", "iid_dropout", {"p_deliver": 0.7}),
+    ("burst_light", "markov_availability", {"p_fail": 0.1, "p_recover": 0.4}),
+    ("burst_heavy", "markov_availability", {"p_fail": 0.3, "p_recover": 0.3}),
+    ("strag_light", "straggler_slowdown", {"sigma": 0.5, "compute_frac": 0.8}),
+    ("strag_heavy", "straggler_slowdown", {"sigma": 0.8, "compute_frac": 0.6}),
+)
+BANDWIDTHS_HZ = (5e6, 10e6, 20e6)
+DEADLINES_S = (0.15, 0.3, 0.6)
+OCEAN_FAILURE_MODES = {"ocean-u": "plain", "ocean-over": "overprovision",
+                       "ocean-realloc": "reallocate"}
+V_PAPER = 1e-5
+INSTANCE_KEYS = ("ms", "device_ms", "plain_ms", "plain_rounds", "bound_ms", "bound_by")
+
+
+def _reset_counts():
+    from repro_torch.kernels.ocean_p import ocean_p_prefix, ocean_p_topm
+    from repro_torch.kernels.ocean_traj import ocean_traj
+
+    for fn in (ocean_p_prefix, ocean_p_topm, ocean_traj):
+        fn.launches = 0
+    ocean_traj.instances.clear()
+
+
+def _counts():
+    from repro_torch.kernels.ocean_p import ocean_p_prefix, ocean_p_topm
+    from repro_torch.kernels.ocean_traj import ocean_traj
+
+    return {"ocean_traj": ocean_traj.launches, "ocean_p_prefix": ocean_p_prefix.launches,
+            "ocean_p_topm": ocean_p_topm.launches,
+            "ocean_traj_instances": dict(ocean_traj.instances)}
+
+
+def _timed_grid(torch, dev, scen, pols, seeds):
+    """A warm-up of the OCEAN policies (the ones that launch K3) on 2 seeds,
+    then the grid between reset and read counts."""
+    from repro_torch.core.policy import PolicyParams
+    from repro_torch.sim import run_grid
+
+    specs = [(p, PolicyParams(v=V_PAPER)) for p in pols]
+    warm = [sp for sp in specs if sp[0].startswith("ocean")]
+    run_grid(scen, warm, range(2), solver="pallas", traj="fused", device=dev)
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    res = run_grid(scen, specs, range(seeds), solver="pallas", traj="fused", device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return res, wall, _counts()
+
+
+def _k3_args(torch, cfg, res, radio=None, failure=None, v=V_PAPER):
+    """K3's arguments for a grid's cells under ocean-u's schedule."""
+    from repro_torch.core.patterns import eta_schedule
+
+    S, N, T, K = res.h2.shape
+    C = S * N
+    dev = res.h2.device
+    h2c = res.h2.reshape(C, T, K).contiguous()
+    inc = res.budget_inc.reshape(C, T, K).contiguous()
+    eta = eta_schedule("uniform", T, device=dev).expand(C, T).contiguous()
+    vv = torch.full((C, T), v, device=dev)
+    return (cfg, h2c, vv, eta, inc, radio, failure)
+
+
+def _k3_replayed_obj(torch, res, p_idx, args):
+    """K3 once more on the grid's cells (a comparison launch): the same
+    launch gives the grid's bits, so its P3 values belong to the queues
+    that ``teacher_forced`` replays; returns them as (S * N * T,)."""
+    from repro_torch.kernels.ocean_traj import ocean_traj
+
+    out = ocean_traj(*args)
+    for f, g in (("a", "a"), ("b", "b"), ("q_pre", "q")):
+        check(torch.equal(getattr(out, f), getattr(res, g)[p_idx].reshape(out.a.shape)),
+              f"K3: a launch on the grid's cells differs from the grid's run ({f})")
+    return out.obj.reshape(-1)
+
+
+def _k3_alone(torch, args, plain_rounds=10):
+    """K3 alone on a grid's cells (``_k3_args``): device ms and ms, and the
+    plain version's ms over the first ``plain_rounds`` rounds (its time is
+    the rounds' host loop, ~70 ms a round whatever the cells)."""
+    from repro_torch.kernels.ocean_traj import ocean_traj, ocean_traj_plain
+
+    cfg, h2c, vv, eta, inc, radio, failure = args
+    dev_ms, _, seen = device_ms(torch, lambda: ocean_traj(*args), 3)
+    n = plain_rounds
+    head = (cfg, h2c[:, :n], vv[:, :n], eta[:, :n], inc[:, :n],
+            None if radio is None else radio.map(lambda x: x[:, :n]),
+            None if failure is None else failure._replace(delivered=failure.delivered[:, :n]))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ocean_traj_plain(*head)
+    torch.cuda.synchronize()
+    return dict(ms=gpu_ms(torch, lambda: ocean_traj(*args), 3), device_ms=dev_ms,
+                device_records_seen=seen, plain_ms=1e3 * (time.perf_counter() - t0),
+                plain_rounds=n)
+
+
+def _cells(res, C, T, radio=None, failure=None):
+    """The grid's (S, N, ...) streams as K3's (C, ...) cell streams."""
+    from repro_torch.env.failure import TracedFailure
+
+    r = None if radio is None else radio.map(lambda x: x.reshape(C, T).contiguous())
+    f = None
+    if failure is not None:
+        K = failure.rate.shape[-1]
+        f = TracedFailure(delivered=failure.delivered.reshape(C, T, K).contiguous(),
+                          rate=failure.rate.reshape(C, K).contiguous())
+    return r, f
+
+
+def phase_reliability(torch, np, dev, smi, T=300, K=10, seeds=64):
+    """The reliability grid (a clean cell and six failure cells, the paper's
+    §VI settings) through K3's failure instances, one launch per OCEAN
+    variant, with SMO and AMO beside them; every OCEAN variant's rounds
+    replayed against the plain round."""
+    from repro_torch.core.patterns import eta_schedule
+    from repro_torch.core.scenario import Scenario
+    from repro_torch.env import EnvSpec
+    from repro_torch.sim import GridEngine
+
+    scen = [Scenario(name="clean", num_rounds=T, num_clients=K)] + [
+        Scenario(name=n, num_rounds=T, num_clients=K, env=EnvSpec(failure=p, failure_params=pp))
+        for n, p, pp in FAILURE_CELLS
+    ]
+    pols = ["ocean-u", "ocean-over", "ocean-realloc", "smo", "amo"]
+    res, wall, launches = _timed_grid(torch, dev, scen, pols, seeds)
+    check(launches["ocean_traj"] == 3, f"reliability grid: K3 launched {launches}")
+    check(launches["ocean_traj_instances"]
+          == {f"failure/{m}": 1 for m in OCEAN_FAILURE_MODES.values()},
+          f"reliability grid: K3 instances {launches['ocean_traj_instances']}")
+    P, S, N = res.a.shape[:3]
+    C = S * N
+    for f in ("b", "e", "q"):
+        check(bool(torch.isfinite(getattr(res, f)).all()), f"reliability grid: non-finite {f}")
+    check(bool((res.delivered <= res.a).all()), "reliability grid: delivered is not a submask of a")
+    check(torch.equal(res.delivered[:, 0], res.a[:, 0]), "reliability grid: clean cell lost updates")
+    for p in (1, 2):
+        for f in ("a", "b", "e", "q"):
+            check(torch.equal(getattr(res, f)[0, 0], getattr(res, f)[p, 0]),
+                  f"reliability grid: {pols[p]} differs from ocean-u in the clean cell ({f})")
+    rates = {}
+    for s, (name, _, _) in enumerate(FAILURE_CELLS, start=1):
+        cell_means = res.failure_seq.delivered[s].double().mean((1, 2))
+        se = float(cell_means.std()) / math.sqrt(N)
+        got, declared = float(cell_means.mean()), float(res.failure_seq.rate[s].double().mean())
+        check(abs(got - declared) <= 3.0 * se,
+              f"reliability grid: {name} delivers {got}, declared {declared} (se {se})")
+        rates[name] = dict(realized=got, declared=declared, se=se)
+
+    engine = GridEngine(scen, pols, solver="pallas", traj="fused", device=dev)
+    eta = eta_schedule("uniform", T, device=dev)
+    _, fail = _cells(res, C, T, failure=res.failure_seq)
+    rho = res.q[:3].reshape(3, C, T, K) / torch.clamp(res.h2.reshape(C, T, K), min=1e-30)
+    n0 = (rho <= 1e-30).sum(-1)
+    variants, errs = {}, []
+    for p_idx, pol in enumerate(pols[:3]):
+        cfg = dataclasses.replace(engine.cfg, failure_mode=OCEAN_FAILURE_MODES[pol])
+        args = _k3_args(torch, cfg, res, failure=fail)
+        r = teacher_forced(torch, dev, cfg, res, p_idx, eta, V_PAPER, failure=res.failure_seq,
+                           obj=_k3_replayed_obj(torch, res, p_idx, args))
+        r.pop("near")
+        nsel = res.num_selected[p_idx].reshape(C, T)
+        if pol == "ocean-over":
+            resolved = nsel != r.pop("committed")
+            solves = (nsel - n0[p_idx])[resolved].tolist()
+        elif pol == "ocean-realloc":
+            r.pop("committed")
+            surv = res.delivered[p_idx].reshape(C, T, K) & (rho[p_idx] > 1e-30)
+            solves = surv.sum(-1)[r["realloc"] > 0].tolist()
+        else:
+            r.pop("committed")
+            solves = []
+        r.pop("realloc")
+        errs.append(r["max_abs_err_b"])
+        bms, by, ops, n_bytes = k3_bound(torch, rho[p_idx], failure=True, solves=solves)
+        variants[pol] = dict(
+            teacher_forced=r, masked_p4_solves=len(solves), bound_ms=bms, bound_by=by, ops=ops,
+            bytes=n_bytes, **_k3_alone(torch, args),
+            launches=launches["ocean_traj_instances"][f"failure/{cfg.failure_mode}"])
+    out = dict(gpu=smi, grid=f"{P} policies x {S} scenarios x {N} seeds, T={T}, K={K}",
+               launches=launches, wall_s=wall, rounds_cells_per_s=P * C * T / wall,
+               delivery_rates=rates, k3=variants, max_abs_err_b=max(errs),
+               mean_selected={p: res.num_selected[i].float().mean().item()
+                              for i, p in enumerate(pols)},
+               delivered_utility={p: res.delivered[i].float().sum((-1, -2)).mean().item()
+                                  for i, p in enumerate(pols)})
+    emit({"phase": "reliability", **out})
+    return out
+
+
+def phase_radio_grid(torch, np, dev, smi, T=300, K=10, seeds=64):
+    """The radio grid (nine static (B, tau) cells and a spectrum-sharing
+    cell) through K3's streamed-radio instance, with SMO and AMO beside it;
+    every round replayed against the plain round, and each static cell
+    held bit for bit to the same cell run as a scalar-radio grid."""
+    from repro_torch.core.energy import RadioParams
+    from repro_torch.core.patterns import eta_schedule
+    from repro_torch.core.scenario import Scenario
+    from repro_torch.env import EnvSpec
+    from repro_torch.sim import GridEngine, run_grid
+
+    scen = [
+        Scenario(name=f"B{b / 1e6:g}MHz_tau{tau:g}s", num_rounds=T, num_clients=K,
+                 radio=RadioParams(bandwidth_hz=b, deadline_s=tau))
+        for b in BANDWIDTHS_HZ for tau in DEADLINES_S
+    ] + [Scenario(name="spectrum_sharing", num_rounds=T, num_clients=K, env=EnvSpec(
+        radio="spectrum_sharing", radio_params={"share_min": 0.5, "share_max": 1.0,
+                                                "p_change": 0.5}))]
+    pols = ["ocean-u", "smo", "amo"]
+    res, wall, launches = _timed_grid(torch, dev, scen, pols, seeds)
+    check(launches["ocean_traj"] == 1 and launches["ocean_traj_instances"] == {"radio": 1},
+          f"radio grid: K3 launched {launches}")
+    P, S, N = res.a.shape[:3]
+    C = S * N
+    for f in ("b", "e", "q"):
+        check(bool(torch.isfinite(getattr(res, f)).all()), f"radio grid: non-finite {f}")
+    engine = GridEngine(scen, pols, solver="pallas", traj="fused", device=dev)
+    eta = eta_schedule("uniform", T, device=dev)
+    radio, _ = _cells(res, C, T, radio=res.radio_seq)
+    args = _k3_args(torch, engine.cfg, res, radio=radio)
+    r = teacher_forced(torch, dev, engine.cfg, res, 0, eta, V_PAPER, radio=res.radio_seq,
+                       obj=_k3_replayed_obj(torch, res, 0, args))
+    r.pop("near")
+    # static cells: the streamed leaves give the scalar instance's bits
+    for s, sc in enumerate(scen[:-1]):
+        one = run_grid([sc], ["ocean-u"], range(seeds), solver="pallas", traj="fused", device=dev)
+        for f in ("a", "b", "e", "q", "num_selected"):
+            check(torch.equal(getattr(res, f)[0, s], getattr(one, f)[0, 0]),
+                  f"radio grid: {sc.name} through the radio stream differs from the scalar "
+                  f"instance ({f})")
+    rho = res.q[0].reshape(C, T, K) / torch.clamp(res.h2.reshape(C, T, K), min=1e-30)
+    bms, by, ops, n_bytes = k3_bound(torch, rho, radio=True)
+    share = res.radio_seq.bandwidth_hz[-1] / 10e6
+    out = dict(gpu=smi, grid=f"{P} policies x {S} scenarios x {N} seeds, T={T}, K={K}",
+               launches=launches, wall_s=wall, rounds_cells_per_s=P * C * T / wall,
+               teacher_forced=r, static_cells_bitwise=S - 1,
+               spectrum_mean_share=share.mean().item(), bound_ms=bms, bound_by=by, ops=ops,
+               bytes=n_bytes, **_k3_alone(torch, args),
+               mean_selected={f"{p}/{sc.name}": res.num_selected[i, s].float().mean().item()
+                              for i, p in enumerate(pols) for s, sc in enumerate(scen)
+                              if s in (0, 4, 8, 9)})
+    emit({"phase": "radio_grid", **out})
+    return out
+
+
+def phase_baselines(torch, np, dev, smi, T=300, K=10, seeds=64, num_iters=400):
+    """The paper's baselines on the card against the same calls on the CPU,
+    on the §VI stationary cells; the dual oracle on one cell through K1
+    (num_iters + 1 launches), and OCEAN's utility against it (Theorem 2's
+    practical form, tests/test_ocean.py:72-84)."""
+    from repro_torch.core import baselines as bl
+    from repro_torch.core.ocean import simulate
+    from repro_torch.core.patterns import eta_schedule
+    from repro_torch.core.scenario import paper_scenarios
+    from repro_torch.kernels.ocean_p import ocean_p_prefix
+    from repro_torch.sim import GridEngine
+
+    sc = paper_scenarios(T, K)["stationary"]
+    engine = GridEngine([sc], ["ocean-u"], solver="pallas", device=dev)
+    cfg = engine.cfg
+    h2 = engine.sample_env(range(seeds))[0][0]                    # (N, T, K)
+    h2_cpu = h2.cpu()
+    cpu_cfg = cfg
+    rec = {}
+    for name, fn in (("select_all", bl.select_all), ("smo", bl.smo), ("amo", bl.amo)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        card = fn(cfg, h2)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        cpu = fn(cpu_cfg, h2_cpu)
+        check(torch.equal(card.a.cpu(), cpu.a), f"{name}: decisions differ card vs CPU")
+        err = (card.b.cpu() - cpu.b).abs().max().item()
+        check(err <= B_ATOL, f"{name}: max |b card - b CPU| = {err}")
+        rec[name] = dict(ms=ms, max_abs_err_b=err, mean_selected=card.num_selected.float().mean().item())
+
+    eta = eta_schedule("uniform", T, device=dev)
+    cell = h2[:1]
+    _reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trace, dual = bl.lookahead_dual(cfg, cell, eta, num_iters=num_iters)
+    torch.cuda.synchronize()
+    oracle_s = time.perf_counter() - t0
+    k1 = ocean_p_prefix.launches
+    check(k1 == num_iters + 1, f"lookahead_dual: K1 launched {k1} times, not {num_iters + 1}")
+    # the same call's last step on the CPU from the card's multipliers
+    mu, _ = bl.dual_ascent(cfg, cell, eta, num_iters=num_iters)
+    a_c, b_c, _ = bl.lookahead_rounds(cfg, cell.cpu(), eta.cpu(), mu.cpu())
+    check(torch.equal(trace.a.cpu(), a_c), "lookahead_dual: decisions differ card vs CPU")
+    err = (trace.b.cpu() - b_c).abs().max().item()
+    check(err <= B_ATOL, f"lookahead_dual: max |b card - b CPU| = {err}")
+    oracle = bl.utility(trace, eta).item()
+    _, decs = simulate(cfg, cell, eta, 1e-4, traj="fused", device=dev)
+    ours = (eta * decs.num_selected.float()).sum().item()
+    check(ours >= 0.6 * oracle, f"Theorem 2: OCEAN {ours} < 0.6 x oracle {oracle}")
+    rec["lookahead_dual"] = dict(num_iters=num_iters, k1_launches=k1, wall_s=oracle_s,
+                                 max_abs_err_b=err, oracle_utility=oracle,
+                                 dual_value=dual.item(), ocean_utility=ours, ocean_v=1e-4,
+                                 ratio=ours / oracle)
+    emit({"phase": "baselines", "gpu": smi, "cells": seeds, "T": T, "K": K, **rec})
+    return rec
 
 
 # ---------------------------------------------------------------------------
@@ -1645,30 +2002,45 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
 
-    smi = phase_card(torch)
-    k1 = phase_k1(torch, np, dev, smi)
-    k2 = phase_k2(torch, np, dev, smi)
-    res, main_out, k3_err, near_cells = phase_main(torch, np, dev, smi, k1[10]["device_ms"])
-    k3_large = phase_k3_large(torch, np, dev, smi)
-    scan = phase_scan(torch, dev, smi, res, near_cells)
-    topm = phase_topm_path(torch, dev, smi)
+    walls = {}
+
+    def timed(name, fn, *args):
+        """Run one phase and keep its wall time (seconds, host clock)."""
+        t0 = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t0
+        return out
+
+    smi = timed("card", phase_card, torch)
+    k1 = timed("k1", phase_k1, torch, np, dev, smi)
+    k2 = timed("k2", phase_k2, torch, np, dev, smi)
+    res, main_out, k3_err, near_cells = timed("k3_main_path", phase_main, torch, np, dev, smi,
+                                              k1[10]["device_ms"])
+    k3_large = timed("k3_large_K", phase_k3_large, torch, np, dev, smi)
+    scan = timed("k1_scan_path", phase_scan, torch, dev, smi, res, near_cells)
+    topm = timed("k2_topm_path", phase_topm_path, torch, dev, smi)
     del res
     torch.cuda.empty_cache()
-    k4 = phase_k4(torch, dev, smi)
-    k5 = phase_k5_long(torch, dev, smi)
+    reliability = timed("reliability", phase_reliability, torch, np, dev, smi)
+    radio_grid = timed("radio_grid", phase_radio_grid, torch, np, dev, smi)
+    baselines = timed("baselines", phase_baselines, torch, np, dev, smi)
     torch.cuda.empty_cache()
-    model, prefill = phase_prefill(torch, dev, smi)
-    serve = phase_serve(torch, dev, smi, model)
+    k4 = timed("k4_flash", phase_k4, torch, dev, smi)
+    k5 = timed("k5_long_cache", phase_k5_long, torch, dev, smi)
+    torch.cuda.empty_cache()
+    model, prefill = timed("prefill_main", phase_prefill, torch, dev, smi)
+    serve = timed("serve_decode", phase_serve, torch, dev, smi, model)
     del model
     torch.cuda.empty_cache()
-    k7 = phase_k7(torch, dev, smi)
-    k6 = phase_k6(torch, dev, smi)
-    model, rwkv_prefill = phase_rwkv6_prefill(torch, dev, smi)
-    rwkv_serve = phase_lm_serve(torch, smi, model, "rwkv6_serve")
+    k7 = timed("k7_wkv", phase_k7, torch, dev, smi)
+    k6 = timed("k6_mamba", phase_k6, torch, dev, smi)
+    model, rwkv_prefill = timed("rwkv6_prefill", phase_rwkv6_prefill, torch, dev, smi)
+    rwkv_serve = timed("rwkv6_serve", phase_lm_serve, torch, smi, model, "rwkv6_serve")
     del model
     torch.cuda.empty_cache()
-    model, jamba_prefill = phase_jamba_prefill(torch, dev, smi)
-    jamba_serve = phase_lm_serve(torch, smi, model, "jamba_serve")
+    model, jamba_prefill = timed("jamba_prefill", phase_jamba_prefill, torch, dev, smi)
+    jamba_serve = timed("jamba_serve", phase_lm_serve, torch, smi, model, "jamba_serve")
     del model
     torch.cuda.empty_cache()
 
@@ -1677,6 +2049,7 @@ def main() -> int:
         dict(name="ocean_p_prefix", route="cuda", source="src/repro_torch/csrc/ocean_p.cu",
              replaces="src/repro/kernels/ocean_p.py:48",
              launches=scan["launches"]["ocean_p_prefix"],
+             launches_lookahead_dual=baselines["lookahead_dual"]["k1_launches"],
              max_abs_err=max(r["max_abs_err_b"] for r in k1.values()),
              ms=k1_main["ms"], device_ms=k1_main["device_ms"], plain_ms=k1_main["plain_ms"],
              bound_ms=k1_main["bound_ms"], bound_by=k1_main["bound_by"], library_ms=None),
@@ -1689,10 +2062,19 @@ def main() -> int:
         dict(name="ocean_traj", route="cuda", source="src/repro_torch/csrc/ocean_traj.cu",
              replaces="src/repro/kernels/ocean_traj.py:96",
              launches=main_out["launches"]["ocean_traj"],
-             max_abs_err=max([k3_err] + [r["max_abs_err_b"] for r in k3_large.values()]),
+             max_abs_err=max([k3_err, reliability["max_abs_err_b"],
+                              radio_grid["teacher_forced"]["max_abs_err_b"]]
+                             + [r["max_abs_err_b"] for r in k3_large.values()]),
              ms=main_out["k3_ms"], device_ms=main_out["k3_device_ms"],
              plain_ms=main_out["k3_plain_ms"],
-             bound_ms=main_out["bound_ms"], bound_by=main_out["bound_by"], library_ms=None),
+             bound_ms=main_out["bound_ms"], bound_by=main_out["bound_by"], library_ms=None,
+             instances={
+                 "radio": dict(launches=radio_grid["launches"]["ocean_traj_instances"]["radio"],
+                               **{k: radio_grid[k] for k in INSTANCE_KEYS}),
+                 **{f"failure/{OCEAN_FAILURE_MODES[p]}": dict(
+                     launches=v["launches"], **{k: v[k] for k in INSTANCE_KEYS})
+                    for p, v in reliability["k3"].items()},
+             }),
         dict(name="flash_attention", route="cuda", source="src/repro_torch/csrc/flash_attention.cu",
              replaces="src/repro/kernels/flash_attention.py:32",
              launches=prefill["k4_launches"],
@@ -1731,6 +2113,7 @@ def main() -> int:
           "rwkv6_decode_tokens_per_s": rwkv_serve["decode_tokens_per_s"],
           "jamba_prefill_tokens_per_s": jamba_prefill["prefill_tokens_per_s"],
           "jamba_decode_tokens_per_s": jamba_serve["decode_tokens_per_s"]})
+    emit({"phase": "wall_s", "gpu": smi, **walls})
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,10 +1,13 @@
 """Carry configuration, state and weights between the JAX reference and the port.
 
-For OCEAN what crosses over is a scenario (plain JSON data from the
-reference's ``Scenario.to_dict()``) and OCEAN state or decisions as numpy
-arrays; for the decoder LM it is the reference's parameter tree, as numpy
-arrays.  The tests feed both packages the same inputs through these
-functions.
+For OCEAN what crosses over is a scenario or an environment (plain JSON
+data from the reference's ``Scenario.to_dict()`` / ``EnvSpec.to_dict()``),
+realized environment streams (a reference ``TracedRadio`` or
+``TracedFailure`` with numpy leaves: the port's samplers cannot reproduce
+JAX's keys, so identical streams cross over), and OCEAN state or
+decisions as numpy arrays; for the decoder LM it is the reference's
+parameter tree, as numpy arrays.  The tests feed both packages the same
+inputs through these functions.
 """
 from __future__ import annotations
 
@@ -17,6 +20,9 @@ from repro_torch._device import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.ocean import OceanState, RoundDecision
 from repro_torch.core.scenario import Scenario
+from repro_torch.env.failure import TracedFailure
+from repro_torch.env.radio import TracedRadio
+from repro_torch.env.spec import EnvSpec
 
 
 def scenario_from_reference(d: Dict[str, Any]) -> Scenario:
@@ -25,6 +31,29 @@ def scenario_from_reference(d: Dict[str, Any]) -> Scenario:
     Raises ``NotImplementedError`` for fields this slice does not take.
     """
     return Scenario.from_dict(d)
+
+
+def env_spec_from_reference(d: Dict[str, Any]) -> EnvSpec:
+    """The port's ``EnvSpec`` from a reference ``EnvSpec.to_dict()`` payload."""
+    return EnvSpec.from_dict(d)
+
+
+def _f32_leaf(x, device) -> torch.Tensor:
+    return torch.as_tensor(np.array(x, np.float32), device=device)
+
+
+def radio_from_reference(radio, device=None) -> TracedRadio:
+    """A reference ``TracedRadio`` (numpy leaves of any shape) as the port's."""
+    dev = resolve_device(device)
+    return TracedRadio(*(_f32_leaf(getattr(radio, f), dev) for f in TracedRadio._fields))
+
+
+def failure_from_reference(failure, device=None) -> TracedFailure:
+    """A reference ``TracedFailure`` ((..., T, K) mask, (..., K) rates) as the port's."""
+    dev = resolve_device(device)
+    return TracedFailure(
+        delivered=_f32_leaf(failure.delivered, dev), rate=_f32_leaf(failure.rate, dev)
+    )
 
 
 def state_from_reference(q, t, energy_spent, device=None) -> OceanState:

@@ -22,6 +22,7 @@ from repro_torch.core.energy import (
     as_f32,
     f_shannon,
     f_shannon_prime,
+    lead,
 )
 
 
@@ -35,7 +36,7 @@ def _b_of_lam(
 ) -> torch.Tensor:
     """Solve rho_k f'(b) = -lam for each k by bisection; clamp to [b_min, b_max]."""
     target = -lam / torch.clamp(rho, min=1e-30)
-    lo = torch.full_like(target, b_min)
+    lo = torch.broadcast_to(as_f32(b_min, target), target.shape)
     hi = torch.broadcast_to(b_max, target.shape).to(target.dtype)
     half = as_f32(0.5, target)
     for _ in range(iters):
@@ -61,6 +62,8 @@ def solve_p4(
       rho:   (..., K) priorities q_k / h_k^2.
       mask:  (..., K) bool — membership of S - S0.
       delta: (...) total ratio to distribute.
+      radio: ``RadioParams``, or per-cell leaves shaped like leading axes
+            of ``delta`` (``repro_torch.core.energy.lead``).
       method: ``bisect`` (this module) or another registered backend's
             single-mask waterfiller (``repro_torch.core.solvers``).
 
@@ -76,13 +79,15 @@ def solve_p4(
     mask = mask.to(torch.bool)
     delta = torch.as_tensor(delta, dtype=rho.dtype, device=rho.device)
     zero = torch.zeros((), dtype=rho.dtype, device=rho.device)
-    beta = radio.beta
-    b_min = radio.b_min
+    nd = rho.dim()
+    beta = lead(radio.beta, nd)
+    b_min = lead(radio.b_min, nd)
+    b_min_d = lead(radio.b_min, nd - 1)
 
     n = mask.sum(-1)
     has_any = n > 0
     n_safe = torch.clamp(n, min=1)
-    b_max = torch.clamp(delta - (n_safe - 1) * b_min, min=b_min)[..., None]
+    b_max = torch.clamp(delta - (n_safe - 1) * b_min_d, min=b_min_d)[..., None]
 
     fp_min = -f_shannon_prime(as_f32(b_min, rho), beta)
     rho_mx = torch.where(mask, rho, zero).amax(-1, keepdim=True)
@@ -131,7 +136,8 @@ def p4_objective(
 ) -> torch.Tensor:
     """W*(S) contribution of S - S0:  sum_k (V*eta - rho_k N0 tau B f(b_k))."""
     v_eta = torch.as_tensor(v_eta, dtype=rho.dtype, device=rho.device)
-    per_client = v_eta[..., None] - rho * radio.energy_scale * f_shannon(
-        torch.clamp(b, min=radio.b_min), radio.beta
+    nd = rho.dim()
+    per_client = v_eta[..., None] - rho * lead(radio.energy_scale, nd) * f_shannon(
+        torch.clamp(b, min=lead(radio.b_min, nd)), lead(radio.beta, nd)
     )
     return torch.where(mask.to(torch.bool), per_client, 0.0).sum(-1)

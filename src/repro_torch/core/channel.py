@@ -13,23 +13,12 @@ from typing import Callable
 
 import torch
 
+from repro_torch.env.channel import pathloss_schedule, pathloss_to_gain, uniform_fade
 
-def pathloss_to_gain(pl_db) -> torch.Tensor:
-    """Mean channel power gain g = 10^{-PL_dB/10} (float32)."""
-    pl = torch.as_tensor(pl_db, dtype=torch.float32)
-    # float64 then one rounding: float32 pow differs in the last bit with
-    # an element's position in the tensor on the CPU.
-    return torch.pow(10.0, (-pl / 10.0).double()).to(torch.float32)
-
-
-def pathloss_schedule(start_db: float, end_db: float, num_rounds: int, device=None) -> torch.Tensor:
-    """(T,) scheduled mean path loss; equal endpoints => constant."""
-    if start_db == end_db:
-        return torch.full((num_rounds,), start_db, dtype=torch.float32, device=device)
-    frac = torch.arange(num_rounds, dtype=torch.float32, device=device) / max(
-        num_rounds - 1, 1
-    )
-    return start_db + (end_db - start_db) * frac
+__all__ = [
+    "ChannelModel", "constant_pathloss", "linear_pathloss", "pathloss_schedule",
+    "pathloss_to_gain", "rayleigh_power",
+]
 
 
 def constant_pathloss(pl_db: float) -> Callable[[torch.Tensor], torch.Tensor]:
@@ -67,7 +56,5 @@ class ChannelModel:
 
 def rayleigh_power(generator: torch.Generator, shape) -> torch.Tensor:
     """Exp(1) power fading: -log(u) with u uniform on [1e-6, 1)."""
-    u = torch.rand(shape, generator=generator, device=generator.device)
-    u = 1e-6 + u * (1.0 - 1e-6)
-    return -torch.log(u)
+    return -torch.log(uniform_fade(generator, shape))
 

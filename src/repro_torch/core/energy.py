@@ -7,11 +7,17 @@ The workhorse is ``f(b) = b * (2^{beta / b} - 1)`` with ``beta = L/(tau*B)``
 to +-80 so impossible allocations saturate to a huge-but-finite energy.
 
 Python-float radio constants enter the float32 math the way JAX's weak
-types do: rounded once to float32 at the op.  ``exp2`` is evaluated in
-float64 and rounded to float32 (correctly rounded), because PyTorch's CPU
-float32 ``exp2`` takes a vector or a scalar code path depending on an
-element's position in the tensor, and those disagree in the last bit —
-the cell-batched engine would then not reproduce a single-cell run.
+types do: rounded once to float32 at the op.  A radio may also be any
+object with the same attributes whose ``b_min``/``beta``/``energy_scale``
+are float32 tensors of per-cell values (one round of a
+``repro_torch.env.radio.TracedRadio``), shaped like the leading axes of
+the operands they meet; ``lead`` appends the unit axes.
+
+``exp2`` is evaluated in float64 and rounded to float32 (correctly
+rounded), because PyTorch's CPU float32 ``exp2`` takes a vector or a
+scalar code path depending on an element's position in the tensor, and
+those disagree in the last bit — the cell-batched engine would then not
+reproduce a single-cell run.
 """
 from __future__ import annotations
 
@@ -95,6 +101,15 @@ def as_f32(x: Scalar, like: torch.Tensor) -> torch.Tensor:
     return t
 
 
+def lead(x: Scalar, ndim: int) -> Scalar:
+    """Radio leaf ``x`` against an operand of rank ``ndim`` whose leading
+    axes are ``x``'s: a tensor gets trailing unit axes; a Python float or a
+    0-dim tensor passes as it is."""
+    if isinstance(x, torch.Tensor) and 0 < x.dim() < ndim:
+        return x.reshape(tuple(x.shape) + (1,) * (ndim - x.dim()))
+    return x
+
+
 def exp2(x: torch.Tensor) -> torch.Tensor:
     """Correctly rounded float32 2^x (see the module docstring)."""
     return x.double().exp2_().to(x.dtype)
@@ -124,11 +139,10 @@ def _prime_second(b, beta, second: bool):
     fp = p * (one - as_f32(LN2, y) * y) - one
     if not second:
         return fp, None
-    if isinstance(beta, torch.Tensor):
-        beta_sq = beta * beta
-    else:  # a Python float squares in double, as the reference's does
-        beta_sq = as_f32(beta**2, safe_b)
-    return fp, as_f32(LN2_SQ, y) * p * beta_sq / (safe_b * safe_b * safe_b)
+    # beta squared in float32, as the kernels compute it: a Python float and
+    # a stored float32 leaf of the same radio then give the same bits
+    beta_t = as_f32(beta, y)
+    return fp, as_f32(LN2_SQ, y) * p * (beta_t * beta_t) / (safe_b * safe_b * safe_b)
 
 
 def f_shannon_prime(b: torch.Tensor, beta: Scalar) -> torch.Tensor:
@@ -150,8 +164,8 @@ def transmit_power_w_per_hz(
     b: torch.Tensor, h2: torch.Tensor, radio: RadioParams
 ) -> torch.Tensor:
     """p = N0 (2^{L/(tau B b)} - 1) / h^2 — inverted from Shannon (Eq. 1)."""
-    y, _ = _y(b, radio.beta)
-    return radio.noise_w * exp2m1(y) / h2
+    y, _ = _y(b, lead(radio.beta, b.dim()))
+    return lead(radio.noise_w, b.dim()) * exp2m1(y) / h2
 
 
 def energy(
@@ -165,7 +179,8 @@ def energy(
     A subnormal b counts as 0, as it does in the reference, whose
     platforms (XLA on the CPU, the TPU) flush subnormals to zero.
     """
-    e = radio.energy_scale * f_shannon(b, radio.beta) / h2
+    nd = b.dim()
+    e = lead(radio.energy_scale, nd) * f_shannon(b, lead(radio.beta, nd)) / h2
     e = torch.where(b >= FLT_MIN, e, torch.zeros_like(e))
     if a is not None:
         e = e * a.to(e.dtype)
@@ -183,7 +198,11 @@ def min_bandwidth_for_energy(
     Returns b in [b_min, 1]; +inf where even b = 1 exceeds the budget.
     """
     shape = torch.broadcast_shapes(e_budget.shape, h2.shape)
-    lo = torch.full(shape, radio.b_min, dtype=torch.float32, device=h2.device)
+    b_min = torch.broadcast_to(
+        torch.as_tensor(lead(radio.b_min, len(shape)), dtype=torch.float32, device=h2.device),
+        shape,
+    )
+    lo = b_min.clone()
     hi = torch.ones_like(lo)
     for _ in range(iters):
         mid = 0.5 * (lo + hi)
@@ -192,8 +211,6 @@ def min_bandwidth_for_energy(
         hi = torch.where(too_much, hi, mid)
     b = hi
     feasible = energy(torch.ones_like(lo), h2, radio) <= e_budget
-    b = torch.where(
-        feasible, torch.clamp(b, min=radio.b_min), torch.full_like(b, math.inf)
-    )
-    min_ok = energy(torch.full_like(lo, radio.b_min), h2, radio) <= e_budget
-    return torch.where(min_ok, torch.full_like(b, radio.b_min), b)
+    b = torch.where(feasible, torch.maximum(b, b_min), torch.full_like(b, math.inf))
+    min_ok = energy(b_min, h2, radio) <= e_budget
+    return torch.where(min_ok, b_min, b)

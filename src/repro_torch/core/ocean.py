@@ -13,9 +13,12 @@ cell axis C (the JAX engine's vmap over scenarios x seeds).
 ``simulate`` has two trajectory backends: ``scan`` (a Python loop over
 rounds on (C, K) tensors) and ``fused`` (kernel K3,
 ``repro_torch.kernels.ocean_traj``: all T rounds of every cell in one
-launch).  Hooks this slice does not port — per-round radio sequences,
-failure processes and failure modes, guards, metrics, checkpointing and
-bf16 streaming — keep their arguments and raise ``NotImplementedError``.
+launch).  Both take per-round radio physics (a ``TracedRadio`` of (C, T)
+leaves, ``repro_torch.env.radio``) and per-client delivery failures (a
+``TracedFailure``, ``repro_torch.env.failure``) with the failure-aware
+modes ``overprovision`` and ``reallocate``.  Hooks not ported yet —
+guards, metrics, checkpointing and bf16 streaming — keep their arguments
+and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -25,18 +28,22 @@ from typing import Any, NamedTuple, Optional, Tuple, Union
 import torch
 
 from repro_torch._device import resolve_device
-from repro_torch.core.energy import RadioParams, energy
+from repro_torch.core.bandwidth import solve_p4
+from repro_torch.core.energy import RadioParams, energy, lead
 from repro_torch.core.selection import (
     DEFAULT_BLOCK_K,
     DEFAULT_TOP_M,
     OceanPSolution,
     check_ranking,
     ocean_p,
+    p3_value,
 )
 from repro_torch.core.solvers import SolverBackend, get_solver
 
 TRAJ_BACKENDS = ("scan", "fused")
 FAILURE_MODES = ("plain", "overprovision", "reallocate")
+# S0 membership, as repro_torch.core.selection classifies it
+_RHO_ZERO_TOL = 1e-30
 
 
 def not_ported(hook: str) -> NotImplementedError:
@@ -70,9 +77,10 @@ def check_traj_backend(name: str) -> str:
 class OceanConfig:
     """Static configuration of one OCEAN run (fields as in ``repro``).
 
-    ``failure_mode`` other than ``plain``, ``metrics``, ``guard`` and
-    ``checkpoint`` are hooks this slice does not port: setting them raises
-    ``NotImplementedError``.
+    ``failure_mode`` acts only where a failure process is passed
+    (``plain``, ``overprovision`` or ``reallocate``; see
+    ``_failure_adjust``).  ``metrics``, ``guard`` and ``checkpoint`` are
+    hooks not ported yet: setting them raises ``NotImplementedError``.
     """
 
     num_clients: int
@@ -110,8 +118,6 @@ class OceanConfig:
                 f"frame_len={self.frame_len} must be a positive number of "
                 f"rounds (or None for the single-frame R = T setting)"
             )
-        if self.failure_mode != "plain":
-            raise not_ported(f"failure_mode={self.failure_mode!r}")
         for hook in ("metrics", "guard", "checkpoint"):
             if getattr(self, hook) is not None:
                 raise not_ported(f"OceanConfig.{hook}")
@@ -143,9 +149,11 @@ class RoundDecision(NamedTuple):
     rho: torch.Tensor           # (C, K) priorities
     objective: torch.Tensor     # (C,) P3 optimum
     num_selected: torch.Tensor  # (C,) int32
-    # Extensions of hooks not ported yet; always None here.
+    # With a failure process: selected and delivered (C, K) bool, and
+    # whether P4 re-ran mid-round (C,) int32; None without one.
     delivered: Optional[torch.Tensor] = None
     realloc: Optional[torch.Tensor] = None
+    # Guard extension, not ported yet: always None.
     fault_count: Optional[torch.Tensor] = None
     demoted: Optional[torch.Tensor] = None
     fallback: Optional[torch.Tensor] = None
@@ -159,6 +167,90 @@ def init_state(cfg: OceanConfig, num_cells: int = 1, device=None) -> OceanState:
         t=torch.zeros((num_cells,), dtype=torch.int32, device=dev),
         energy_spent=torch.zeros((num_cells, k), dtype=torch.float32, device=dev),
     )
+
+
+def _masked_p4(cfg: OceanConfig, rho, in_s0, mask, radio) -> torch.Tensor:
+    """P4 bandwidth over an arbitrary selected set with OCEAN-P's S0 split
+    (reference ``repro/core/ocean.py:248``): zero-rho members get b_min
+    (and the whole budget when no positive-rho member is selected); the
+    rest share delta through ``solve_p4(method=cfg.solver)``."""
+    b_min = lead(radio.b_min, 1)
+    zero = torch.zeros((), dtype=rho.dtype, device=rho.device)
+    n0 = (mask & in_s0).sum(1).to(rho.dtype)
+    delta = 1.0 - n0 * b_min
+    pos = mask & ~in_s0
+    b_pos, _ = solve_p4(rho, pos, delta, radio, method=cfg.solver)
+    leftover = torch.where(pos.sum(1) == 0, delta, zero)
+    b0_each = b_min + leftover / torch.clamp(n0, min=1.0)
+    return torch.where(pos, b_pos, torch.where(mask & in_s0, b0_each[:, None], zero))
+
+
+def cumsum_sequential(x: torch.Tensor) -> torch.Tensor:
+    """Prefix sums along the last axis, added left to right in x's dtype:
+    one defined order on every device (K3 adds in the same order)."""
+    acc = torch.zeros_like(x[..., 0])
+    out = []
+    for j in range(x.shape[-1]):
+        acc = acc + x[..., j]
+        out.append(acc)
+    return torch.stack(out, -1)
+
+
+def _failure_adjust(cfg: OceanConfig, q, h2, v, eta, sol: OceanPSolution, e, radio,
+                    delivered, fail_rate):
+    """Apply ``cfg.failure_mode`` to one committed round of every cell
+    (reference ``repro/core/ocean.py:339``, without the guard's cap).
+
+    Returns ``(a, b, e, objective, num_selected, delivered, realloc)``.
+    Selected clients pay their energy whether or not their update arrives,
+    except under ``reallocate``, where failures found at the deadline
+    midpoint stop transmitting: the round then costs half the committed
+    energy plus half that of P4 re-run on the survivors.  Under
+    ``overprovision``, a cell whose extended prefix is the plain selection
+    keeps the committed solve (the reference re-solves the same strictly
+    convex P4, which agrees within its tolerance).
+    """
+    ok = delivered > 0.0
+    C, K = q.shape
+    no_ral = torch.zeros((C,), dtype=torch.int32, device=q.device)
+    if cfg.failure_mode == "plain":
+        return sol.a, sol.b, e, sol.objective, sol.num_selected, sol.a & ok, no_ral
+    in_s0 = sol.rho <= _RHO_ZERO_TOL
+    if cfg.failure_mode == "overprovision":
+        if fail_rate is None:
+            raise ValueError(
+                "failure_mode='overprovision' needs the failure process's declared "
+                "delivery rates (TracedFailure.rate); pass the full TracedFailure"
+            )
+        m_plain = sol.num_selected.to(torch.int64)
+        order = torch.argsort(sol.rho, dim=1, stable=True)  # ascending: S0 first
+        inv = torch.argsort(order, dim=1, stable=True)
+        rate = torch.broadcast_to(torch.as_tensor(fail_rate, device=q.device), (C, K))
+        csum = cumsum_sequential(torch.gather(rate, 1, order))
+        # the smallest prefix whose declared rates sum to the plain count,
+        # at least the plain prefix, at most what b_min leaves room for
+        n_exp = 1 + (csum < m_plain.to(csum.dtype)[:, None]).sum(1)
+        b_min = torch.as_tensor(lead(radio.b_min, 1), dtype=torch.float32, device=q.device)
+        cap = torch.floor(torch.tensor(1.0 + 1e-9, dtype=torch.float32, device=q.device) / b_min)
+        n_max = torch.clamp(cap.to(torch.int64), max=K)
+        n_ext = torch.minimum(torch.clamp(torch.maximum(n_exp, m_plain), min=0), n_max)
+        n_ext = torch.where(m_plain > 0, n_ext, torch.zeros_like(n_ext))
+        a = inv < n_ext[:, None]
+        b_ext = _masked_p4(cfg, sol.rho, in_s0, a, radio)
+        extended = (n_ext != m_plain)[:, None]
+        b = torch.where(extended, b_ext, sol.b)
+        e_out = torch.where(extended, energy(b_ext, h2, radio, a), e)
+        obj = torch.where(extended[:, 0], p3_value(a, b_ext, q, h2, v, eta, radio), sol.objective)
+        ns = a.sum(1).to(sol.num_selected.dtype)
+        return a, b, e_out, obj, ns, a & ok, no_ral
+    # reallocate: commit the plain decision, re-run P4 on the survivors
+    surv = sol.a & ok
+    any_failed = (sol.a & ~ok).any(1)
+    b2 = _masked_p4(cfg, sol.rho, in_s0, surv, radio)
+    e2 = energy(b2, h2, radio, surv)
+    e_out = torch.where(any_failed[:, None], 0.5 * e + 0.5 * e2, e)
+    return (sol.a, sol.b, e_out, sol.objective, sol.num_selected, surv,
+            any_failed.to(torch.int32))
 
 
 def ocean_round(
@@ -177,22 +269,29 @@ def ocean_round(
 
     ``h2`` (C, K); ``v``/``eta`` scalars or (C,); ``budgets`` (K,) or
     (C, K) totals; ``budget_inc`` (C, K) per-round drain (default
-    budgets / T).  ``radio``, ``delivered`` and ``fail_rate`` are hooks of
-    later slices.
+    budgets / T).  ``radio`` overrides ``cfg.radio`` with this round's
+    physics: a ``RadioParams`` or per-cell (C,) leaves (one round of a
+    ``TracedRadio``).  ``delivered`` (C, K) is this round's {0, 1}
+    delivery mask and ``fail_rate`` (K,) or (C, K) the declared rates;
+    with them the round applies ``cfg.failure_mode`` and reports
+    ``delivered``/``realloc``.  Without them it is the pre-failure round.
     """
-    if radio is not None:
-        raise not_ported("a per-round radio (radio_seq)")
-    if delivered is not None or fail_rate is not None:
-        raise not_ported("failure processes (failure_seq)")
+    radio = cfg.radio if radio is None else radio
     at_boundary = (state.t > 0) & (torch.remainder(state.t, cfg.R) == 0)
     q = torch.where(at_boundary[:, None], torch.zeros_like(state.q), state.q)
 
     sol: OceanPSolution = ocean_p(
-        q, h2, v, eta, cfg.radio,
+        q, h2, v, eta, radio,
         solver=cfg.solver, ranking=cfg.ranking, top_m=cfg.top_m,
         block_k=cfg.block_k,
     )
-    e = energy(sol.b, h2, cfg.radio, sol.a)
+    e = energy(sol.b, h2, radio, sol.a)
+    a, b, objective, num_selected = sol.a, sol.b, sol.objective, sol.num_selected
+    dlv = ral = None
+    if delivered is not None:
+        a, b, e, objective, num_selected, dlv, ral = _failure_adjust(
+            cfg, q, h2, v, eta, sol, e, radio, delivered, fail_rate
+        )
     if budget_inc is None:
         if budgets is None:
             budgets = cfg.budgets(device=q.device)
@@ -202,8 +301,8 @@ def ocean_round(
         q=q_next, t=state.t + 1, energy_spent=state.energy_spent + e
     )
     dec = RoundDecision(
-        a=sol.a, b=sol.b, e=e, q=q, rho=sol.rho,
-        objective=sol.objective, num_selected=sol.num_selected,
+        a=a, b=b, e=e, q=q, rho=sol.rho,
+        objective=objective, num_selected=num_selected, delivered=dlv, realloc=ral,
     )
     return new_state, dec
 
@@ -255,8 +354,12 @@ def simulate(
 
     ``h2_seq`` (C, T, K); ``eta_seq`` (T,) or (C, T); ``v`` a scalar or a
     per-frame (M,) sequence; ``budgets`` (K,) or (C, K); ``budget_seq``
-    (T, K) or (C, T, K) per-round increments.  Decisions come back stacked
-    as (C, T, K) and (C, T).  Runs on the card unless ``device="cpu"``.
+    (T, K) or (C, T, K) per-round increments; ``radio_seq`` a
+    ``TracedRadio`` of (T,) or (C, T) leaves (None: the static
+    ``cfg.radio``); ``failure_seq`` a ``TracedFailure`` ((T, K) or
+    (C, T, K) mask, (K,) or (C, K) rates; None: no failures).  Decisions
+    come back stacked as (C, T, K) and (C, T).  Runs on the card unless
+    ``device="cpu"``.
     """
     traj = check_traj_backend(cfg.traj if traj is None else traj)
     if stream_bf16:
@@ -268,10 +371,6 @@ def simulate(
         raise not_ported("stream_bf16")
     if checkpoint not in (None, False) or resume_from is not None:
         raise not_ported("checkpoint/resume")
-    if radio_seq is not None:
-        raise not_ported("radio_seq")
-    if failure_seq is not None:
-        raise not_ported("failure_seq")
     dev = resolve_device(device)
     h2_seq = torch.as_tensor(h2_seq, dtype=torch.float32, device=dev)
     if h2_seq.dim() != 3 or tuple(h2_seq.shape[1:]) != (cfg.num_rounds, cfg.num_clients):
@@ -288,11 +387,22 @@ def simulate(
         tot = _per_cell(tot, C, (K,), "budgets", dev)
         budget_seq = (tot / cfg.num_rounds)[:, None, :].expand(C, T, K)
     budget_seq = _per_cell(budget_seq, C, (T, K), "budget_seq", dev)
+    if radio_seq is not None:
+        radio_seq = type(radio_seq)(
+            *(_per_cell(x, C, (T,), "radio_seq leaf", dev) for x in radio_seq)
+        )
+    if failure_seq is not None:
+        failure_seq = type(failure_seq)(
+            delivered=_per_cell(failure_seq.delivered, C, (T, K), "failure_seq.delivered", dev),
+            rate=_per_cell(failure_seq.rate, C, (K,), "failure_seq.rate", dev),
+        )
 
     if traj == "fused":
         from repro_torch.kernels.ocean_traj import ocean_trajectory_fused
 
-        return ocean_trajectory_fused(cfg, h2_seq, v_seq, eta_seq, budget_seq)
+        return ocean_trajectory_fused(
+            cfg, h2_seq, v_seq, eta_seq, budget_seq, radio_seq, failure_seq
+        )
 
     state = init_state(cfg, C, device=dev)
     decs = []
@@ -300,6 +410,9 @@ def simulate(
         state, dec = ocean_round(
             state, h2_seq[:, t], v_seq[:, t], eta_seq[:, t], cfg,
             budget_inc=budget_seq[:, t],
+            radio=None if radio_seq is None else radio_seq.at(t),
+            delivered=None if failure_seq is None else failure_seq.delivered[:, t],
+            fail_rate=None if failure_seq is None else failure_seq.rate,
         )
         decs.append(dec)
     return state, stack_decisions(decs)

@@ -7,7 +7,8 @@ evaluates them and returns the winner.  Clients with rho_k == 0 form S0:
 always selected at b_min, the rest of the budget goes to the prefix.
 
 Every function takes a leading cell axis: q, h2 are (C, K); v, eta are
-scalars or (C,).  Sorting is stable (``stable=True`` everywhere), so ties
+scalars or (C,); the radio is a ``RadioParams`` or one round of per-cell
+leaves, (C,) each.  Sorting is stable (``stable=True`` everywhere), so ties
 break by client index exactly as ``jnp.argsort`` does.
 """
 from __future__ import annotations
@@ -16,7 +17,7 @@ from typing import NamedTuple, Optional, Tuple, Union
 
 import torch
 
-from repro_torch.core.energy import SAFE_DIV_FLOOR, RadioParams, f_shannon
+from repro_torch.core.energy import SAFE_DIV_FLOOR, RadioParams, f_shannon, lead
 from repro_torch.core.solvers import SolverBackend, get_solver
 
 _RHO_ZERO_TOL = 1e-30
@@ -251,8 +252,8 @@ def p3_value(a, b, q, h2, v, eta, radio: RadioParams) -> torch.Tensor:
         * _cell_scalar(eta, C, q.dtype, q.device)
         * a.to(q.dtype).sum(1)
     )
-    en = radio.energy_scale * torch.where(
-        a > 0, rho * f_shannon(torch.clamp(b, min=radio.b_min), radio.beta),
+    en = lead(radio.energy_scale, 1) * torch.where(
+        a > 0, rho * f_shannon(torch.clamp(b, min=lead(radio.b_min, 2)), lead(radio.beta, 2)),
         torch.zeros((), dtype=q.dtype, device=q.device),
     ).sum(1)
     return util - en

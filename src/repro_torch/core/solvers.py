@@ -32,6 +32,7 @@ from repro_torch.core.energy import (
     f_shannon_prime,
     f_shannon_prime_second,
     f_shannon_second,
+    lead,
 )
 
 DEFAULT_SOLVER = "bisect"
@@ -166,7 +167,7 @@ def _prefix_bisect(
         radio, outer_iters, inner_iters,
     )
     w = v_eta[:, None] * (n0.long()[:, None] + ms[None, :]).to(rho_sorted.dtype)
-    w = w - radio.energy_scale * cost
+    w = w - lead(radio.energy_scale, 2) * cost
     w = torch.where(feasible, w, -torch.inf)
     return _pick_best(w, ms, b_all, mask)
 
@@ -302,28 +303,32 @@ def waterfill_newton(
     mask = mask.to(torch.bool)
     delta = torch.as_tensor(delta, dtype=rho.dtype, device=rho.device)
     zero = torch.zeros((), dtype=rho.dtype, device=rho.device)
-    beta = radio.beta
-    b_min = radio.b_min
+    # radio leaves against the cell axes (d), the clients (d + 1) and the
+    # grid levels x clients (d + 2)
+    d = rho.dim() - 1
+    beta_d, b_min_d = lead(radio.beta, d), lead(radio.b_min, d)
+    beta, b_min = lead(radio.beta, d + 1), lead(radio.b_min, d + 1)
 
     n = mask.sum(-1)
     has_any = n > 0
     n_safe = torch.clamp(n, min=1)
-    b_max = torch.clamp(delta - (n_safe - 1) * b_min, min=b_min)
+    b_max = torch.clamp(delta - (n_safe - 1) * b_min_d, min=b_min_d)
 
-    fp_min = -f_shannon_prime(as_f32(b_min, rho), beta)
+    fp_min = -f_shannon_prime(as_f32(b_min_d, rho), beta_d)
     lam_hi = torch.where(mask, rho, zero).amax(-1) * fp_min * (1.0 + 1e-6) + 1e-30
 
     rho_pos = torch.where(mask & (rho > 0), rho, torch.inf)
     rho_min = rho_pos.amin(-1)
     lam_lo_g = torch.where(
         torch.isfinite(rho_min),
-        rho_min * torch.clamp(-f_shannon_prime(b_max, beta), min=1e-30) * 0.5,
+        rho_min * torch.clamp(-f_shannon_prime(b_max, beta_d), min=1e-30) * 0.5,
         torch.full_like(rho_min, 1e-30),
     )
     lam_lo_g = torch.minimum(torch.clamp(lam_lo_g, min=1e-30), lam_hi)
     lam_grid = _log_grid(lam_lo_g, lam_hi, d_grid, rho)           # (..., G)
     bg = b_of_lam_newton(
-        lam_grid[..., None], rho[..., None, :], beta, b_min, b_max[..., None, None]
+        lam_grid[..., None], rho[..., None, :], lead(radio.beta, d + 2),
+        lead(radio.b_min, d + 2), b_max[..., None, None],
     )
     rg = torch.where(mask[..., None, :], bg, zero).sum(-1) - delta[..., None]
     hi_seed = torch.where(rg <= 0, lam_grid, torch.inf).amin(-1)
@@ -373,8 +378,10 @@ def _prefix_newton(
     dev = rho_sorted.device
     C, K = rho_sorted.shape
     n_outer, n_inner, n_grid = newton_iteration_budgets(dtype, K)
-    beta = radio.beta
-    b_min = radio.b_min
+    # radio leaves against (C,), (C, M) and (C, M|G, K) operands
+    beta1, b_min1 = lead(radio.beta, 1), lead(radio.b_min, 1)
+    beta2, b_min2 = lead(radio.beta, 2), lead(radio.b_min, 2)
+    beta, b_min = lead(radio.beta, 3), lead(radio.b_min, 3)
     zero = torch.zeros((), dtype=dtype, device=dev)
     n0l = n0.long()
 
@@ -384,15 +391,16 @@ def _prefix_newton(
     pos = ranks[None, :] >= n0l[:, None]                         # (C, K)
     feasible = ms[None, :] <= (K - n0l)[:, None]
     b_max = torch.clamp(
-        delta[:, None] - (torch.clamp(ms, min=1) - 1).to(dtype) * b_min, min=b_min
+        delta[:, None] - (torch.clamp(ms, min=1) - 1).to(dtype) * b_min2, min=b_min2
     )                                                            # (C, M)
 
-    fp_min = -f_shannon_prime(as_f32(b_min, rho_sorted), beta)
+    fp_min = -f_shannon_prime(as_f32(b_min1, rho_sorted), beta1)  # (C,) or ()
+    fp_min2 = lead(fp_min, 2)
     last = torch.clamp(n0l[:, None] + ms[None, :] - 1, 0, K - 1)
     rho_last = torch.where(
         ms[None, :] >= 1, torch.gather(rho_sorted, 1, last), zero
     )
-    lam_hi = rho_last * fp_min * (1.0 + 1e-6) + 1e-30            # (C, M)
+    lam_hi = rho_last * fp_min2 * (1.0 + 1e-6) + 1e-30           # (C, M)
 
     if rho_hi is None:
         lam_hi_glob = lam_hi.amax(1)
@@ -400,11 +408,11 @@ def _prefix_newton(
         lam_hi_glob = rho_hi * fp_min * (1.0 + 1e-6) + 1e-30
     rho_pos = torch.where(pos & (rho_sorted > 0), rho_sorted, torch.inf)
     rho_min_pos = rho_pos.amin(1)
-    b_cap_glob = torch.clamp(delta, min=b_min)
+    b_cap_glob = torch.clamp(delta, min=b_min1)
     lam_lo_glob = torch.where(
         torch.isfinite(rho_min_pos),
         rho_min_pos
-        * torch.clamp(-f_shannon_prime(b_cap_glob, beta), min=1e-30) * 0.5,
+        * torch.clamp(-f_shannon_prime(b_cap_glob, beta1), min=1e-30) * 0.5,
         torch.full_like(rho_min_pos, 1e-30),
     )
     lam_lo_glob = torch.minimum(torch.clamp(lam_lo_glob, min=1e-30), lam_hi_glob)
@@ -453,7 +461,7 @@ def _prefix_newton(
     cost = torch.where(has_any[None, :], cost, zero)
 
     w = v_eta[:, None] * (n0l.to(dtype)[:, None] + mf[None, :])
-    w = w - radio.energy_scale * cost
+    w = w - lead(radio.energy_scale, 2) * cost
     w = torch.where(feasible, w, -torch.inf)
     return _pick_best(w, ms, b, mask)
 

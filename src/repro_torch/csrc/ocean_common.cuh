@@ -324,6 +324,120 @@ __device__ void prefix_sweep_parallel(const float* rho, int L, int start, int n_
 }
 
 // ---------------------------------------------------------------------------
+// The masked P4: the optimal split of ``delta`` among an arbitrary member
+// set of one cell, the device counterpart of the port's ``waterfill_newton``
+// (repro_torch/core/solvers.py; reference repro/core/solvers.py), in its
+// order: the budget's b_max, a log grid of ``grid`` multipliers seeding the
+// bracket, ``outer`` safeguarded Newton steps on the budget residual (its
+// ``_outer_newton_polish``), the final allocation and ``_budget_repair``.
+// The grid levels are spread over the block's teams; team 0 then runs the
+// polish (a chain, like one candidate's).  Called by every thread of the
+// block (it synchronizes the block).
+//
+//   rho[0, L)    priorities in the cell's ranked order (shared)
+//   member[0, L) 1 where a slot is in the set (positive-rho members only)
+//   frac[g]      torch.linspace(0, 1, grid)'s values
+//   b            out: the members' allocation, 0 elsewhere (shared, L)
+//   scratch      at least 2 * grid floats of shared memory
+// ---------------------------------------------------------------------------
+template <int NT>
+__device__ void masked_waterfill(const float* rho, const float* member, int L, float delta,
+                                 float beta, float b_min, int outer, int inner, int grid,
+                                 const float* frac, float* b, float* scratch) {
+  const LaneTeam<NT> tm;
+  const int team = threadIdx.x / NT, nteams = blockDim.x / NT;
+  // Every team reduces the set's count, largest rho and least positive rho.
+  float cnt = 0.f, mx = 0.f, mn = INFINITY;
+  for (int i = tm.tid; i < L; i += tm.nt) {
+    if (member[i] > 0.f) {
+      cnt += 1.f;
+      mx = jmax(mx, rho[i]);
+      if (rho[i] > 0.f) mn = jmin(mn, rho[i]);
+    }
+  }
+  const float n = tm.template all<Sum>(cnt);
+  const float rho_max = tm.template all<Max>(mx);
+  const float rho_min = tm.template all<Min>(mn);
+  const float b_max = jmax(delta - (jmax(n, 1.f) - 1.f) * b_min, b_min);
+  const float fp_min = -f_prime(b_min, beta);
+  const float lam_hi = rho_max * fp_min * 1.000001f + 1e-30f;
+  float lam_lo = isfinite(rho_min) ? rho_min * jmax(-f_prime(b_max, beta), 1e-30f) * 0.5f
+                                   : 1e-30f;
+  lam_lo = jmin(jmax(lam_lo, 1e-30f), lam_hi);
+  const float log_lo = logf(lam_lo), log_hi = logf(jmax(lam_hi, 1e-30f));
+
+  // The grid: each team evaluates its levels' budget residuals.
+  for (int g = team; g < grid; g += nteams) {
+    const float lam = expf(log_lo * (1.f - frac[g]) + log_hi * frac[g]);
+    float s = 0.f;
+    for (int i = tm.tid; i < L; i += tm.nt)
+      if (member[i] > 0.f) s += b_of_lam(lam, rho[i], beta, b_min, b_max, inner);
+    s = tm.template all<Sum>(s);
+    if (tm.tid == 0) {
+      scratch[g] = lam;
+      scratch[grid + g] = s - delta;
+    }
+  }
+  __syncthreads();
+  if (team == 0) {
+    float hi_seed = INFINITY, lo0 = 0.f;
+    for (int g = 0; g < grid; ++g) {
+      const float lam = scratch[g], rg = scratch[grid + g];
+      if (rg <= 0.f) hi_seed = jmin(hi_seed, lam);
+      if (rg > 0.f) lo0 = jmax(lo0, lam);
+    }
+    const float hi0 = jmin(isfinite(hi_seed) ? hi_seed : lam_hi, lam_hi);
+    float lam = jmin(jmax(sqrtf(jmax(lo0, 1e-30f) * jmax(hi0, 1e-30f)), 0.f), hi0);
+    float lo = lo0, hi = hi0;
+    for (int it = 0; it < outer; ++it) {
+      float rs = 0.f, ds = 0.f;
+      for (int i = tm.tid; i < L; i += tm.nt) {
+        if (!(member[i] > 0.f)) continue;
+        const float bi = b_of_lam(lam, rho[i], beta, b_min, b_max, inner);
+        rs += bi;
+        if (bi > b_min && bi < b_max)
+          ds += -1.f / (jmax(rho[i], 1e-30f) * jmax(f_second(bi, beta), 1e-30f));
+      }
+      const float2 sd = tm.sum2(rs, ds);
+      const float r = sd.x - delta;
+      const bool too_big = r > 0.f;
+      lo = too_big ? lam : lo;
+      hi = too_big ? hi : lam;
+      const float lam_n = lam - r / jmin(sd.y, -1e-30f);
+      const bool ok = (lam_n >= lo) && (lam_n <= hi) && isfinite(lam_n);
+      lam = ok ? lam_n : sqrtf(jmax(lo, 1e-6f * hi) * jmax(hi, 1e-30f));
+    }
+    float sb = 0.f;
+    for (int i = tm.tid; i < L; i += tm.nt) {
+      const float bi = member[i] > 0.f ? b_of_lam(lam, rho[i], beta, b_min, b_max, inner) : 0.f;
+      b[i] = bi;
+      sb += bi;
+    }
+    const float s = tm.template all<Sum>(sb);
+    float hr = 0.f, sl = 0.f;
+    for (int i = tm.tid; i < L; i += tm.nt) {
+      if (!(member[i] > 0.f)) continue;
+      hr += jmax(b_max - b[i], 0.f);
+      sl += jmax(b[i] - b_min, 0.f);
+    }
+    const float2 hs = tm.sum2(hr, sl);
+    const float residual = delta - s;
+    const float hden = jmax(hs.x, 1e-30f), sden = jmax(hs.y, 1e-30f);
+    for (int i = tm.tid; i < L; i += tm.nt) {
+      float bi = 0.f;
+      if (member[i] > 0.f && n > 0.f) {
+        bi = b[i];
+        bi = residual >= 0.f ? bi + residual * (jmax(b_max - bi, 0.f) / hden)
+                             : bi + residual * (jmax(bi - b_min, 0.f) / sden);
+        bi = jclip(bi, b_min, b_max);
+      }
+      b[i] = bi;
+    }
+  }
+  __syncthreads();
+}
+
+// ---------------------------------------------------------------------------
 // Launch helpers (host).
 // ---------------------------------------------------------------------------
 // Threads for n items: whole warps, at least one, at most ``cap`` and at most

@@ -9,10 +9,25 @@
 //      padded to a power of two P with (+inf, index >= K) sentinels
 //   4. n0, delta and K1's candidate-parallel prefix sweep (ocean_common.cuh)
 //   5. the S0 fix-up                             (selection.py:242-245)
-//   6. unsort, energy (energy.py:159) and the queue update (ocean.py:500)
-//   7. the a/b/e/q_pre/rho/obj/nsel rows of this round
-// Scope: ranking="sort", solver="pallas", static radio; K <= 2048 (the sort
-// and the per-client state live in shared memory).
+//   6. with a failure process, failure_mode      (ocean.py:339-405)
+//   7. unsort, energy (energy.py:159) and the queue update (ocean.py:500)
+//   8. the a/b/e/q_pre/rho/obj/nsel (and dlv/ral) rows of this round
+// Two compile-time branches (template parameters; the instance without
+// either is the §VI grid's):
+//   HasRadio    each round reads its cell's b_min, beta and energy_scale
+//               from (C, T) streams (a TracedRadio's stored leaves)
+//               instead of the launch's static radio;
+//   HasFailure  each round reads its cell's (K,) delivery mask; the cell's
+//               declared rates are read once.  ``plain`` commits the
+//               decision; ``overprovision`` extends the ranked prefix until
+//               the rates' prefix sum (added in ranked order) reaches the
+//               plain count, capped by floor(1 / b_min), and re-solves the
+//               extended set with the masked P4 (ocean_common.cuh) and its
+//               P3 value, keeping the committed solve where the prefix did
+//               not grow; ``reallocate`` re-solves the survivors when a
+//               selected client failed and charges 0.5 e + 0.5 e2.
+// Scope: ranking="sort", solver="pallas"; K <= 2048 (the sort and the
+// per-client state live in shared memory).
 //
 // What bounds it on the H100: the bytes are tiny (per cell-round it reads
 // 2K + 2 floats and writes 4K floats, K bytes and 2 scalars), so the bound
@@ -52,17 +67,53 @@ __device__ __forceinline__ bool after(float ka, int ia, float kb, int ib) {
   return ka > kb || (ka == kb && ia > ib);
 }
 
-template <int NT>
-__global__ void __maxnreg__(NT == 32 ? kMaxRegs : 128) ocean_traj_kernel(
-    const float* __restrict__ h2, const float* __restrict__ v,
-    const float* __restrict__ eta, const float* __restrict__ inc,
-    uint8_t* __restrict__ a_out, float* __restrict__ b_out,
-    float* __restrict__ e_out, float* __restrict__ qpre_out,
-    float* __restrict__ rho_out, float* __restrict__ obj_out,
-    int* __restrict__ nsel_out, float* __restrict__ q_final,
-    float* __restrict__ es_final, int T, int K, int P, int R, float b_min,
-    float beta, float scale, int outer, int inner) {
+// Per-launch inputs and outputs.  The radio streams are read only by the
+// HasRadio instances, the failure streams and outputs only by HasFailure.
+struct TrajArgs {
+  const float *h2, *v, *eta, *inc;
+  const float *r_bmin, *r_beta, *r_scale;  // (C, T) radio streams
+  const float *dlv, *rate;                 // (C, T, K) delivery mask, (C, K) rates
+  const float* frac;                       // the masked P4's grid fractions
+  uint8_t* a_out;
+  float *b_out, *e_out, *qpre_out, *rho_out, *obj_out;
+  int* nsel_out;
+  float *q_final, *es_final;
+  uint8_t* dlv_out;
+  int* ral_out;
+  int T, K, P, R;
+  float b_min, beta, scale;  // the static radio (instances without HasRadio)
+  int outer, inner;          // the sweep's Newton steps
+  int mode;                  // failure mode: kPlain, kOverprovision, kReallocate
+  int wf_outer, wf_inner, wf_grid;  // the masked P4's budgets
+};
+
+enum { kPlain = 0, kOverprovision = 1, kReallocate = 2 };
+
+// The block's sum of one float per thread, in a fixed order (warps, then
+// warp 0 over the warps' sums); every thread gets it.
+__device__ float block_sum(float x, float* red) {
+  x = warp_all<Sum>(x);
+  const int warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
+  __syncthreads();
+  if ((threadIdx.x & 31) == 0) red[warp] = x;
+  __syncthreads();
+  float s = 0.f;
+  for (int w = 0; w < nwarps; ++w) s += red[w];
+  __syncthreads();
+  return s;
+}
+
+// E(b | h) of one selected client (repro/core/energy.py:159), with the
+// port's b >= FLT_MIN: a subnormal b counts as 0, as under the reference's
+// flush-to-zero platforms and the plain version.
+__device__ __forceinline__ float energy_of(float b, float h2, float beta, float scale) {
+  return b >= FLT_MIN ? scale * f_shannon(b, beta) / h2 : 0.f;
+}
+
+template <int NT, bool HasRadio, bool HasFailure>
+__global__ void __maxnreg__(NT == 32 ? kMaxRegs : 128) ocean_traj_kernel(const TrajArgs args) {
   extern __shared__ float smem[];
+  const int T = args.T, K = args.K, P = args.P, R = args.R;
   const int nteams = blockDim.x / NT;
   float* s_key = smem;                                   // P
   int* s_idx = reinterpret_cast<int*>(s_key + P);        // P
@@ -70,20 +121,36 @@ __global__ void __maxnreg__(NT == 32 ? kMaxRegs : 128) ocean_traj_kernel(
   float* s_es = s_q + K;                                 // K
   float* s_rows = s_es + K;                              // 2 nteams K: each team's b and best rows
   float* s_red = s_rows + 2 * (size_t)nteams * K;        // 64
+  // HasFailure: the round's delivery mask and the cell's rates (client
+  // order), the masked P4's member flags and allocation (ranked order),
+  // its grid scratch, and a few block-wide values.
+  float* s_ok = s_red + 64;                              // K
+  float* s_rate = s_ok + K;                              // K
+  float* s_mem = s_rate + K;                             // K
+  float* s_b2 = s_mem + K;                               // K
+  float* s_wf = s_b2 + K;                                // 32
+  int* s_int = reinterpret_cast<int*>(s_wf + 32);        // 4
   const int c = blockIdx.x, tid = threadIdx.x, nt = blockDim.x;
   const int lane = tid & 31;
 
   for (int i = tid; i < K; i += nt) {
     s_q[i] = 0.f;
     s_es[i] = 0.f;
+    if constexpr (HasFailure) s_rate[i] = args.rate[(size_t)c * K + i];
   }
   __syncthreads();
 
   for (int t = 0; t < T; ++t) {
     const size_t ct = (size_t)c * T + t;
     const size_t row = ct * K;
-    const float* h2_t = h2 + row;
+    const float* h2_t = args.h2 + row;
     const bool reset = t > 0 && (t % R) == 0;
+    float b_min = args.b_min, beta = args.beta, scale = args.scale;
+    if constexpr (HasRadio) {
+      b_min = args.r_bmin[ct];
+      beta = args.r_beta[ct];
+      scale = args.r_scale[ct];
+    }
 
     // 1-2. frame reset, priorities, sort keys.
     for (int i = tid; i < P; i += nt) {
@@ -92,8 +159,9 @@ __global__ void __maxnreg__(NT == 32 ? kMaxRegs : 128) ocean_traj_kernel(
         s_q[i] = q;
         const float r = q / jmax(h2_t[i], kSafeDivFloor);
         s_key[i] = r;
-        qpre_out[row + i] = q;
-        rho_out[row + i] = r;
+        args.qpre_out[row + i] = q;
+        args.rho_out[row + i] = r;
+        if constexpr (HasFailure) s_ok[i] = args.dlv[row + i] > 0.f ? 1.f : 0.f;
       } else {
         s_key[i] = INFINITY;
       }
@@ -132,54 +200,129 @@ __global__ void __maxnreg__(NT == 32 ? kMaxRegs : 128) ocean_traj_kernel(
     p.n0f = n0f;
     p.kf = (float)K;
     p.delta = 1.f - n0f * b_min;
-    p.v_eta = v[ct] * eta[ct];
+    p.v_eta = args.v[ct] * args.eta[ct];
     p.beta = beta;
     p.b_min = b_min;
     p.scale = scale;
-    p.outer = outer;
-    p.inner = inner;
+    p.outer = args.outer;
+    p.inner = args.inner;
     float w, mf;
     int winner;
     prefix_sweep_parallel<NT>(s_key, K, n0, K, p, s_rows, s_red, w, mf, winner);
     const int m_star = (int)rintf(mf);
     const float* best = s_rows + (2 * (size_t)winner + 1) * K;
 
-    // 5-6. S0 fix-up, unsort, energy, queue update.
+    // 5. the S0 fix-up: the committed decision in ranked slots r < n_sel.
     const float leftover = m_star == 0 ? p.delta : 0.f;
     const float b0_each = b_min + leftover / jmax(n0f, 1.f);
-    const float* inc_t = inc + row;
+    const int n_sel = n0 + m_star;  // a candidate never passes K
+    int n_act = n_sel;              // slots r < n_act are selected after failure_mode
+    bool resolved = false;          // overprovision re-solved the extended prefix
+    bool failed = false;            // reallocate: a selected client failed
+    float obj = w;
+    float n0_2 = 0.f, b0_2 = 0.f;   // the masked P4's S0 split
+    if constexpr (HasFailure) {
+      if (args.mode == kOverprovision) {
+        if (tid == 0) {
+          // the smallest prefix whose declared rates sum to the plain count:
+          // prefix sums in ranked order, added left to right
+          int n_exp = 1;
+          float acc = 0.f;
+          for (int r = 0; r < K; ++r) {
+            acc = acc + s_rate[s_idx[r]];
+            if (!(acc < (float)n_sel)) break;
+            ++n_exp;
+          }
+          const float cap = floorf((float)(1.0 + 1e-9) / b_min);
+          const int n_max = cap >= (float)K ? K : (int)cap;
+          int n_ext = min(max(max(n_exp, n_sel), 0), n_max);
+          s_int[0] = n_sel > 0 ? n_ext : 0;
+        }
+        __syncthreads();
+        n_act = s_int[0];
+        resolved = n_act != n_sel;
+      } else if (args.mode == kReallocate) {
+        int lost = 0;
+        for (int r = tid; r < n_sel; r += nt) lost |= s_ok[s_idx[r]] > 0.f ? 0 : 1;
+        failed = __syncthreads_or(lost) != 0;
+      }
+      if (resolved || failed) {
+        // member flags of the masked P4 (its positive-rho members) and the
+        // size of its S0 part
+        int zs = 0;
+        for (int r = tid; r < K; r += nt) {
+          const bool in = resolved ? r < n_act : (r < n_sel && s_ok[s_idx[r]] > 0.f);
+          s_mem[r] = in && r >= n0 ? 1.f : 0.f;
+          zs += in && r < n0 ? 1 : 0;
+        }
+        n0_2 = block_sum((float)zs, s_red);
+        float npos = 0.f;
+        for (int r = tid; r < K; r += nt) npos += s_mem[r];
+        npos = block_sum(npos, s_red);
+        const float delta2 = 1.f - n0_2 * b_min;
+        masked_waterfill<NT>(s_key, s_mem, K, delta2, beta, b_min, args.wf_outer,
+                             args.wf_inner, args.wf_grid, args.frac, s_b2, s_wf);
+        const float left2 = npos == 0.f ? delta2 : 0.f;
+        b0_2 = b_min + left2 / jmax(n0_2, 1.f);
+      }
+    }
+
+    // 6. unsort, energy, the P3 value of a re-solved prefix, the queues.
+    const float* inc_t = args.inc + row;
+    float cost = 0.f;
     for (int r = tid; r < K; r += nt) {
       const bool in_s0 = r < n0;
-      const bool a = in_s0 || (r < n0 + m_star);
-      const float b = a ? (in_s0 ? b0_each : best[r]) : 0.f;
       const int k = s_idx[r];
-      // b >= FLT_MIN: a subnormal b counts as 0, as under the reference's
-      // flush-to-zero platforms and the plain version
-      float e = b >= FLT_MIN ? scale * f_shannon(b, beta) / h2_t[k] : 0.f;
-      e = e * (a ? 1.f : 0.f);
-      a_out[row + k] = a ? 1 : 0;
-      b_out[row + k] = b;
-      e_out[row + k] = e;
+      const bool a0 = r < n_sel;
+      float b = a0 ? (in_s0 ? b0_each : best[r]) : 0.f;
+      const bool a = r < n_act;
+      float e = energy_of(b, h2_t[k], beta, scale) * (a0 ? 1.f : 0.f);
+      if constexpr (HasFailure) {
+        const bool ok = s_ok[k] > 0.f;
+        if (resolved) {
+          // the extended prefix's allocation (repro/core/ocean.py:389-394)
+          b = a ? (s_mem[r] > 0.f ? s_b2[r] : (in_s0 ? b0_2 : 0.f)) : 0.f;
+          e = energy_of(b, h2_t[k], beta, scale) * (a ? 1.f : 0.f);
+          if (a) cost += s_key[r] * f_shannon(jmax(b, b_min), beta);
+        } else if (failed) {
+          // half the committed round, half the survivors' re-solved one
+          const bool surv = a0 && ok;
+          const float b2 = surv ? (s_mem[r] > 0.f ? s_b2[r] : (in_s0 ? b0_2 : 0.f)) : 0.f;
+          const float e2 = energy_of(b2, h2_t[k], beta, scale) * (surv ? 1.f : 0.f);
+          e = 0.5f * e + 0.5f * e2;
+        }
+        args.dlv_out[row + k] = a && ok ? 1 : 0;
+      }
+      args.a_out[row + k] = a ? 1 : 0;
+      args.b_out[row + k] = b;
+      args.e_out[row + k] = e;
       s_q[k] = jmax(s_q[k] + e - inc_t[k], 0.f);
       s_es[k] = s_es[k] + e;
     }
+    if constexpr (HasFailure) {
+      if (resolved) obj = p.v_eta * (float)n_act - scale * block_sum(cost, s_red);
+    }
     if (tid == 0) {
-      obj_out[ct] = w;
-      // the slots r < n0 + m* are selected; a candidate never passes K
-      nsel_out[ct] = n0 + m_star;
+      args.obj_out[ct] = obj;
+      args.nsel_out[ct] = n_act;
+      if constexpr (HasFailure) args.ral_out[ct] = failed ? 1 : 0;
     }
     __syncthreads();  // this round's queue writes before the next round's reads
   }
   for (int i = tid; i < K; i += nt) {
-    q_final[(size_t)c * K + i] = s_q[i];
-    es_final[(size_t)c * K + i] = s_es[i];
+    args.q_final[(size_t)c * K + i] = s_q[i];
+    args.es_final[(size_t)c * K + i] = s_es[i];
   }
 }
 
 // Shared bytes with nteams teams: the sort's keys and indices, q and the
-// spent energy, each team's two rows, the argmax scratch.
-size_t traj_smem(int K, int P, int nteams) {
-  return (size_t)P * 8 + ((2 + 2 * (size_t)nteams) * K + 64) * sizeof(float);
+// spent energy, each team's two rows, the argmax scratch; HasFailure adds
+// four rows (mask, rates, member flags, the masked P4's allocation), its
+// grid scratch and four ints.
+size_t traj_smem(int K, int P, int nteams, bool failure) {
+  size_t floats = (2 + 2 * (size_t)nteams) * K + 64;
+  if (failure) floats += 4 * (size_t)K + 32 + 4;
+  return (size_t)P * 8 + floats * sizeof(float);
 }
 
 int sort_slots(int K) {
@@ -191,44 +334,64 @@ int sort_slots(int K) {
 // Teams of NT lanes per block: one per candidate up to what a block holds
 // (as K1: threads_for's register limit, then whole warps fewer until the
 // shared rows fit the card's per-block limit).
-template <int NT>
+template <int NT, bool HasRadio, bool HasFailure>
 int traj_teams(int K, int P) {
-  int nteams = threads_for((const void*)ocean_traj_kernel<NT>, NT * K, 1024) / NT;
+  const void* fn = (const void*)ocean_traj_kernel<NT, HasRadio, HasFailure>;
+  int nteams = threads_for(fn, NT * K, 1024) / NT;
   const size_t optin = (size_t)smem_optin();
-  while (nteams > 32 / NT && traj_smem(K, P, nteams) > optin) nteams -= 32 / NT;
+  while (nteams > 32 / NT && traj_smem(K, P, nteams, HasFailure) > optin) nteams -= 32 / NT;
   return nteams;
 }
 
-template <int NT>
-int launch(const float* h2, const float* v, const float* eta, const float* inc, uint8_t* a,
-           float* b, float* e, float* q_pre, float* rho, float* obj, int* nsel, float* q_final,
-           float* es_final, int C, int T, int K, int R, float b_min, float beta, float scale,
-           int outer, int inner, cudaStream_t stream) {
-  const int P = sort_slots(K);
-  const int nteams = traj_teams<NT>(K, P);
-  const size_t smem = traj_smem(K, P, nteams);
-  cudaError_t err = prepare((const void*)ocean_traj_kernel<NT>, smem);
+template <int NT, bool HasRadio, bool HasFailure>
+int launch(const TrajArgs& args, int C, cudaStream_t stream) {
+  const int nteams = traj_teams<NT, HasRadio, HasFailure>(args.K, args.P);
+  const size_t smem = traj_smem(args.K, args.P, nteams, HasFailure);
+  const void* fn = (const void*)ocean_traj_kernel<NT, HasRadio, HasFailure>;
+  cudaError_t err = prepare(fn, smem);
   if (err != cudaSuccess) return (int)err;
-  ocean_traj_kernel<NT><<<C, NT * nteams, smem, stream>>>(
-      h2, v, eta, inc, a, b, e, q_pre, rho, obj, nsel, q_final, es_final, T, K, P, R, b_min,
-      beta, scale, outer, inner);
+  ocean_traj_kernel<NT, HasRadio, HasFailure><<<C, NT * nteams, smem, stream>>>(args);
   return (int)cudaGetLastError();
+}
+
+template <int NT>
+int launch_nt(const TrajArgs& args, int C, cudaStream_t stream) {
+  const bool radio = args.r_bmin != nullptr, failure = args.dlv != nullptr;
+  if (radio && failure) return launch<NT, true, true>(args, C, stream);
+  if (radio) return launch<NT, true, false>(args, C, stream);
+  if (failure) return launch<NT, false, true>(args, C, stream);
+  return launch<NT, false, false>(args, C, stream);
 }
 
 }  // namespace
 
-// The warps a K3 block runs at K clients.
-extern "C" int ocean_traj_warps(int K) {
+// The warps a K3 block runs at K clients (the instance without failures,
+// or with them).
+extern "C" int ocean_traj_warps(int K, int failure) {
   const int P = sort_slots(K);
-  return K <= kHalfWarpMaxK ? traj_teams<16>(K, P) / 2 : traj_teams<32>(K, P);
+  if (K <= kHalfWarpMaxK)
+    return (failure ? traj_teams<16, false, true>(K, P) : traj_teams<16, false, false>(K, P)) / 2;
+  return failure ? traj_teams<32, false, true>(K, P) : traj_teams<32, false, false>(K, P);
 }
 
+// One launch: every cell's T rounds.  r_bmin/r_beta/r_scale (C, T) select
+// the streamed-radio instance (null: the static radio of b_min/beta/scale);
+// dlv (C, T, K) and rate (C, K) select the failure instance (null: none),
+// which also writes dlv_out (C, T, K) and ral_out (C, T) and applies
+// ``mode`` with the masked P4 budgets wf_outer/wf_inner/wf_grid over the
+// grid fractions ``frac``.
 extern "C" int ocean_traj_launch(
     const float* h2, const float* v, const float* eta, const float* inc,
     uint8_t* a, float* b, float* e, float* q_pre, float* rho, float* obj,
     int* nsel, float* q_final, float* es_final, int C, int T, int K, int R,
-    float b_min, float beta, float scale, int outer, int inner, void* stream) {
-  auto run = K <= kHalfWarpMaxK ? launch<16> : launch<32>;
-  return run(h2, v, eta, inc, a, b, e, q_pre, rho, obj, nsel, q_final, es_final, C, T, K, R,
-             b_min, beta, scale, outer, inner, (cudaStream_t)stream);
+    float b_min, float beta, float scale, int outer, int inner,
+    const float* r_bmin, const float* r_beta, const float* r_scale,
+    const float* dlv, const float* rate, uint8_t* dlv_out, int* ral_out, int mode,
+    int wf_outer, int wf_inner, int wf_grid, const float* frac, void* stream) {
+  TrajArgs args{h2, v, eta, inc, r_bmin, r_beta, r_scale, dlv, rate, frac,
+                a, b, e, q_pre, rho, obj, nsel, q_final, es_final, dlv_out, ral_out,
+                T, K, sort_slots(K), R, b_min, beta, scale, outer, inner, mode,
+                wf_outer, wf_inner, wf_grid};
+  auto run = K <= kHalfWarpMaxK ? launch_nt<16> : launch_nt<32>;
+  return run(args, C, (cudaStream_t)stream);
 }

@@ -6,7 +6,9 @@ persistent block per cell runs all T rounds of Alg. 1 with the queues and
 the spent energy resident in shared memory, each round's prefix
 candidates side by side (a warp, or at K <= 16 a half warp, per
 candidate: K1's sweep); its header states what bounds it on the H100 and
-what the design does about it.
+what the design does about it.  Two compile-time branches stream
+per-round radio physics (``radio``) and per-client delivery failures
+(``failure``, with ``cfg.failure_mode``).
 
 * ``ocean_traj`` — the wrapper: launches K3 for CUDA tensors (counting
   launches in ``ocean_traj.launches``, raising on CUDA errors) and runs
@@ -16,15 +18,14 @@ what the design does about it.
 * ``ocean_trajectory_fused`` — the ``traj="fused"`` backend of
   ``repro_torch.core.ocean.simulate``.
 
-Scope of this slice: ``ranking="sort"``, ``solver="pallas"``, static radio,
-K <= 2048 (K3's shared-memory sort).  Anything else raises
-``NotImplementedError``.
+Scope: ``ranking="sort"``, ``solver="pallas"``, K <= 2048 (K3's
+shared-memory sort).  Anything else raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
 import ctypes
 import dataclasses
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -50,10 +51,15 @@ class TrajOut(NamedTuple):
     nsel: torch.Tensor      # (C, T) int32
     q_final: torch.Tensor   # (C, K)
     es_final: torch.Tensor  # (C, K)
+    dlv: Optional[torch.Tensor] = None  # (C, T, K) bool, with a failure process
+    ral: Optional[torch.Tensor] = None  # (C, T) int32, with a failure process
 
 
 def check_fused_scope(cfg) -> None:
-    """Raise for configurations K3 does not run yet."""
+    """Raise for configurations K3 does not run yet.  Within them every
+    instance fits a block's shared memory: at K = 2048 a failure instance
+    needs 82,320 bytes with one warp of teams, and the launch takes as many
+    teams as fit (``csrc/ocean_traj.cu::traj_smem``)."""
     from repro_torch.core.ocean import not_ported
     from repro_torch.core.solvers import get_solver
 
@@ -70,8 +76,21 @@ def check_fused_scope(cfg) -> None:
         )
 
 
-def ocean_traj_plain(cfg, h2, v, eta, inc) -> TrajOut:
-    """Plain PyTorch K3: the scan loop through ``ocean_round`` with plain K1."""
+def _wf_budgets(K: int):
+    """The masked P4's (outer, inner, grid) and grid fractions at K clients:
+    ``waterfill_newton``'s float32 budgets and ``torch.linspace``."""
+    from repro_torch.core.solvers import newton_iteration_budgets
+
+    outer, inner, grid = newton_iteration_budgets(torch.float32, K)
+    return outer, inner, grid, torch.linspace(0.0, 1.0, grid, dtype=torch.float32)
+
+
+def ocean_traj_plain(cfg, h2, v, eta, inc, radio=None, failure=None) -> TrajOut:
+    """Plain PyTorch K3: the scan loop through ``ocean_round`` with plain K1.
+
+    ``radio`` is a ``TracedRadio`` of (C, T) leaves; ``failure`` a
+    ``TracedFailure`` with a (C, T, K) ``delivered`` mask and (C, K) ``rate``.
+    """
     from repro_torch.core.ocean import init_state, ocean_round, stack_decisions
     from repro_torch.core.solvers import PALLAS_PLAIN
 
@@ -81,21 +100,28 @@ def ocean_traj_plain(cfg, h2, v, eta, inc) -> TrajOut:
     decs = []
     for t in range(T):
         state, dec = ocean_round(
-            state, h2[:, t], v[:, t], eta[:, t], cfg_plain, budget_inc=inc[:, t]
+            state, h2[:, t], v[:, t], eta[:, t], cfg_plain, budget_inc=inc[:, t],
+            radio=None if radio is None else radio.at(t),
+            delivered=None if failure is None else failure.delivered[:, t],
+            fail_rate=None if failure is None else failure.rate,
         )
         decs.append(dec)
     d = stack_decisions(decs)
     return TrajOut(
         a=d.a, b=d.b, e=d.e, q_pre=d.q, rho=d.rho, obj=d.objective,
         nsel=d.num_selected, q_final=state.q, es_final=state.energy_spent,
+        dlv=d.delivered, ral=d.realloc,
     )
 
 
-def ocean_traj(cfg, h2, v, eta, inc) -> TrajOut:
+def ocean_traj(cfg, h2, v, eta, inc, radio=None, failure=None) -> TrajOut:
     """K3: every cell's T rounds in one launch.
 
     ``h2``/``inc`` (C, T, K) and ``v``/``eta`` (C, T), contiguous float32
-    on one device; ``cfg`` supplies K, T, R and the radio.
+    on one device; ``cfg`` supplies K, T, R, the static radio and the
+    failure mode.  ``radio`` (optional) streams (C, T) ``b_min``, ``beta``
+    and ``energy_scale`` leaves in place of ``cfg.radio``; ``failure``
+    (optional) a (C, T, K) ``delivered`` mask and (C, K) ``rate``.
     """
     check_fused_scope(cfg)
     for name, x, nd in (("h2", h2, 3), ("v", v, 2), ("eta", eta, 2), ("inc", inc, 3)):
@@ -108,41 +134,76 @@ def ocean_traj(cfg, h2, v, eta, inc) -> TrajOut:
         )
     if v.shape != (C, T) or eta.shape != (C, T):
         raise ValueError(f"v and eta must be ({C}, {T})")
-    if _launch_target(h2, v, eta, inc) == "cpu":
-        return ocean_traj_plain(cfg, h2, v, eta, inc)
+    streams = [h2, v, eta, inc]
+    if radio is not None:
+        for f in ("b_min", "beta", "energy_scale"):
+            _check_f32(f"radio.{f}", getattr(radio, f), 2)
+            if getattr(radio, f).shape != (C, T):
+                raise ValueError(f"radio.{f} must be ({C}, {T})")
+            streams.append(getattr(radio, f))
+    if failure is not None:
+        _check_f32("failure.delivered", failure.delivered, 3)
+        _check_f32("failure.rate", failure.rate, 2)
+        if failure.delivered.shape != h2.shape or failure.rate.shape != (C, K):
+            raise ValueError(f"failure.delivered must be {tuple(h2.shape)} and rate ({C}, {K})")
+        streams += [failure.delivered, failure.rate]
+    if _launch_target(*streams) == "cpu":
+        return ocean_traj_plain(cfg, h2, v, eta, inc, radio, failure)
     from repro_torch.kernels import _build
 
     lib = _build.load("ocean_traj")
     fn = lib.ocean_traj_launch
     fn.restype = ctypes.c_int
-    f32 = dict(dtype=torch.float32, device=h2.device)
+    dev = h2.device
+    f32 = dict(dtype=torch.float32, device=dev)
     out = TrajOut(
-        a=torch.empty((C, T, K), dtype=torch.bool, device=h2.device),
+        a=torch.empty((C, T, K), dtype=torch.bool, device=dev),
         b=torch.empty((C, T, K), **f32),
         e=torch.empty((C, T, K), **f32),
         q_pre=torch.empty((C, T, K), **f32),
         rho=torch.empty((C, T, K), **f32),
         obj=torch.empty((C, T), **f32),
-        nsel=torch.empty((C, T), dtype=torch.int32, device=h2.device),
+        nsel=torch.empty((C, T), dtype=torch.int32, device=dev),
         q_final=torch.empty((C, K), **f32),
         es_final=torch.empty((C, K), **f32),
+        dlv=None if failure is None else torch.empty((C, T, K), dtype=torch.bool, device=dev),
+        ral=None if failure is None else torch.empty((C, T), dtype=torch.int32, device=dev),
     )
     if C == 0:
         return out
-    radio = cfg.radio
+    # the kernel's kPlain, kOverprovision, kReallocate are this tuple's order
+    from repro_torch.core.ocean import FAILURE_MODES
+
+    wf_outer, wf_inner, wf_grid, frac = _wf_budgets(K)
+    frac = frac.to(dev)
+    rad = cfg.radio
+    r_ptrs = [None] * 3 if radio is None else [radio.b_min, radio.beta, radio.energy_scale]
     err = fn(
-        _ptr(h2), _ptr(v), _ptr(eta), _ptr(inc), *(_ptr(x) for x in out),
+        _ptr(h2), _ptr(v), _ptr(eta), _ptr(inc), *(_ptr(x) for x in out[:9]),
         ctypes.c_int(C), ctypes.c_int(T), ctypes.c_int(K), ctypes.c_int(cfg.R),
-        ctypes.c_float(radio.b_min), ctypes.c_float(radio.beta),
-        ctypes.c_float(radio.energy_scale), ctypes.c_int(OUTER_ITERS),
-        ctypes.c_int(INNER_ITERS), _stream(),
+        ctypes.c_float(rad.b_min), ctypes.c_float(rad.beta),
+        ctypes.c_float(rad.energy_scale), ctypes.c_int(OUTER_ITERS),
+        ctypes.c_int(INNER_ITERS), *(_ptr(x) for x in r_ptrs),
+        _ptr(None if failure is None else failure.delivered),
+        _ptr(None if failure is None else failure.rate),
+        _ptr(out.dlv), _ptr(out.ral), ctypes.c_int(FAILURE_MODES.index(cfg.failure_mode)),
+        ctypes.c_int(wf_outer), ctypes.c_int(wf_inner), ctypes.c_int(wf_grid), _ptr(frac),
+        _stream(),
     )
     _build.check(err, lib, "ocean_traj")
     ocean_traj.launches += 1
+    inst = "+".join(n for n, x in (("radio", radio), ("failure", failure)) if x is not None)
+    inst = inst or "static"
+    if failure is not None:
+        inst += f"/{cfg.failure_mode}"
+    ocean_traj.instances[inst] = ocean_traj.instances.get(inst, 0) + 1
     return out
 
 
 ocean_traj.launches = 0
+# launches by instance: "static", "radio", and "failure/<mode>" or
+# "radio+failure/<mode>" for each failure_mode
+ocean_traj.instances = {}
 
 
 def ocean_trajectory_fused(
@@ -163,21 +224,19 @@ def ocean_trajectory_fused(
     """The ``fused`` trajectory backend: (OceanState, stacked RoundDecision).
 
     Inputs carry the cell axis: ``h2_seq``/``budget_seq`` (C, T, K),
-    ``v_seq``/``eta_seq`` (C, T).  ``chunk`` is accepted for signature
-    parity and has no role: K3 keeps every round on chip.
+    ``v_seq``/``eta_seq`` (C, T); ``radio_seq`` a ``TracedRadio`` of (C, T)
+    leaves and ``failure_seq`` a ``TracedFailure`` ((C, T, K), (C, K)).
+    ``chunk`` is accepted for signature parity and has no role: K3 keeps
+    every round on chip.
     """
     from repro_torch.core.ocean import OceanState, RoundDecision, not_ported
 
     del chunk
-    if radio_seq is not None:
-        raise not_ported("radio_seq")
-    if failure_seq is not None:
-        raise not_ported("failure_seq")
     if stream_bf16:
         raise not_ported("stream_bf16")
     if init_state is not None or init_mstate is not None or raw_metrics:
         raise not_ported("segment launches (checkpoint/resume, metrics)")
-    out = ocean_traj(cfg, h2_seq, v_seq, eta_seq, budget_seq)
+    out = ocean_traj(cfg, h2_seq, v_seq, eta_seq, budget_seq, radio_seq, failure_seq)
     C = h2_seq.shape[0]
     state = OceanState(
         q=out.q_final,
@@ -186,6 +245,6 @@ def ocean_trajectory_fused(
     )
     decs = RoundDecision(
         a=out.a, b=out.b, e=out.e, q=out.q_pre, rho=out.rho,
-        objective=out.obj, num_selected=out.nsel,
+        objective=out.obj, num_selected=out.nsel, delivered=out.dlv, realloc=out.ral,
     )
     return state, decs

@@ -34,7 +34,7 @@ from repro_torch.core import OceanConfig, RadioParams, Scenario, paper_scenarios
 from repro_torch.core.channel import pathloss_schedule, pathloss_to_gain  # noqa: E402
 from repro_torch.core.ocean import init_state, ocean_round  # noqa: E402
 from repro_torch.core.patterns import eta_schedule  # noqa: E402
-from repro_torch.core.policy import PolicyParams, run_policy  # noqa: E402
+from repro_torch.core.policy import PolicyParams  # noqa: E402
 from repro_torch.sim import GridEngine, run_grid  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -75,9 +75,14 @@ def test_grid_checks_compatibility_and_unported_hooks():
                {"experiment": object()}, {"shard": True}):
         with pytest.raises(NotImplementedError):
             GridEngine([a], ["ocean"], device="cpu", **kw)
-    for name in ("smo", "amo", "select_all", "pattern", "ocean-over"):
-        with pytest.raises(NotImplementedError):
-            GridEngine([a], [name], device="cpu")
+    # the baselines and failure-aware variants are ported: they run
+    for name in ("smo", "amo", "select_all", "ocean-over", "ocean-realloc"):
+        assert GridEngine([a], [name], device="cpu").policies == (name,)
+    with pytest.raises(ValueError, match="counts"):
+        run_grid([a], ["pattern"], [0], device="cpu")
+    with pytest.raises(ValueError, match="grid-incompatible"):
+        GridEngine([a, Scenario(name="b", num_clients=K, num_rounds=T,
+                                failure_mode="reallocate")], ["ocean"], device="cpu")
     with pytest.raises(ValueError, match="unknown OCEAN variant"):
         GridEngine([a], ["ocean-x"], device="cpu")
     res = run_grid([a], ["ocean"], [1], solver="pallas", device="cpu")
@@ -111,11 +116,16 @@ def test_scenario_round_trips_through_the_reference_payload():
      ("failure_mode", "reallocate"), ("no_such_field", 1)],
 )
 def test_scenario_refuses_fields_it_does_not_take(field, value):
+    """Fields not ported raise; ``env`` and ``failure_mode``, ported since,
+    load and give the payload back."""
     d = Scenario().to_dict()
     d[field] = value
+    if field in ("env", "failure_mode"):
+        assert scenario_from_reference(d).to_dict() == JScenario.from_dict(d).to_dict()
+        return
     with pytest.raises(NotImplementedError, match=field):
         scenario_from_reference(d)
-    d[field] = {"failure_mode": "plain"}.get(field)  # the "off" value is accepted
+    d[field] = None  # the "off" value is accepted
     if field != "no_such_field":
         assert scenario_from_reference(d) == Scenario()
 
@@ -190,23 +200,22 @@ def test_entry_points_refuse_to_fall_back_to_the_cpu(monkeypatch):
 
 
 def test_unported_hooks_raise_not_implemented():
+    """Hooks not ported raise; the radio and failure hooks, ported since, run
+    (a static radio and an all-ones mask give the plain round's bits)."""
     cfg = OceanConfig(num_clients=K, num_rounds=T, radio=RadioParams())
     h2 = torch.full((1, T, K), 2.5e-4)
     eta = eta_schedule("uniform", T)
-    for kw in ({"radio_seq": object()}, {"failure_seq": object()},
-               {"checkpoint": object()}, {"resume_from": "x"},
+    for kw in ({"checkpoint": object()}, {"resume_from": "x"},
                {"stream_bf16": True, "traj": "fused"}):
         with pytest.raises(NotImplementedError):
             simulate(cfg, h2, eta, 1e-5, device="cpu", **kw)
-    for kw in ({"failure_mode": "overprovision"}, {"metrics": object()},
-               {"guard": object()}, {"checkpoint": object()}):
+    for kw in ({"metrics": object()}, {"guard": object()}, {"checkpoint": object()}):
         with pytest.raises(NotImplementedError):
             OceanConfig(num_clients=K, num_rounds=T, radio=RadioParams(), **kw)
+    OceanConfig(num_clients=K, num_rounds=T, radio=RadioParams(), failure_mode="overprovision")
     st = init_state(cfg, device="cpu")
-    with pytest.raises(NotImplementedError):
-        ocean_round(st, h2[:, 0], 1e-5, 1.0, cfg, radio=RadioParams())
-    with pytest.raises(NotImplementedError):
-        ocean_round(st, h2[:, 0], 1e-5, 1.0, cfg, delivered=torch.ones(1, K))
-    for pp in (PolicyParams(radio_seq=object()), PolicyParams(failure_seq=object())):
-        with pytest.raises(NotImplementedError):
-            run_policy("ocean", cfg, h2, pp, device="cpu")
+    _, plain = ocean_round(st, h2[:, 0], 1e-5, 1.0, cfg)
+    _, dec = ocean_round(st, h2[:, 0], 1e-5, 1.0, cfg, radio=RadioParams(),
+                         delivered=torch.ones(1, K))
+    assert torch.equal(dec.a, plain.a) and torch.equal(dec.delivered, plain.a)
+    assert plain.delivered is None and int(dec.realloc[0]) == 0

@@ -310,7 +310,7 @@ def test_k3_candidate_parallel_edges_match_plain(dev, T, K, C):
     warps below the register file's limit."""
     lib = _build.load("ocean_traj")
     if K == 2048:
-        assert lib.ocean_traj_warps(K) < lib.ocean_traj_warps(64)
+        assert lib.ocean_traj_warps(K, 0) < lib.ocean_traj_warps(64, 0)
     cfg, h2, v, eta, inc = _k3_inputs(dev, K, C, T, K)
     before = tt.ocean_traj.launches
     out = tt.ocean_traj(cfg, h2, v, eta, inc)
@@ -349,6 +349,172 @@ def test_k3_rounds_equal_k1_scan_rounds_bitwise(dev, K):
     assert torch.equal(dec.a, out.a.reshape(CT, K))
     assert torch.equal(dec.num_selected, out.nsel.reshape(CT))
     assert torch.equal(dec.b, out.b.reshape(CT, K))
+
+
+# ---------------------------------------------------------------------------
+# K3's streamed-radio and failure instances
+# ---------------------------------------------------------------------------
+def _k3_radio(dev, seed, C, T, cfg, modulated=True):
+    """(C, T) radio leaves: the static radio, or every round's bandwidth a
+    random share in [0.5, 1] of it and the deadline jittered by 30 %."""
+    from repro_torch.env.radio import traced_radio
+
+    base = traced_radio(cfg.radio, T).map(lambda x: x.to(dev).expand(C, T).contiguous())
+    if not modulated:
+        return base
+    rng = np.random.default_rng(seed)
+    bw = base.bandwidth_hz * torch.tensor(rng.uniform(0.5, 1.0, (C, T)), dtype=torch.float32,
+                                          device=dev)
+    tau = base.deadline_s * torch.tensor(rng.uniform(0.7, 1.3, (C, T)), dtype=torch.float32,
+                                         device=dev)
+    return base._replace(bandwidth_hz=bw, deadline_s=tau, beta=base.model_bits / (tau * bw),
+                         energy_scale=tau * base.noise_w * bw)
+
+
+def _k3_failure(dev, seed, C, T, K, p=0.7, dead_rounds=()):
+    """A (C, T, K) delivery mask at rate p (every client lost in
+    ``dead_rounds``) and per-client declared rates around p."""
+    from repro_torch.env.failure import TracedFailure
+
+    rng = np.random.default_rng(seed)
+    dlv = (rng.random((C, T, K)) < p).astype(np.float32)
+    dlv[:, list(dead_rounds)] = 0.0
+    rate = np.clip(rng.uniform(p - 0.1, p + 0.1, (C, K)), 0.0, 1.0).astype(np.float32)
+    return TracedFailure(delivered=torch.tensor(dlv, device=dev), rate=torch.tensor(rate, device=dev))
+
+
+def _assert_k3_close(out, plain, failure=False):
+    assert torch.equal(out.a, plain.a) and torch.equal(out.nsel, plain.nsel)
+    torch.testing.assert_close(out.q_final, plain.q_final, atol=1e-6, rtol=1e-5)
+    if not failure:
+        torch.testing.assert_close(out.b, plain.b, atol=B_ATOL, rtol=0)
+        return
+    assert torch.equal(out.dlv, plain.dlv) and torch.equal(out.ral, plain.ral)
+    assert bool((out.dlv <= out.a).all())
+
+
+def _replay_rounds(cfg, out, h2, v, eta, inc, radio=None, failure=None):
+    """Every (cell, round) of a K3 run through the plain round on the
+    kernel's own q_pre: a re-solved P4 answers its inputs to float32
+    rounding, so over a whole trajectory the queues' last bits can move b
+    by more than it moves per round; per round the tolerances hold.  The
+    P3 value (re-computed where overprovision re-solves) lies within
+    W_RTOL x (|P3| + v eta) of the plain round's: relative, with one
+    client's utility as the floor near 0."""
+    import dataclasses
+
+    from repro_torch.core.ocean import OceanState, ocean_round
+    from repro_torch.core.solvers import PALLAS_PLAIN
+
+    C, T, K = h2.shape
+    CT = C * T
+    state = OceanState(q=out.q_pre.reshape(CT, K),
+                       t=torch.arange(T, dtype=torch.int32, device=h2.device).repeat(C),
+                       energy_spent=torch.zeros((CT, K), device=h2.device))
+    kw = {}
+    if radio is not None:
+        kw["radio"] = radio.map(lambda x: x.reshape(CT))
+    if failure is not None:
+        kw["delivered"] = failure.delivered.reshape(CT, K)
+        kw["fail_rate"] = failure.rate[:, None, :].expand(C, T, K).reshape(CT, K)
+    _, dec = ocean_round(state, h2.reshape(CT, K), v.reshape(CT), eta.reshape(CT),
+                         dataclasses.replace(cfg, solver=PALLAS_PLAIN, traj="scan"),
+                         budget_inc=inc.reshape(CT, K), **kw)
+    assert torch.equal(dec.a, out.a.reshape(CT, K))
+    torch.testing.assert_close(out.b.reshape(CT, K), dec.b, atol=B_ATOL, rtol=0)
+    torch.testing.assert_close(out.e.reshape(CT, K), dec.e, atol=1e-6, rtol=1e-4)
+    floor = (v * eta).reshape(CT)
+    rel = (out.obj.reshape(CT) - dec.objective).abs() / (dec.objective.abs() + floor)
+    assert rel.max().item() <= W_RTOL, rel.max().item()
+    if failure is not None:
+        assert torch.equal(dec.delivered, out.dlv.reshape(CT, K))
+        assert torch.equal(dec.realloc, out.ral.reshape(CT))
+
+
+@pytest.mark.parametrize("T,K,C", [(40, 6, 8), (20, 33, 4)])
+def test_k3_radio_stream_matches_plain(dev, T, K, C):
+    """HasRadio: every round reads its cell's b_min, beta and energy_scale."""
+    cfg, h2, v, eta, inc = _k3_inputs(dev, 5, C, T, K)
+    radio = _k3_radio(dev, 5, C, T, cfg)
+    before = tt.ocean_traj.launches
+    out = tt.ocean_traj(cfg, h2, v, eta, inc, radio=radio)
+    plain = tt.ocean_traj_plain(cfg, h2, v, eta, inc, radio=radio)
+    torch.cuda.synchronize()
+    assert tt.ocean_traj.launches == before + 1
+    _assert_k3_close(out, plain)
+    assert out.dlv is None and out.ral is None
+
+
+@pytest.mark.parametrize("K", [10, 33])
+def test_k3_static_radio_stream_equals_scalar_radio_bitwise(dev, K):
+    """A static radio streamed as (C, T) leaves gives the scalar instance's
+    bits: the stored float32 leaves are the launch arguments' values."""
+    cfg, h2, v, eta, inc = _k3_inputs(dev, 6, 8, 30, K)
+    scalar = tt.ocean_traj(cfg, h2, v, eta, inc)
+    streamed = tt.ocean_traj(cfg, h2, v, eta, inc, radio=_k3_radio(dev, 6, 8, 30, cfg, False))
+    torch.cuda.synchronize()
+    for f in ("a", "b", "e", "q_pre", "obj", "nsel", "q_final", "es_final"):
+        assert torch.equal(getattr(scalar, f), getattr(streamed, f)), f
+
+
+@pytest.mark.parametrize("mode", ["plain", "overprovision", "reallocate"])
+@pytest.mark.parametrize("T,K,C", [(40, 6, 8), (20, 10, 8), (20, 33, 4), (2, 2048, 2)])
+def test_k3_failure_matches_plain(dev, mode, T, K, C):
+    """HasFailure under each mode, with rounds where every client fails
+    (t = 1, 3, 7) and a cell whose gains are 1000 times worse: after round 0
+    its queues hold it at no client selected."""
+    import dataclasses
+
+    cfg, h2, v, eta, inc = _k3_inputs(dev, 7, C, T, K)
+    cfg = dataclasses.replace(cfg, failure_mode=mode)
+    h2[0] *= 1e-3
+    failure = _k3_failure(dev, 7, C, T, K, dead_rounds=[t for t in (1, 3, 7) if t < T])
+    before = tt.ocean_traj.launches
+    out = tt.ocean_traj(cfg, h2, v, eta, inc, failure=failure)
+    plain = tt.ocean_traj_plain(cfg, h2, v, eta, inc, failure=failure)
+    torch.cuda.synchronize()
+    assert tt.ocean_traj.launches == before + 1
+    _assert_k3_close(out, plain, failure=True)
+    _replay_rounds(cfg, out, h2, v, eta, inc, failure=failure)
+    if T > 3:
+        assert bool((out.nsel[0, 1:13] == 0).all())  # poor gains, before the reset at 13
+        assert bool(((out.a & ~out.dlv).any(-1) | (out.nsel == 0))[:, 3].all())
+        if mode == "reallocate":
+            assert bool((out.ral[:, 3] == (out.nsel[:, 3] > 0).int()).all())
+
+
+def test_k3_radio_and_failure_together_match_plain(dev):
+    import dataclasses
+
+    C, T, K = 8, 30, 10
+    cfg, h2, v, eta, inc = _k3_inputs(dev, 8, C, T, K)
+    cfg = dataclasses.replace(cfg, failure_mode="overprovision")
+    radio = _k3_radio(dev, 8, C, T, cfg)
+    failure = _k3_failure(dev, 8, C, T, K)
+    out = tt.ocean_traj(cfg, h2, v, eta, inc, radio=radio, failure=failure)
+    plain = tt.ocean_traj_plain(cfg, h2, v, eta, inc, radio=radio, failure=failure)
+    torch.cuda.synchronize()
+    _assert_k3_close(out, plain, failure=True)
+    _replay_rounds(cfg, out, h2, v, eta, inc, radio=radio, failure=failure)
+
+
+def test_k3_failure_with_all_ones_equals_no_failure_bitwise(dev):
+    """An all-ones mask: plain and reallocate give the failure-free bits, and
+    so does overprovision with every declared rate 1 (its prefix never grows)."""
+    import dataclasses
+
+    from repro_torch.env.failure import TracedFailure
+
+    C, T, K = 8, 30, 10
+    cfg, h2, v, eta, inc = _k3_inputs(dev, 9, C, T, K)
+    ref = tt.ocean_traj(cfg, h2, v, eta, inc)
+    ones = TracedFailure(delivered=torch.ones_like(h2), rate=torch.ones((C, K), device=dev))
+    for mode in ("plain", "overprovision", "reallocate"):
+        out = tt.ocean_traj(dataclasses.replace(cfg, failure_mode=mode), h2, v, eta, inc,
+                            failure=ones)
+        for f in ("a", "b", "e", "q_pre", "nsel", "q_final"):
+            assert torch.equal(getattr(ref, f), getattr(out, f)), (mode, f)
+        assert torch.equal(out.dlv, out.a) and not bool(out.ral.any())
 
 
 # ---------------------------------------------------------------------------
