@@ -13,8 +13,10 @@ at K = 10 and K = 100; K2: 8 cells at K = 10^4, top_m 128, at V = 1e-5
 (m* <= 8) and 1e-3 (m* ~ 62); K3: the §VI grid's 192
 cells x 300 rounds x K = 10 on seeded gains, and 192 cells x 40 rounds x
 K = 100; K3's streamed-radio instance and its failure instance under each
-failure mode at the §VI shape, on seeded radio and delivery streams (where
-the checkout has them); K5: the long cache; K6: one 4096-channel block of jamba's mixer
+failure mode at the §VI shape, on seeded radio and delivery streams, and
+its guarded instance (a cap that never fires), its bisect instance and a
+chaos backend's instance (the fallback every round) at the §VI shape (each
+where the checkout has it); K5: the long cache; K6: one 4096-channel block of jamba's mixer
 over 8192 steps; K7: the rwkv6 prefill layer, 8 x 8192 x 32 heads of 64,
 and at B = 4, 128 (b, h) chains, fewer than the card's 132 SMs) and is
 timed two ways: ``ms``, back-to-back wrapper calls between two CUDA events
@@ -28,6 +30,7 @@ JAX.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import hashlib
 import json
 import subprocess
@@ -113,8 +116,6 @@ def main() -> int:
     except ImportError:  # a checkout without the environment processes
         TracedFailure = None
     if TracedFailure is not None:
-        import dataclasses
-
         share = torch.tensor(rng.uniform(0.5, 1.0, (cells, T)), dtype=torch.float32, device=dev)
         radio = traced_radio(cfg.radio, T).map(lambda x: x.to(dev).expand(cells, T).contiguous())
         bw = radio.bandwidth_hz * share
@@ -130,6 +131,18 @@ def main() -> int:
             timed(f"k3_failure_{mode}",
                   lambda cfg_m=cfg_m: ocean_traj(cfg_m, h2c, vv, eta, inc, failure=fail), 5)
         del radio, fail
+    try:
+        from repro_torch.guard import GuardSpec, register_chaos_solver
+    except ImportError:  # a checkout without the guard
+        GuardSpec = None
+    if GuardSpec is not None:
+        for name, cfg_r, reps in (
+                ("k3_guard", dataclasses.replace(cfg, guard=GuardSpec(energy_cap=1e6)), 5),
+                ("k3_bisect", dataclasses.replace(cfg, solver="bisect"), 3),
+                ("k3_chaos", dataclasses.replace(
+                    cfg, solver=register_chaos_solver("pallas", kind="objective").name,
+                    guard=GuardSpec()), 3)):
+            timed(name, lambda cfg_r=cfg_r: ocean_traj(cfg_r, h2c, vv, eta, inc), reps)
     k3_large = cs._k3_inputs(torch, np, dev, 192, 40, 100, seed=3)
     timed("k3_K100", lambda: ocean_traj(*k3_large), 3)
     rec["k3_K100"]["bound_ms"], rec["k3_K100"]["bound_by"] = cs.k3_bound(

@@ -51,6 +51,7 @@ nothing of JAX.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import json
@@ -139,10 +140,37 @@ def ops_candidate(m, outer, inner):
     return setup + outer * per_outer + final + repair + 4
 
 
-def ops_sweep(counts, outer, inner):
+def ops_sweep(counts, outer, inner, candidate=None):
     """Sum over cells of the candidates this data makes the sweep run;
-    ``counts`` is a list of per-cell numbers of evaluated candidates."""
-    return sum(ops_candidate(m, outer, inner) for n in counts for m in range(1, n + 1))
+    ``counts`` is a list of per-cell numbers of evaluated candidates;
+    ``candidate`` (default ``ops_candidate``) counts one candidate."""
+    candidate = ops_candidate if candidate is None else candidate
+    return sum(f * sum(candidate(m, outer, inner) for m in range(1, n + 1))
+               for n, f in collections.Counter(counts).items())
+
+
+def ops_b_of_lam_bisect(inner):
+    """b(lam) by bisection: target, then per halving the midpoint, f', the
+    compare and two selects, then the last midpoint."""
+    return 3 + inner * (2 + OPS_F_PRIME + 3) + 2
+
+
+def ops_bisect_sweep(counts):
+    """``ops_sweep`` of the bisect sweep at K3's halvings."""
+    from repro_torch.kernels.ocean_traj import BISECT_ITERS
+
+    return ops_sweep(counts, BISECT_ITERS, BISECT_ITERS, ops_candidate_bisect)
+
+
+def ops_candidate_bisect(m, outer, inner):
+    """One candidate of the bisect sweep with m members: ``outer`` budget
+    halvings and the final allocation (43 bisections of b(lam) a member,
+    each ``inner`` f' evaluations), then candidate_w's repair."""
+    per_outer = m * (ops_b_of_lam_bisect(inner) + 1) + 6
+    final = m * (ops_b_of_lam_bisect(inner) + 1)
+    repair = m * (4 + 8 + OPS_F_SHANNON + 2) + 12
+    setup = m + 12 + OPS_F_PRIME
+    return setup + outer * per_outer + final + repair + 4
 
 
 def bound_ms(n_bytes, n_ops, peak_flops=PEAK_F32_FLOPS):
@@ -626,24 +654,39 @@ def ops_waterfill(n, outer, inner, grid):
     return setup + levels + outer * per_outer + final
 
 
-def k3_bound(torch, rho, radio=False, failure=False, solves=()):
+def k3_bound(torch, rho, radio=False, failure=False, solves=(), bisect=False, guard=False,
+             fallback=None):
     """K3's bound on (C, T, K) priorities: per cell-round the sweep runs
-    K - n0 candidates; the sort is P log2(P)(log2(P)+1)/4 exchanges.  The
-    streamed-radio instance also reads 3 floats a cell-round; the failure
-    instance reads the (C, T, K) mask and (C, K) rates, writes the
-    delivered mask and the reallocation flags, and runs one masked P4 for
-    each member count in ``solves`` (the re-solves this run's data needed).
-    Returns (bound ms, what bounds it, operations, bytes)."""
+    K - n0 candidates (K1's Newton, or with ``bisect`` the bisect sweep);
+    the sort is P log2(P)(log2(P)+1)/4 exchanges.  The streamed-radio
+    instance also reads 3 floats a cell-round; the failure instance reads
+    the (C, T, K) mask and (C, K) rates, writes the delivered mask and the
+    reallocation flags, and runs one masked P4 for each member count in
+    ``solves`` (the re-solves this run's data needed).  The guarded
+    instance reads the (K,) caps, writes three ints a cell-round, screens
+    and validates each round (~20 K operations) and runs the bisect sweep
+    again on the (C, T) rounds ``fallback`` marks.  Returns (bound ms, what
+    bounds it, operations, bytes)."""
     from repro_torch.core.solvers import newton_iteration_budgets
     from repro_torch.kernels.ocean_p import INNER_ITERS, OUTER_ITERS
 
     C, T, K = rho.shape
-    counts = (K - (rho <= 1e-30).sum(-1)).reshape(-1).tolist()
+    per_round = K - (rho <= 1e-30).sum(-1)
+    counts = per_round.reshape(-1).tolist()
     Pp = max(32, 1 << (K - 1).bit_length())
     lg = int(math.log2(Pp))
     sort_ops = Pp * lg * (lg + 1) // 4 * 8
-    ops = ops_sweep(counts, OUTER_ITERS, INNER_ITERS) + C * T * (sort_ops + 30 * K)
+    if bisect:
+        ops = ops_bisect_sweep(counts)
+    else:
+        ops = ops_sweep(counts, OUTER_ITERS, INNER_ITERS)
+    ops += C * T * (sort_ops + 30 * K)
     n_bytes = C * T * K * (4 * 2 + 4 * 4 + 1) + C * T * 4 * 4 + C * K * 4 * 2
+    if guard:
+        n_bytes += K * 4 + C * T * 3 * 4
+        ops += C * T * 20 * K
+        if fallback is not None:
+            ops += ops_bisect_sweep(per_round[fallback.bool()].tolist())
     if radio:
         n_bytes += C * T * 3 * 4
     if failure:
@@ -1083,6 +1126,307 @@ def phase_baselines(torch, np, dev, smi, T=300, K=10, seeds=64, num_iters=400):
                                  ratio=ours / oracle)
     emit({"phase": "baselines", "gpu": smi, "cells": seeds, "T": T, "K": K, **rec})
     return rec
+
+
+# ---------------------------------------------------------------------------
+# the guarded-execution layer: the robustness sweep
+# (benchmarks/robustness_sweep.py) through K3's guard and bisect instances
+# ---------------------------------------------------------------------------
+GUARD_FIELDS = (("fault_count", "fc"), ("demoted", "dm"), ("fallback", "fb"))
+INJECT = dict(num_inf=3, num_zero=2, num_negative=2)   # robustness_sweep.py:59
+ENERGY_CAP = 1.0
+
+
+def replay_guarded(torch, cfg, dec, h2, eta, v, inc):
+    """Every (cell, round) of a guarded K3 run through the plain guarded
+    round on the kernel's own q_pre.  ``dec`` holds (C, T, ...) decisions
+    and the three counters, ``h2``/``inc`` (C, T, K), ``eta`` (C, T).
+    Decisions exact outside near ties (margins of the plain K1 sweep on the
+    guarded priorities), b within B_ATOL there, the counters exact
+    everywhere (they do not depend on the solve's last bits)."""
+    from repro_torch.core.ocean import OceanState, _guard_admission, ocean_round
+    from repro_torch.core.selection import RHO_DEMOTED, priorities
+    from repro_torch.core.solvers import get_solver
+    from repro_torch.kernels.ocean_traj import _plain_solver
+
+    C, T, K = dec.a.shape
+    CT = C * T
+    dev = h2.device
+    q_pre = dec.q.reshape(CT, K)
+    h2r = h2.reshape(CT, K)
+    eta_c = eta.reshape(CT)
+    plain_cfg = dataclasses.replace(cfg, solver=_plain_solver(get_solver(cfg.solver)),
+                                    traj="scan")
+    state = OceanState(q=q_pre, t=torch.arange(T, device=dev, dtype=torch.int32).repeat(C),
+                       energy_spent=torch.zeros_like(q_pre))
+    _, d = ocean_round(state, h2r, v, eta_c, plain_cfg, budget_inc=inc.reshape(CT, K))
+    h2s, admit, _, _ = _guard_admission(plain_cfg, h2r, None, cfg.radio)
+    rho = priorities(q_pre, h2s)
+    if admit is not None:
+        rho = torch.where(admit, rho, torch.full_like(rho, RHO_DEMOTED))
+    near = _near_rounds(torch, rho, v * eta_c, cfg.radio)
+    flip = (dec.a.reshape(CT, K) != d.a).any(1)
+    check(not bool((flip & ~near).any()),
+          f"guarded K3: {(flip & ~near).sum().item()} rounds select differently outside near ties")
+    ok = ~near
+    err_b = (dec.b.reshape(CT, K) - d.b).abs()[ok].max().item()
+    check(err_b <= B_ATOL, f"guarded K3: max |b - b_plain| = {err_b}")
+    for f, _ in GUARD_FIELDS:
+        got, want = getattr(dec, f).reshape(CT), getattr(d, f)
+        check(torch.equal(got, want),
+              f"guarded K3: {f} differs from the plain round in {(got != want).sum().item()} rounds")
+    return dict(rounds=CT, near_tie_rounds=int(near.sum()), flipped_rounds=int(flip.sum()),
+                max_abs_err_b=err_b, **{f: int(getattr(d, f).sum()) for f, _ in GUARD_FIELDS})
+
+
+def _vi_k3_args(torch, np, dev, cfg, C=192, T=300):
+    """K3 alone at the §VI shape on chip_kernels.py's seeded inputs (192
+    cells x 300 rounds x K = 10, exponential gains, H / T increments, V =
+    1e-5, the uniform schedule)."""
+    from repro_torch.core.patterns import eta_schedule
+
+    K = cfg.num_clients
+    h2 = torch.tensor(np.random.default_rng(3).exponential(size=(C, T, K)).astype(np.float32)
+                      * 2.5e-4, device=dev)
+    eta = eta_schedule("uniform", T, device=dev).expand(C, T).contiguous()
+    return h2, torch.full((C, T), V_PAPER, device=dev), eta, torch.full_like(h2, 0.15 / T)
+
+
+def phase_robustness(torch, np, dev, smi, T=300, K=10, seeds=64, t_fault=12):
+    """The robustness sweep at the paper's §VI settings on the card.
+
+    1. The grid (clean and drift-toward cells x 64 seeds, ocean-a at V = 1e-5,
+       solver="pallas", traj="fused") unguarded, with energy_cap = 1 and with
+       a cap of 1e6 that never fires: the latter equals the unguarded grid bit
+       for bit, the cap bounds every round's energy, and on the clean cells
+       the guard moves the selections by under 3 %.
+    2. Fault telemetry on every cell of the same two scenarios cut to
+       ``t_fault`` rounds (half the sweep's own fault part's T = 24: the
+       plain bisect round on the scan path is ~27,000 eager launches, ~0.3 s
+       on the H100 machine's host): inf/zero/negative
+       draws injected per cell, GuardSpec() with solver pallas and bisect on
+       the scan and fused paths; fault_count exact per round and cell, no
+       quarantined client selected, finite queues, scan against fused under
+       the parity rule.
+    3. Chaos on the grid's cells: objective chaos on base pallas and bisect
+       falls back every round and commits the guarded bisect run's bits;
+       budget chaos (x 1.5) falls back exactly on the rounds with m* > 0.
+    Then every guarded K3 run replayed against the plain round, and K3's
+    guard, bisect and chaos instances timed at the §VI shape."""
+    from repro_torch.core.ocean import simulate
+    from repro_torch.core.scenario import Scenario, paper_scenarios
+    from repro_torch.core.patterns import eta_schedule
+    from repro_torch.core.policy import PolicyParams
+    from repro_torch.guard import GuardSpec, inject_h2_faults, register_chaos_solver
+    from repro_torch.kernels.ocean_traj import ocean_traj, ocean_trajectory_fused
+    from repro_torch.sim import GridEngine, run_grid
+
+    def scenarios(t):
+        return [Scenario(name="clean", num_rounds=t, num_clients=K),
+                paper_scenarios(t, K)["scenario2"]]
+
+    parts, t_part = {}, [time.perf_counter()]
+
+    def part(name):
+        """Seconds since the previous part ended (the phase's breakdown)."""
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        parts[name] = now - t_part[0]
+        t_part[0] = now
+
+    scen = scenarios(T)
+    pols = [("ocean-a", PolicyParams(v=V_PAPER))]
+    chaos_obj = {b: register_chaos_solver(b, kind="objective").name for b in ("pallas", "bisect")}
+    chaos_budget = register_chaos_solver("bisect", kind="budget", scale=1.5).name
+    guards = {"unguarded": None, "cap1": GuardSpec(energy_cap=ENERGY_CAP),
+              "cap1e6": GuardSpec(energy_cap=1e6)}
+    fault_scen = scenarios(t_fault)
+    fault_engine = GridEngine(fault_scen, pols, device=dev)
+    h2_f = fault_engine.sample_env(range(seeds))[0].reshape(-1, t_fault, K)
+    C = h2_f.shape[0]
+    rows, expected = [], []
+    for c in range(C):  # faults injected per cell, seeded by the cell
+        x, rep = inject_h2_faults(h2_f[c], seed=c, **INJECT)
+        rows.append(torch.from_numpy(x))
+        expected.append(torch.from_numpy(rep.per_round_quarantined(t_fault)))
+    h2_bad = torch.stack(rows).to(dev)
+    expected = torch.stack(expected).to(device=dev, dtype=torch.int32)
+    eta_f = eta_schedule("ascend", t_fault, device=dev)
+    run_grid(scen, pols, range(2), solver="pallas", traj="fused", device=dev)  # warm-up
+    part("setup")
+
+    # -- the main path: every run below between reset and read counts ------
+    _reset_counts()
+    t0 = time.perf_counter()
+    grids = {k: run_grid(scen, pols, range(seeds), solver="pallas", traj="fused", guard=g,
+                         device=dev) for k, g in guards.items()}
+    torch.cuda.synchronize()
+    grid_wall = time.perf_counter() - t0
+    part("grids")
+    faults = {}
+    for solver in ("pallas", "bisect"):
+        for traj in ("scan", "fused"):
+            cfg_f = dataclasses.replace(fault_scen[0].ocean_config(), solver=solver, traj=traj,
+                                        guard=GuardSpec())
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            st, d = simulate(cfg_f, h2_bad, eta_f, V_PAPER, device=dev)
+            torch.cuda.synchronize()
+            faults[solver, traj] = (cfg_f, st, d, time.perf_counter() - t1)
+    part("faults")
+    h2_g = grids["unguarded"].h2.reshape(-1, T, K)
+    eta_g = eta_schedule("ascend", T, device=dev)
+    cfg_g = dataclasses.replace(scen[0].ocean_config(), traj="fused", guard=GuardSpec())
+    chaos = {}
+    for name, solver, guard in (("bisect", "bisect", None), ("guarded_bisect", "bisect", True),
+                                ("objective/pallas", chaos_obj["pallas"], True),
+                                ("objective/bisect", chaos_obj["bisect"], True),
+                                ("budget/bisect", chaos_budget, True)):
+        cfg_c = dataclasses.replace(cfg_g, solver=solver, guard=cfg_g.guard if guard else None)
+        chaos[name] = (cfg_c, *simulate(cfg_c, h2_g, eta_g, V_PAPER, device=dev))
+    part("chaos")
+    launches = _counts()
+    inst = launches["ocean_traj_instances"]
+    for label in ("guard", "bisect", "bisect+guard", "guard+chaos", "bisect+guard+chaos"):
+        check(inst.get(label, 0) > 0, f"robustness: K3's {label} instance was never launched")
+    check(launches["ocean_p_prefix"] > 0, "robustness: K1 (the scan path) was never launched")
+
+    # -- 1. the grid ------------------------------------------------------
+    g0, g1, g2 = grids["unguarded"], grids["cap1"], grids["cap1e6"]
+    for f in ("a", "b", "e", "q", "num_selected"):
+        check(torch.equal(getattr(g0, f), getattr(g2, f)),
+              f"robustness: the never-firing guard moved the grid's {f}")
+    h_round = 0.15
+    guarded_max = g1.e.max().item()
+    check(guarded_max <= ENERGY_CAP * h_round * (1 + 1e-6),
+          f"robustness: a guarded round spent {guarded_max} J > cap x H")
+    util0 = g0.num_selected[:, 0].sum(-1).double().mean().item()
+    util1 = g1.num_selected[:, 0].sum(-1).double().mean().item()
+    rel = abs(util1 - util0) / max(util0, 1e-9)
+    check(rel < 0.03, f"robustness: the guard moved the clean cells' selections by {rel}")
+    tail_max = g0.e[:, 1].max().item()
+    part("checks/grid")
+
+    # -- 2. fault telemetry -------------------------------------------------
+    fault_rec = {}
+    for (solver, traj), (cfg_f, st, d, wall) in faults.items():
+        check(torch.equal(d.fault_count, expected),
+              f"robustness: fault_count differs from the injection ({solver}, {traj})")
+        check(not bool((d.a & ~(torch.isfinite(h2_bad) & (h2_bad > 0))).any()),
+              f"robustness: a quarantined client was selected ({solver}, {traj})")
+        check(bool(torch.isfinite(st.q).all()), f"robustness: non-finite queues ({solver}, {traj})")
+        fault_rec[f"{solver}/{traj}"] = dict(
+            wall_s=wall, faults=int(d.fault_count.sum()), demoted=int(d.demoted.sum()),
+            fallback=int(d.fallback.sum()), mean_selected=d.num_selected.float().mean().item())
+    for solver in ("pallas", "bisect"):
+        ds, df = faults[solver, "scan"][2], faults[solver, "fused"][2]
+        # a cell may differ only after one of its rounds is a near tie
+        same = (ds.a == df.a).flatten(1).all(-1) & (ds.num_selected == df.num_selected).all(-1)
+        near = _near_rounds(torch, df.rho.reshape(-1, K), V_PAPER * eta_f.repeat(C),
+                            scen[0].radio).reshape(C, t_fault).any(-1)
+        check(bool((same | near).all()),
+              f"robustness: scan vs fused ({solver}): {int((~same & ~near).sum())} cells differ "
+              f"without a near tie")
+        err = (ds.b[same] - df.b[same]).abs().max().item() if bool(same.any()) else 0.0
+        check(err <= B_ATOL, f"robustness: scan vs fused ({solver}) max |b| diff {err}")
+        for f, _ in GUARD_FIELDS:
+            check(torch.equal(getattr(ds, f)[same], getattr(df, f)[same]),
+                  f"robustness: scan vs fused ({solver}) {f} differs")
+        fault_rec[f"{solver}/scan_vs_fused"] = dict(cells_identical=int(same.sum()),
+                                                    cells_with_near_tie=int(near.sum()),
+                                                    max_abs_err_b=err)
+    part("checks/faults")
+
+    # -- 3. chaos -----------------------------------------------------------
+    ref = chaos["guarded_bisect"][2]
+    for f in ("a", "b", "e", "q", "num_selected"):
+        check(torch.equal(getattr(chaos["bisect"][2], f), getattr(ref, f)),
+              f"robustness: the never-firing guard moved the bisect run's {f}")
+    chaos_rec = {}
+    for name in ("objective/pallas", "objective/bisect", "budget/bisect"):
+        d = chaos[name][2]
+        if name.startswith("objective"):
+            check(bool((d.fallback.sum(-1) == T).all()),
+                  f"robustness: chaos {name} did not fall back on every round")
+        else:
+            m_pos = (ref.a & (ref.rho > 1e-30)).any(-1).int()
+            check(torch.equal(d.fallback, m_pos),
+                  "robustness: budget chaos fell back elsewhere than on the rounds with m* > 0")
+        for f in ("a", "b", "e", "q"):
+            check(torch.equal(getattr(d, f), getattr(ref, f)),
+                  f"robustness: chaos {name} + fallback differs from the guarded bisect run ({f})")
+        chaos_rec[name] = dict(fallback_rounds=int(d.fallback.sum()))
+
+    part("checks/chaos")
+
+    # -- replays ------------------------------------------------------------
+    engine = GridEngine(scen, pols, solver="pallas", traj="fused", guard=guards["cap1"],
+                        device=dev)
+    Cg = h2_g.shape[0]
+    inc_g = g1.budget_inc.reshape(Cg, T, K).contiguous()
+    eta_gc = eta_g.expand(Cg, T).contiguous()
+    vv = torch.full((Cg, T), V_PAPER, device=dev)
+    # a comparison launch on the grid's cells: the grid's bits, with the counters
+    _, grid_dec = ocean_trajectory_fused(engine.cfg, h2_g.contiguous(), vv, eta_gc, inc_g)
+    for f in ("a", "b", "q"):
+        check(torch.equal(getattr(grid_dec, f), getattr(g1, f)[0].reshape(grid_dec.a.shape)),
+              f"robustness: a launch on the grid's cells differs from the grid's run ({f})")
+    inc_f = torch.full_like(h2_bad, 0.15 / t_fault)
+    replays = {"grid_cap1": replay_guarded(torch, engine.cfg, grid_dec, h2_g, eta_gc, V_PAPER,
+                                           inc_g)}
+    for solver in ("pallas", "bisect"):
+        cfg_f, _, d, _ = faults[solver, "fused"]
+        replays[f"faults/{solver}"] = replay_guarded(torch, cfg_f, d, h2_bad,
+                                                     eta_f.expand(C, t_fault), V_PAPER, inc_f)
+    # the chaos run's first 16 cells: every round there commits the bisect
+    # fallback, whose plain version is ~27,000 launches however many rows
+    cfg_c, _, d = chaos["objective/pallas"]
+    n_sub = min(16, Cg)
+    replays["chaos/objective/pallas"] = replay_guarded(
+        torch, cfg_c, type(d)(*(None if x is None else x[:n_sub] for x in d)), h2_g[:n_sub],
+        eta_g.expand(n_sub, T), V_PAPER, torch.full_like(h2_g[:n_sub], 0.15 / T))
+    part("replays")
+
+    # -- K3's readings at the §VI shape ------------------------------------
+    h2v, vv, etav, incv = _vi_k3_args(torch, np, dev, engine.cfg)
+    base = dataclasses.replace(engine.cfg, guard=None)
+    readings = {}
+    for name, cfg_r, rounds in (
+            ("guard", dataclasses.replace(base, guard=GuardSpec(energy_cap=1e6)), 3),
+            ("bisect", dataclasses.replace(base, solver="bisect"), 1),
+            ("chaos", dataclasses.replace(base, solver=chaos_obj["pallas"], guard=GuardSpec()), 1)):
+        args = (cfg_r, h2v, vv, etav, incv, None, None)
+        o = ocean_traj(*args)
+        if name == "chaos":
+            check(bool((o.fb == 1).all()), "robustness: the chaos reading did not fall back")
+        bms, by, ops, n_bytes = k3_bound(torch, o.rho, bisect=name == "bisect",
+                                         guard=name != "bisect",
+                                         fallback=o.fb if name == "chaos" else None)
+        readings[name] = dict(bound_ms=bms, bound_by=by, ops=ops, bytes=n_bytes,
+                              **_k3_alone(torch, args, plain_rounds=rounds))
+    part("readings")
+    out = dict(gpu=smi, grid=f"1 policy x {len(scen)} scenarios x {seeds} seeds, T={T}, K={K}",
+               launches=launches, grid_wall_s=grid_wall,
+               grid_rounds_cells_per_s=3 * g0.e.shape[1] * seeds * T / grid_wall,
+               unguarded_tail_energy_max_j=tail_max, guarded_energy_max_j=guarded_max,
+               clean_utility_rel_delta=rel, faults_injected_per_cell=sum(INJECT.values()),
+               fault_cells=C, fault_rounds=t_fault, faults=fault_rec, chaos=chaos_rec,
+               replays=replays, k3=readings, parts_s=parts,
+               max_abs_err_b=max(r["max_abs_err_b"] for r in replays.values()))
+    emit({"phase": "robustness", **out})
+    return out
+
+
+def _near_rounds(torch, rho, v_eta, radio):
+    """Rounds (rows of ``rho``, priorities with the guard's demotions) whose
+    best and runner-up prefix W of the plain K1 sweep lie within W_RTOL |W*|."""
+    from repro_torch.core.selection import prefix_inputs
+    from repro_torch.kernels.ocean_p import _scal, prefix_objectives_plain
+
+    _, rho_sorted, n0, delta = prefix_inputs(rho, radio)
+    w = prefix_objectives_plain(_scal(n0, delta, v_eta, radio, rho_sorted), rho_sorted)
+    top2 = torch.topk(w, 2, dim=1).values
+    return (top2[:, 0] - top2[:, 1]) <= W_RTOL * top2[:, 0].abs()
 
 
 # ---------------------------------------------------------------------------
@@ -2023,6 +2367,7 @@ def main() -> int:
     del res
     torch.cuda.empty_cache()
     reliability = timed("reliability", phase_reliability, torch, np, dev, smi)
+    robustness = timed("robustness", phase_robustness, torch, np, dev, smi)
     radio_grid = timed("radio_grid", phase_radio_grid, torch, np, dev, smi)
     baselines = timed("baselines", phase_baselines, torch, np, dev, smi)
     torch.cuda.empty_cache()
@@ -2045,6 +2390,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     k1_main = k1[10]
+    rob_inst = robustness["launches"]["ocean_traj_instances"]
     kernels = [
         dict(name="ocean_p_prefix", route="cuda", source="src/repro_torch/csrc/ocean_p.cu",
              replaces="src/repro/kernels/ocean_p.py:48",
@@ -2063,7 +2409,8 @@ def main() -> int:
              replaces="src/repro/kernels/ocean_traj.py:96",
              launches=main_out["launches"]["ocean_traj"],
              max_abs_err=max([k3_err, reliability["max_abs_err_b"],
-                              radio_grid["teacher_forced"]["max_abs_err_b"]]
+                              radio_grid["teacher_forced"]["max_abs_err_b"],
+                              robustness["max_abs_err_b"]]
                              + [r["max_abs_err_b"] for r in k3_large.values()]),
              ms=main_out["k3_ms"], device_ms=main_out["k3_device_ms"],
              plain_ms=main_out["k3_plain_ms"],
@@ -2074,6 +2421,11 @@ def main() -> int:
                  **{f"failure/{OCEAN_FAILURE_MODES[p]}": dict(
                      launches=v["launches"], **{k: v[k] for k in INSTANCE_KEYS})
                     for p, v in reliability["k3"].items()},
+                 # the robustness phase's readings; launches by label there
+                 **{name: dict(launches=sum(n for label, n in rob_inst.items()
+                                            if label == name or name == "chaos" and name in label),
+                               **{k: robustness["k3"][name][k] for k in INSTANCE_KEYS})
+                    for name in ("guard", "bisect", "chaos")},
              }),
         dict(name="flash_attention", route="cuda", source="src/repro_torch/csrc/flash_attention.cu",
              replaces="src/repro/kernels/flash_attention.py:32",

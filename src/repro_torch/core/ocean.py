@@ -16,9 +16,10 @@ rounds on (C, K) tensors) and ``fused`` (kernel K3,
 launch).  Both take per-round radio physics (a ``TracedRadio`` of (C, T)
 leaves, ``repro_torch.env.radio``) and per-client delivery failures (a
 ``TracedFailure``, ``repro_torch.env.failure``) with the failure-aware
-modes ``overprovision`` and ``reallocate``.  Hooks not ported yet —
-guards, metrics, checkpointing and bf16 streaming — keep their arguments
-and raise ``NotImplementedError``.
+modes ``overprovision`` and ``reallocate``, and a ``GuardSpec``
+(``repro_torch.guard``: energy admission, solver fallback, quarantine).
+Hooks not ported yet — metrics, checkpointing and bf16 streaming — keep
+their arguments and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -29,7 +30,7 @@ import torch
 
 from repro_torch._device import resolve_device
 from repro_torch.core.bandwidth import solve_p4
-from repro_torch.core.energy import RadioParams, energy, lead
+from repro_torch.core.energy import RadioParams, as_f32, energy, lead
 from repro_torch.core.selection import (
     DEFAULT_BLOCK_K,
     DEFAULT_TOP_M,
@@ -39,6 +40,7 @@ from repro_torch.core.selection import (
     p3_value,
 )
 from repro_torch.core.solvers import SolverBackend, get_solver
+from repro_torch.guard.spec import GuardSpec
 
 TRAJ_BACKENDS = ("scan", "fused")
 FAILURE_MODES = ("plain", "overprovision", "reallocate")
@@ -79,8 +81,9 @@ class OceanConfig:
 
     ``failure_mode`` acts only where a failure process is passed
     (``plain``, ``overprovision`` or ``reallocate``; see
-    ``_failure_adjust``).  ``metrics``, ``guard`` and ``checkpoint`` are
-    hooks not ported yet: setting them raises ``NotImplementedError``.
+    ``_failure_adjust``).  ``guard`` is a ``repro_torch.guard.GuardSpec``
+    or None (every round as unguarded).  ``metrics`` and ``checkpoint``
+    are hooks not ported yet: setting them raises ``NotImplementedError``.
     """
 
     num_clients: int
@@ -95,7 +98,7 @@ class OceanConfig:
     traj: str = "scan"
     failure_mode: str = "plain"
     metrics: Any = None
-    guard: Any = None
+    guard: Optional[GuardSpec] = None
     checkpoint: Any = None
 
     def __post_init__(self):
@@ -118,7 +121,11 @@ class OceanConfig:
                 f"frame_len={self.frame_len} must be a positive number of "
                 f"rounds (or None for the single-frame R = T setting)"
             )
-        for hook in ("metrics", "guard", "checkpoint"):
+        if self.guard is not None and not isinstance(self.guard, GuardSpec):
+            raise TypeError(
+                f"guard must be a repro_torch.guard.GuardSpec or None; got {self.guard!r}"
+            )
+        for hook in ("metrics", "checkpoint"):
             if getattr(self, hook) is not None:
                 raise not_ported(f"OceanConfig.{hook}")
 
@@ -153,7 +160,9 @@ class RoundDecision(NamedTuple):
     # whether P4 re-ran mid-round (C,) int32; None without one.
     delivered: Optional[torch.Tensor] = None
     realloc: Optional[torch.Tensor] = None
-    # Guard extension, not ported yet: always None.
+    # With a GuardSpec, (C,) int32 each: quarantined draws, clients demoted
+    # by the cap or the floor, and 1 where the bisect fallback was
+    # committed; None without one.
     fault_count: Optional[torch.Tensor] = None
     demoted: Optional[torch.Tensor] = None
     fallback: Optional[torch.Tensor] = None
@@ -185,6 +194,77 @@ def _masked_p4(cfg: OceanConfig, rho, in_s0, mask, radio) -> torch.Tensor:
     return torch.where(pos, b_pos, torch.where(mask & in_s0, b0_each[:, None], zero))
 
 
+def guard_caps(guard: GuardSpec, budgets: torch.Tensor) -> torch.Tensor:
+    """The admission ceiling ``energy_cap x H_k`` in float32."""
+    return torch.as_tensor(guard.energy_cap, dtype=torch.float32, device=budgets.device) * budgets
+
+
+def _guard_admission(cfg: OceanConfig, h2, budgets, radio):
+    """The guard's screens before P3 (reference ``repro/core/ocean.py:266``).
+
+    Returns ``(h2, admit, fault_count, demoted)``: the gains with
+    quarantined draws set to 1, the (C, K) admission mask for ``ocean_p``
+    (None where the spec demotes nobody), and per cell the quarantined
+    draws and the cap/floor demotions.  Eq. (2) energy decreases in b
+    (Lemma 1), so ``E(b_min | h^2) <= energy_cap x H_k`` bounds every
+    feasible allocation's spend.
+    """
+    g = cfg.guard
+    dev = h2.device
+    ok = torch.ones_like(h2, dtype=torch.bool)
+    fault_count = torch.zeros((h2.shape[0],), dtype=torch.int32, device=dev)
+    if g.quarantine:
+        finite = torch.isfinite(h2) & (h2 > 0.0)
+        fault_count = (~finite).sum(1).to(torch.int32)
+        # sanitized before any arithmetic touches the draw
+        h2 = torch.where(finite, h2, torch.ones_like(h2))
+        ok = finite
+    admit = ok
+    if g.gain_floor is not None:
+        admit = admit & (h2 >= as_f32(g.gain_floor, h2))
+    if g.energy_cap is not None:
+        caps = guard_caps(g, cfg.budgets(device=dev) if budgets is None
+                          else torch.as_tensor(budgets, dtype=torch.float32, device=dev))
+        b_min = torch.broadcast_to(
+            torch.as_tensor(lead(radio.b_min, 2), dtype=h2.dtype, device=dev), h2.shape)
+        admit = admit & (energy(b_min, h2, radio) <= caps)
+    demoted = (ok & ~admit).sum(1).to(torch.int32)
+    return h2, (admit if g.admits else None), fault_count, demoted
+
+
+def _guard_fallback(cfg: OceanConfig, q, h2, v, eta, radio, admit, sol: OceanPSolution):
+    """Validate the committed solve; fall back to bisect where it fails
+    (reference ``repro/core/ocean.py:302``).
+
+    A cell fails on a non-finite b, P3 value or rho, a budget residual
+    ``|sum b - 1|`` above ``residual_tol`` with anything selected, or a
+    selected b below ``b_min (1 - 1e-6)``.  Failing cells commit
+    ``ocean_p(solver="bisect")`` of the same guarded inputs; the bisect
+    solve runs only when some cell fails (the committed bits are the same
+    as the reference's solve-then-select).  Returns the solution and the
+    (C,) int32 flags.
+    """
+    zero = torch.zeros((), dtype=sol.b.dtype, device=sol.b.device)
+    b_min = torch.as_tensor(lead(radio.b_min, 2), dtype=torch.float32, device=sol.b.device)
+    fin_b = torch.isfinite(sol.b)
+    bz = torch.where(fin_b, sol.b, zero)
+    finite_ok = fin_b.all(1) & torch.isfinite(sol.objective) & torch.isfinite(sol.rho).all(1)
+    residual = (bz.sum(1) - 1.0).abs()
+    residual_ok = (sol.num_selected == 0) | (residual <= as_f32(cfg.guard.residual_tol, residual))
+    bmin_ok = (~sol.a | (bz >= b_min * as_f32(1.0 - 1e-6, bz))).all(1)
+    bad = ~(finite_ok & residual_ok & bmin_ok)
+    if bool(bad.any()):
+        fb = ocean_p(
+            q, h2, v, eta, radio, solver="bisect", ranking=cfg.ranking,
+            top_m=cfg.top_m, block_k=cfg.block_k, admit=admit,
+        )
+        sol = OceanPSolution(*(
+            torch.where(bad.reshape((-1,) + (1,) * (s.dim() - 1)), f, s)
+            for s, f in zip(sol, fb)
+        ))
+    return sol, bad.to(torch.int32)
+
+
 def cumsum_sequential(x: torch.Tensor) -> torch.Tensor:
     """Prefix sums along the last axis, added left to right in x's dtype:
     one defined order on every device (K3 adds in the same order)."""
@@ -197,9 +277,10 @@ def cumsum_sequential(x: torch.Tensor) -> torch.Tensor:
 
 
 def _failure_adjust(cfg: OceanConfig, q, h2, v, eta, sol: OceanPSolution, e, radio,
-                    delivered, fail_rate):
+                    delivered, fail_rate, admit=None):
     """Apply ``cfg.failure_mode`` to one committed round of every cell
-    (reference ``repro/core/ocean.py:339``, without the guard's cap).
+    (reference ``repro/core/ocean.py:339``).  With a guard's ``admit``
+    mask, overprovision's extension stops at the admitted count.
 
     Returns ``(a, b, e, objective, num_selected, delivered, realloc)``.
     Selected clients pay their energy whether or not their update arrives,
@@ -233,6 +314,9 @@ def _failure_adjust(cfg: OceanConfig, q, h2, v, eta, sol: OceanPSolution, e, rad
         b_min = torch.as_tensor(lead(radio.b_min, 1), dtype=torch.float32, device=q.device)
         cap = torch.floor(torch.tensor(1.0 + 1e-9, dtype=torch.float32, device=q.device) / b_min)
         n_max = torch.clamp(cap.to(torch.int64), max=K)
+        if admit is not None:
+            # never reach into the demoted clients at the tail of the order
+            n_max = torch.minimum(n_max, admit.sum(1))
         n_ext = torch.minimum(torch.clamp(torch.maximum(n_exp, m_plain), min=0), n_max)
         n_ext = torch.where(m_plain > 0, n_ext, torch.zeros_like(n_ext))
         a = inv < n_ext[:, None]
@@ -275,27 +359,45 @@ def ocean_round(
     delivery mask and ``fail_rate`` (K,) or (C, K) the declared rates;
     with them the round applies ``cfg.failure_mode`` and reports
     ``delivered``/``realloc``.  Without them it is the pre-failure round.
+
+    With ``cfg.guard`` the round runs guarded: gains are quarantined and
+    the cap / floor demotes clients before P3 (``budgets`` sets the cap,
+    ``cfg.budgets()`` without it), the solve is validated with a bisect
+    fallback, and a non-finite queue increment becomes 0; the counts come
+    back as ``fault_count``/``demoted``/``fallback``.
     """
     radio = cfg.radio if radio is None else radio
     at_boundary = (state.t > 0) & (torch.remainder(state.t, cfg.R) == 0)
     q = torch.where(at_boundary[:, None], torch.zeros_like(state.q), state.q)
 
+    admit = fault_count = demoted = fb_flag = None
+    if cfg.guard is not None:
+        h2, admit, fault_count, demoted = _guard_admission(
+            cfg, torch.as_tensor(h2), budgets, radio)
     sol: OceanPSolution = ocean_p(
         q, h2, v, eta, radio,
         solver=cfg.solver, ranking=cfg.ranking, top_m=cfg.top_m,
-        block_k=cfg.block_k,
+        block_k=cfg.block_k, admit=admit,
     )
+    if cfg.guard is not None:
+        if cfg.guard.fallback:
+            sol, fb_flag = _guard_fallback(cfg, q, h2, v, eta, radio, admit, sol)
+        else:
+            fb_flag = torch.zeros_like(sol.num_selected)
     e = energy(sol.b, h2, radio, sol.a)
     a, b, objective, num_selected = sol.a, sol.b, sol.objective, sol.num_selected
     dlv = ral = None
     if delivered is not None:
         a, b, e, objective, num_selected, dlv, ral = _failure_adjust(
-            cfg, q, h2, v, eta, sol, e, radio, delivered, fail_rate
+            cfg, q, h2, v, eta, sol, e, radio, delivered, fail_rate, admit=admit
         )
     if budget_inc is None:
         if budgets is None:
             budgets = cfg.budgets(device=q.device)
         budget_inc = budgets / cfg.num_rounds
+    if cfg.guard is not None and cfg.guard.quarantine:
+        budget_inc = torch.where(torch.isfinite(budget_inc), budget_inc,
+                                 torch.zeros_like(budget_inc))
     q_next = torch.clamp(q + e - budget_inc, min=0.0)
     new_state = OceanState(
         q=q_next, t=state.t + 1, energy_spent=state.energy_spent + e
@@ -303,6 +405,7 @@ def ocean_round(
     dec = RoundDecision(
         a=a, b=b, e=e, q=q, rho=sol.rho,
         objective=objective, num_selected=num_selected, delivered=dlv, realloc=ral,
+        fault_count=fault_count, demoted=demoted, fallback=fb_flag,
     )
     return new_state, dec
 
@@ -360,6 +463,10 @@ def simulate(
     (C, T, K) mask, (K,) or (C, K) rates; None: no failures).  Decisions
     come back stacked as (C, T, K) and (C, T).  Runs on the card unless
     ``device="cpu"``.
+
+    ``budgets`` also sets a guard's energy cap on the scan path, as in the
+    reference; the fused path, like the reference's fused kernel, caps at
+    ``cfg.budgets()`` (``ROADMAP.md`` Queue 3).
     """
     traj = check_traj_backend(cfg.traj if traj is None else traj)
     if stream_bf16:
@@ -382,6 +489,8 @@ def simulate(
     C, T, K = h2_seq.shape
     v_seq = v_schedule(cfg, v, device=dev).expand(C, T).contiguous()
     eta_seq = _per_cell(eta_seq, C, (T,), "eta_seq", dev)
+    if budgets is not None:
+        budgets = _per_cell(budgets, C, (K,), "budgets", dev)
     if budget_seq is None:
         tot = cfg.budgets(device=dev) if budgets is None else budgets
         tot = _per_cell(tot, C, (K,), "budgets", dev)
@@ -408,7 +517,7 @@ def simulate(
     decs = []
     for t in range(T):
         state, dec = ocean_round(
-            state, h2_seq[:, t], v_seq[:, t], eta_seq[:, t], cfg,
+            state, h2_seq[:, t], v_seq[:, t], eta_seq[:, t], cfg, budgets,
             budget_inc=budget_seq[:, t],
             radio=None if radio_seq is None else radio_seq.at(t),
             delivered=None if failure_seq is None else failure_seq.delivered[:, t],

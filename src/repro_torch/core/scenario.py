@@ -3,11 +3,11 @@
 A scenario is the channel (a path-loss drift with optional i.i.d.
 Rayleigh fading, or any registered process through ``env``), radio
 physics, budgets, the eta schedule, (T, K), the frame length, the
-failure mode and the solver / ranking / trajectory knobs.  ``env`` (an
-``EnvSpec``) picks the channel, budget, radio and failure processes of
-``repro_torch.env``; without it the legacy fields lower to
+failure mode, the guard and the solver / ranking / trajectory knobs.
+``env`` (an ``EnvSpec``) picks the channel, budget, radio and failure
+processes of ``repro_torch.env``; without it the legacy fields lower to
 ``iid_rayleigh`` / ``static`` / ``static`` / ``none``.  A dict that sets
-a field not ported yet (``metrics``, ``checkpoint``, ``guard``) raises
+a field not ported yet (``metrics``, ``checkpoint``) raises
 ``NotImplementedError`` naming it; it is never silently dropped.
 """
 from __future__ import annotations
@@ -43,13 +43,13 @@ from repro_torch.env.spec import (
     lower_env,
     radio_cell_key,
 )
+from repro_torch.guard.spec import GuardSpec
 
 # Fields of the reference Scenario not ported yet, with the value that
 # means "off" (a payload may carry them only at that value).
 _UNPORTED_FIELDS = {
     "metrics": None,
     "checkpoint": None,
-    "guard": None,
 }
 
 
@@ -73,6 +73,7 @@ class Scenario:
     block_k: int = DEFAULT_BLOCK_K
     traj: str = "scan"
     failure_mode: str = "plain"
+    guard: Optional[GuardSpec] = None
 
     def __post_init__(self):
         backend = get_solver(self.solver)
@@ -98,6 +99,11 @@ class Scenario:
         eta_schedule(self.eta, 1)
         if self.env is not None:
             self.env.validate()
+        if self.guard is not None and not isinstance(self.guard, GuardSpec):
+            raise TypeError(
+                f"guard must be a repro_torch.guard.GuardSpec or None, got "
+                f"{type(self.guard).__name__}"
+            )
 
     def ocean_config(self) -> OceanConfig:
         return OceanConfig(
@@ -112,6 +118,7 @@ class Scenario:
             block_k=self.block_k,
             traj=self.traj,
             failure_mode=self.failure_mode,
+            guard=self.guard,
         )
 
     def channel_model(self) -> ChannelModel:
@@ -225,6 +232,10 @@ class Scenario:
         ):
             if d[key] == default:
                 d.pop(key)
+        if self.guard is None:
+            d.pop("guard")
+        else:
+            d["guard"] = self.guard.to_dict()
         return d
 
     @classmethod
@@ -250,6 +261,8 @@ class Scenario:
             d["energy_budget_j"] = tuple(d["energy_budget_j"])
         if isinstance(d.get("env"), dict):
             d["env"] = EnvSpec.from_dict(d["env"])
+        if isinstance(d.get("guard"), dict):
+            d["guard"] = GuardSpec.from_dict(d["guard"])
         return cls(**d)
 
     def to_json(self) -> str:

@@ -84,6 +84,10 @@ class SolverBackend(NamedTuple):
     prefixes: PrefixFn
     waterfill: Optional[WaterfillFn]
     topm: Optional[TopmFn] = None
+    # A chaos backend (``repro_torch.guard.chaos``): (the base backend's
+    # name, the corruption kind, its scale), which kernel K3 reads to apply
+    # the same corruption in the fused round; None for every other backend.
+    chaos: Optional[Tuple[str, str, float]] = None
 
 
 _REGISTRY: Dict[str, SolverBackend] = {}
@@ -94,9 +98,10 @@ def register_solver(
     prefixes: PrefixFn,
     waterfill: Optional[WaterfillFn] = None,
     topm: Optional[TopmFn] = None,
+    chaos: Optional[Tuple[str, str, float]] = None,
 ) -> SolverBackend:
     """Add a solver backend to the registry (overwrites an existing name)."""
-    backend = SolverBackend(name, prefixes, waterfill, topm)
+    backend = SolverBackend(name, prefixes, waterfill, topm, chaos)
     _REGISTRY[name] = backend
     return backend
 

@@ -1,13 +1,16 @@
 // Shared device code of the OCEAN kernels (K1 ocean_p_prefix, K2 ocean_p_topm,
 // K3 ocean_traj): the Shannon-inversion math, the safeguarded Newton
-// waterfilling of one P4 candidate, and the candidate-parallel K+1-prefix
-// sweep over it (a warp or half warp per candidate; K1, K2, K3).
+// waterfilling of one P4 candidate, the double bisection of one P4
+// candidate (the ``bisect`` solver, K3 only), and the candidate-parallel
+// K+1-prefix sweep over either (a warp or half warp per candidate; K1, K2,
+// K3).
 //
 // The math follows the reference line for line:
 //   f, f', f''            repro/core/energy.py:128-151
 //   b_of_lam_newton       repro/core/solvers.py:265
 //   the outer Newton step repro/kernels/ocean_p.py:95-111
 //   _budget_repair        repro/core/solvers.py:335
+//   solve_p4 (bisection)  repro/core/bandwidth.py:53-130
 // Elementwise, each kernel computes what its plain PyTorch version does op
 // for op (no FMA contraction, exp2 rounded from double); the two differ
 // only in the order of team sums.
@@ -172,6 +175,34 @@ struct SweepParams {
   int outer, inner;
 };
 
+// The exact budget repair of a candidate's allocation b[lo_i, hi_i), whose
+// team sum before it is ``sb`` (_budget_repair), and the candidate's cost
+// sum rho f(max(b, b_min)).
+template <class Team>
+__device__ __forceinline__ float repair_cost(const Team& tm, const float* rho, int lo_i, int hi_i,
+                                             float sb, float b_max, const SweepParams& p,
+                                             float* b) {
+  const float s = tm.template all<Sum>(sb);
+  float hr = 0.f, sl = 0.f;
+  for (int i = lo_i + tm.tid; i < hi_i; i += tm.nt) {
+    hr += jmax(b_max - b[i], 0.f);
+    sl += jmax(b[i] - p.b_min, 0.f);
+  }
+  const float2 hs = tm.sum2(hr, sl);
+  const float residual = p.delta - s;
+  const float hden = jmax(hs.x, 1e-30f), sden = jmax(hs.y, 1e-30f);
+  float cs = 0.f;
+  for (int i = lo_i + tm.tid; i < hi_i; i += tm.nt) {
+    float bi = b[i];
+    bi = residual >= 0.f ? bi + residual * (jmax(b_max - bi, 0.f) / hden)
+                         : bi + residual * (jmax(bi - p.b_min, 0.f) / sden);
+    bi = jclip(bi, p.b_min, b_max);
+    b[i] = bi;
+    cs += rho[i] * f_shannon(jmax(bi, p.b_min), p.beta);
+  }
+  return tm.template all<Sum>(cs);
+}
+
 template <class Team>
 __device__ bool candidate_w(const Team& tm, const float* rho, int L, int start, int m,
                             const SweepParams& p, float fp_min, float* b, float& w_out) {
@@ -222,28 +253,83 @@ __device__ bool candidate_w(const Team& tm, const float* rho, int L, int start, 
     b[i] = bi;
     sb += bi;
   }
-  const float s = tm.template all<Sum>(sb);
-  float hr = 0.f, sl = 0.f;
-  for (int i = lo_i + tm.tid; i < hi_i; i += tm.nt) {
-    hr += jmax(b_max - b[i], 0.f);
-    sl += jmax(b[i] - p.b_min, 0.f);
-  }
-  const float2 hs = tm.sum2(hr, sl);
-  const float residual = p.delta - s;
-  const float hden = jmax(hs.x, 1e-30f), sden = jmax(hs.y, 1e-30f);
-  float cs = 0.f;
-  for (int i = lo_i + tm.tid; i < hi_i; i += tm.nt) {
-    float bi = b[i];
-    bi = residual >= 0.f ? bi + residual * (jmax(b_max - bi, 0.f) / hden)
-                         : bi + residual * (jmax(bi - p.b_min, 0.f) / sden);
-    bi = jclip(bi, p.b_min, b_max);
-    b[i] = bi;
-    cs += rho[i] * f_shannon(jmax(bi, p.b_min), p.beta);
-  }
-  const float cost = tm.template all<Sum>(cs);
-  w_out = p.v_eta * (p.n0f + mf) - p.scale * cost;
+  w_out = p.v_eta * (p.n0f + mf) - p.scale * repair_cost(tm, rho, lo_i, hi_i, sb, b_max, p, b);
   return true;
 }
+
+// ---------------------------------------------------------------------------
+// The ``bisect`` solver's candidate (the port's bandwidth.solve_p4 on one
+// prefix mask, op for op): b(lam) by ``inner`` halvings of [b_min, b_max]
+// on f', lam by ``outer`` halvings of [0, lam_hi] on the budget residual,
+// then the same repair and cost as candidate_w.  Same contract as
+// candidate_w; a member with rho = +inf masks the candidate (the plain
+// version's W there is -inf or NaN).
+// ---------------------------------------------------------------------------
+__device__ float b_of_lam_bisect(float lam, float rho, float beta, float b_min, float b_max,
+                                 int iters) {
+  const float target = -lam / jmax(rho, 1e-30f);
+  float lo = b_min, hi = b_max;
+  for (int i = 0; i < iters; ++i) {
+    const float mid = 0.5f * (lo + hi);
+    const bool below = f_prime(mid, beta) < target;
+    lo = below ? mid : lo;
+    hi = below ? hi : mid;
+  }
+  return 0.5f * (lo + hi);
+}
+
+template <class Team>
+__device__ bool candidate_w_bisect(const Team& tm, const float* rho, int L, int start, int m,
+                                   const SweepParams& p, float fp_min, int outer, int inner,
+                                   float* b, float& w_out) {
+  const float mf = (float)m;
+  if (!(mf <= p.kf - p.n0f) || start + m > L) return false;
+  const int lo_i = start, hi_i = start + m;
+  const float b_max = jmax(p.delta - (mf - 1.f) * p.b_min, p.b_min);
+  float mx = 0.f;
+  for (int i = lo_i + tm.tid; i < hi_i; i += tm.nt) mx = jmax(mx, rho[i]);
+  const float rho_max = tm.template all<Max>(mx);
+  if (!isfinite(rho_max)) return false;
+  const float lam_hi = rho_max * fp_min * 1.000001f + 1e-30f;
+  float lo = 0.f, hi = lam_hi;
+  for (int it = 0; it < outer; ++it) {
+    const float mid = 0.5f * (lo + hi);
+    float s = 0.f;
+    for (int i = lo_i + tm.tid; i < hi_i; i += tm.nt)
+      s += b_of_lam_bisect(mid, rho[i], p.beta, p.b_min, b_max, inner);
+    const bool too_big = tm.template all<Sum>(s) > p.delta;
+    lo = too_big ? mid : lo;
+    hi = too_big ? hi : mid;
+  }
+  const float lam = 0.5f * (lo + hi);
+  float sb = 0.f;
+  for (int i = lo_i + tm.tid; i < hi_i; i += tm.nt) {
+    const float bi = b_of_lam_bisect(lam, rho[i], p.beta, p.b_min, b_max, inner);
+    b[i] = bi;
+    sb += bi;
+  }
+  w_out = p.v_eta * (p.n0f + mf) - p.scale * repair_cost(tm, rho, lo_i, hi_i, sb, b_max, p, b);
+  return true;
+}
+
+// What a sweep evaluates per candidate: K1's safeguarded Newton (the
+// default), or the bisect solver's double bisection.
+struct NewtonCandidate {
+  template <class Team>
+  __device__ bool operator()(const Team& tm, const float* rho, int L, int start, int m,
+                             const SweepParams& p, float fp_min, float* b, float& w) const {
+    return candidate_w(tm, rho, L, start, m, p, fp_min, b, w);
+  }
+};
+
+struct BisectCandidate {
+  int outer, inner;
+  template <class Team>
+  __device__ bool operator()(const Team& tm, const float* rho, int L, int start, int m,
+                             const SweepParams& p, float fp_min, float* b, float& w) const {
+    return candidate_w_bisect(tm, rho, L, start, m, p, fp_min, outer, inner, b, w);
+  }
+};
 
 // W of m = 0: nothing selected beyond S0, cost 0.
 __device__ __forceinline__ float w_of_none(const SweepParams& p, bool mask_nonfinite) {
@@ -268,6 +354,8 @@ __device__ __forceinline__ float w_of_none(const SweepParams& p, bool mask_nonfi
 //
 //   MaskNonfinite  K2's rule: a non-finite W (W(0) included) is not an
 //                  answer and counts as NEG_INF; K1 and K3 keep W as it is
+//   Candidate      what evaluates one candidate: NewtonCandidate (K1's
+//                  solve, the default) or BisectCandidate (prefix_sweep_bisect)
 //   rows           shared scratch of 2 * (teams in the block) * L floats:
 //                  team u's working row at rows + 2 u L, its best row (its
 //                  winner's allocation, 0 outside it) at rows + (2 u + 1) L
@@ -275,11 +363,12 @@ __device__ __forceinline__ float w_of_none(const SweepParams& p, bool mask_nonfi
 // On return every thread holds the block's W*, m* and the (block-local)
 // team whose best row is the winner's allocation.
 // ---------------------------------------------------------------------------
-template <int NT = 32, bool MaskNonfinite = false>
+template <int NT = 32, bool MaskNonfinite = false, class Candidate = NewtonCandidate>
 __device__ void prefix_sweep_parallel(const float* rho, int L, int start, int n_cands,
                                       const SweepParams& p, float* rows, float* scratch,
                                       float& w_out, float& m_out, int& winner,
-                                      int g = -1, int nteams = 0) {
+                                      int g = -1, int nteams = 0,
+                                      const Candidate& cand = Candidate()) {
   const LaneTeam<NT> tm;
   const int team = threadIdx.x / NT, block_teams = blockDim.x / NT;
   if (g < 0) g = team;
@@ -294,7 +383,7 @@ __device__ void prefix_sweep_parallel(const float* rho, int L, int start, int n_
 
   for (int m = g + 1; m <= n_cands; m += nteams) {
     float w;
-    if (!candidate_w(tm, rho, L, start, m, p, fp_min, b, w)) continue;
+    if (!cand(tm, rho, L, start, m, p, fp_min, b, w)) continue;
     if (MaskNonfinite && !isfinite(w)) w = kNegInf;
     if (w > best_w) {  // team-uniform
       best_w = w;
@@ -321,6 +410,19 @@ __device__ void prefix_sweep_parallel(const float* rho, int L, int start, int n_
   w_out = bw;
   m_out = bm;
   winner = bi;
+}
+
+// The same sweep with the ``bisect`` solver's candidate (``outer`` x
+// ``inner`` halvings, the port's 42 x 42): K3's solver="bisect" instance
+// and its guard's fallback.  Each candidate's sums run in its team's fixed
+// order whatever the block's team count, so every caller gets the same bits.
+template <int NT>
+__device__ void prefix_sweep_bisect(const float* rho, int L, int start, int n_cands,
+                                    const SweepParams& p, int outer, int inner, float* rows,
+                                    float* scratch, float& w_out, float& m_out, int& winner) {
+  prefix_sweep_parallel<NT, false, BisectCandidate>(rho, L, start, n_cands, p, rows, scratch,
+                                                    w_out, m_out, winner, -1, 0,
+                                                    BisectCandidate{outer, inner});
 }
 
 // ---------------------------------------------------------------------------

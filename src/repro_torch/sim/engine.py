@@ -5,8 +5,8 @@ scenario and seed axes; here the (scenario, seed) cells are flattened into
 one leading cell axis C = S * N (scenario-major) and every policy runs as
 ONE call over all cells — under ``traj="fused"`` an OCEAN policy is one
 launch of kernel K3.  Scenario statics that shape the program (T, K, frame
-length, solver, ranking, top_m, block_k, traj, failure_mode) must agree
-across the grid, as ``_check_compatible`` demands in the reference.
+length, solver, ranking, top_m, block_k, traj, failure_mode, guard) must
+agree across the grid, as ``_check_compatible`` demands in the reference.
 
 Environments: every scenario's ``EnvSpec`` is lowered once
 (``repro_torch.env``).  Each seed's fading uniforms come from a
@@ -153,7 +153,7 @@ def _check_compatible(scenarios: Sequence[Scenario]) -> Scenario:
             f"{field}: {getattr(base, field)!r} != {getattr(sc, field)!r}"
             for field in (
                 "num_rounds", "num_clients", "frame_len", "solver",
-                "ranking", "top_m", "block_k", "traj", "failure_mode",
+                "ranking", "top_m", "block_k", "traj", "failure_mode", "guard",
             )
             if getattr(base, field) != getattr(sc, field)
         ]
@@ -194,9 +194,11 @@ def _repeat(record, n: int):
 class GridEngine:
     """Sweep (policy, scenario, seed) grids on one device.
 
-    ``solver``/``ranking``/``top_m``/``block_k``/``traj`` override the
-    scenarios' fields.  ``experiment``, ``metrics``, ``checkpoint``,
-    ``guard`` and ``shard=True`` are hooks not ported yet and raise
+    ``solver``/``ranking``/``top_m``/``block_k``/``traj``/``guard``
+    override the scenarios' fields (a ``repro_torch.guard.GuardSpec``
+    guards the OCEAN policies; the baselines ignore it, as in the
+    reference).  ``experiment``, ``metrics``, ``checkpoint`` and
+    ``shard=True`` are hooks not ported yet and raise
     ``NotImplementedError``.
     """
 
@@ -218,8 +220,7 @@ class GridEngine:
         device=None,
     ):
         for hook, val in (
-            ("experiment", experiment), ("metrics", metrics),
-            ("checkpoint", checkpoint), ("guard", guard),
+            ("experiment", experiment), ("metrics", metrics), ("checkpoint", checkpoint),
         ):
             if val is not None:
                 raise not_ported(f"GridEngine({hook}=...)")
@@ -237,7 +238,7 @@ class GridEngine:
             k: v
             for k, v in (
                 ("solver", solver), ("ranking", ranking), ("top_m", top_m),
-                ("block_k", block_k), ("traj", traj),
+                ("block_k", block_k), ("traj", traj), ("guard", guard),
             )
             if v is not None
         }

@@ -35,6 +35,7 @@ from repro_torch.core.channel import pathloss_schedule, pathloss_to_gain  # noqa
 from repro_torch.core.ocean import init_state, ocean_round  # noqa: E402
 from repro_torch.core.patterns import eta_schedule  # noqa: E402
 from repro_torch.core.policy import PolicyParams  # noqa: E402
+from repro_torch.guard import GuardSpec  # noqa: E402
 from repro_torch.sim import GridEngine, run_grid  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -71,10 +72,17 @@ def test_grid_checks_compatibility_and_unported_hooks():
     a = Scenario(name="a", num_clients=K, num_rounds=T)
     with pytest.raises(ValueError, match="grid-incompatible"):
         GridEngine([a, Scenario(name="b", num_clients=K, num_rounds=T + 1)], ["ocean"], device="cpu")
-    for kw in ({"metrics": object()}, {"guard": object()}, {"checkpoint": object()},
+    for kw in ({"metrics": object()}, {"checkpoint": object()},
                {"experiment": object()}, {"shard": True}):
         with pytest.raises(NotImplementedError):
             GridEngine([a], ["ocean"], device="cpu", **kw)
+    # the guard is ported: a GuardSpec runs, anything else is refused
+    with pytest.raises(TypeError, match="guard"):
+        GridEngine([a], ["ocean"], device="cpu", guard=object())
+    assert GridEngine([a], ["ocean"], device="cpu", guard=GuardSpec()).cfg.guard == GuardSpec()
+    with pytest.raises(ValueError, match="grid-incompatible"):
+        GridEngine([a, Scenario(name="b", num_clients=K, num_rounds=T, guard=GuardSpec())],
+                   ["ocean"], device="cpu")
     # the baselines and failure-aware variants are ported: they run
     for name in ("smo", "amo", "select_all", "ocean-over", "ocean-realloc"):
         assert GridEngine([a], [name], device="cpu").policies == (name,)
@@ -116,11 +124,11 @@ def test_scenario_round_trips_through_the_reference_payload():
      ("failure_mode", "reallocate"), ("no_such_field", 1)],
 )
 def test_scenario_refuses_fields_it_does_not_take(field, value):
-    """Fields not ported raise; ``env`` and ``failure_mode``, ported since,
-    load and give the payload back."""
+    """Fields not ported raise; ``env``, ``failure_mode`` and ``guard``,
+    ported since, load and give the payload back."""
     d = Scenario().to_dict()
     d[field] = value
-    if field in ("env", "failure_mode"):
+    if field in ("env", "failure_mode", "guard"):
         assert scenario_from_reference(d).to_dict() == JScenario.from_dict(d).to_dict()
         return
     with pytest.raises(NotImplementedError, match=field):
@@ -201,7 +209,8 @@ def test_entry_points_refuse_to_fall_back_to_the_cpu(monkeypatch):
 
 def test_unported_hooks_raise_not_implemented():
     """Hooks not ported raise; the radio and failure hooks, ported since, run
-    (a static radio and an all-ones mask give the plain round's bits)."""
+    (a static radio and an all-ones mask give the plain round's bits); the
+    guard, ported since, takes a GuardSpec and refuses anything else."""
     cfg = OceanConfig(num_clients=K, num_rounds=T, radio=RadioParams())
     h2 = torch.full((1, T, K), 2.5e-4)
     eta = eta_schedule("uniform", T)
@@ -209,9 +218,11 @@ def test_unported_hooks_raise_not_implemented():
                {"stream_bf16": True, "traj": "fused"}):
         with pytest.raises(NotImplementedError):
             simulate(cfg, h2, eta, 1e-5, device="cpu", **kw)
-    for kw in ({"metrics": object()}, {"guard": object()}, {"checkpoint": object()}):
+    for kw in ({"metrics": object()}, {"checkpoint": object()}):
         with pytest.raises(NotImplementedError):
             OceanConfig(num_clients=K, num_rounds=T, radio=RadioParams(), **kw)
+    with pytest.raises(TypeError, match="guard"):
+        OceanConfig(num_clients=K, num_rounds=T, radio=RadioParams(), guard=object())
     OceanConfig(num_clients=K, num_rounds=T, radio=RadioParams(), failure_mode="overprovision")
     st = init_state(cfg, device="cpu")
     _, plain = ocean_round(st, h2[:, 0], 1e-5, 1.0, cfg)

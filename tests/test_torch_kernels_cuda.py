@@ -404,7 +404,7 @@ def _replay_rounds(cfg, out, h2, v, eta, inc, radio=None, failure=None):
     import dataclasses
 
     from repro_torch.core.ocean import OceanState, ocean_round
-    from repro_torch.core.solvers import PALLAS_PLAIN
+    from repro_torch.core.solvers import get_solver
 
     C, T, K = h2.shape
     CT = C * T
@@ -417,8 +417,9 @@ def _replay_rounds(cfg, out, h2, v, eta, inc, radio=None, failure=None):
     if failure is not None:
         kw["delivered"] = failure.delivered.reshape(CT, K)
         kw["fail_rate"] = failure.rate[:, None, :].expand(C, T, K).reshape(CT, K)
+    plain = tt._plain_solver(get_solver(cfg.solver))
     _, dec = ocean_round(state, h2.reshape(CT, K), v.reshape(CT), eta.reshape(CT),
-                         dataclasses.replace(cfg, solver=PALLAS_PLAIN, traj="scan"),
+                         dataclasses.replace(cfg, solver=plain, traj="scan"),
                          budget_inc=inc.reshape(CT, K), **kw)
     assert torch.equal(dec.a, out.a.reshape(CT, K))
     torch.testing.assert_close(out.b.reshape(CT, K), dec.b, atol=B_ATOL, rtol=0)
@@ -429,6 +430,9 @@ def _replay_rounds(cfg, out, h2, v, eta, inc, radio=None, failure=None):
     if failure is not None:
         assert torch.equal(dec.delivered, out.dlv.reshape(CT, K))
         assert torch.equal(dec.realloc, out.ral.reshape(CT))
+    if cfg.guard is not None:
+        for f, g in (("fault_count", "fc"), ("demoted", "dm"), ("fallback", "fb")):
+            assert torch.equal(getattr(dec, f), getattr(out, g).reshape(CT)), f
 
 
 @pytest.mark.parametrize("T,K,C", [(40, 6, 8), (20, 33, 4)])
@@ -857,3 +861,165 @@ def test_ssm_forward_through_the_kernels(dev, arch, over, kernel, dtype, tol):
     rel = ((h.float() - h_plain.float()).norm() / h_plain.float().norm()).item()
     assert rel < tol, rel
     torch.testing.assert_close(aux, aux_plain, atol=tol, rtol=tol)
+
+
+# ---------------------------------------------------------------------------
+# K3's guarded and bisect instances
+# ---------------------------------------------------------------------------
+def _k3_faulty(dev, seed, C, T, K, scale_cells=1e-2):
+    """K3 inputs with quarantined faults (inf, zero, negative, NaN) and
+    subnormal gains injected per cell, and the first half of the cells'
+    gains scaled down so that the energy cap demotes clients."""
+    from repro_torch.guard import inject_h2_faults
+
+    cfg, h2, v, eta, inc = _k3_inputs(dev, seed, C, T, K)
+    rows, reps = [], []
+    for c in range(C):
+        x, rep = inject_h2_faults(h2[c].cpu(), seed + c, num_inf=2, num_zero=1, num_negative=1,
+                                  num_nan=1, num_subnormal=2)
+        rows.append(torch.tensor(x))
+        reps.append(rep)
+    h2 = torch.stack(rows).to(dev)
+    h2[: C // 2] *= scale_cells
+    return cfg, h2.contiguous(), v, eta, inc, reps
+
+
+def _assert_guard_counts(out, reps, T):
+    for c, rep in enumerate(reps):
+        fc = torch.tensor(rep.per_round_quarantined(T), dtype=torch.int32)
+        assert torch.equal(out.fc[c].cpu(), fc), c
+        a = out.a[c].cpu()
+        for kind in ("nan", "inf", "zero", "negative", "subnormal"):
+            for t, k in rep.positions[kind]:
+                assert not bool(a[t, k]), (c, kind, t, k)
+
+
+@pytest.mark.parametrize("mode", [None, "plain", "overprovision", "reallocate"])
+@pytest.mark.parametrize("radio_on", [False, True])
+def test_k3_guard_matches_plain(dev, mode, radio_on):
+    """HasGuard under each failure mode and the streamed radio: the counters
+    exact per round, the queues finite, every round replayed against the
+    plain guarded round."""
+    import dataclasses
+
+    from repro_torch.guard import GuardSpec
+
+    C, T, K = 8, 30, 10
+    cfg, h2, v, eta, inc, reps = _k3_faulty(dev, 11, C, T, K)
+    cfg = dataclasses.replace(cfg, guard=GuardSpec(energy_cap=1.0, gain_floor=1e-9),
+                              failure_mode=mode or "plain")
+    radio = _k3_radio(dev, 11, C, T, cfg) if radio_on else None
+    failure = None if mode is None else _k3_failure(dev, 11, C, T, K)
+    before = dict(tt.ocean_traj.instances)
+    out = tt.ocean_traj(cfg, h2, v, eta, inc, radio=radio, failure=failure)
+    plain = tt.ocean_traj_plain(cfg, h2, v, eta, inc, radio=radio, failure=failure)
+    torch.cuda.synchronize()
+    label = "+".join(n for n, on in (("radio", radio_on), ("guard", True),
+                                     ("failure", mode is not None)) if on)
+    label += f"/{mode}" if mode else ""
+    assert tt.ocean_traj.instances.get(label, 0) == before.get(label, 0) + 1
+    _assert_guard_counts(out, reps, T)
+    for f in ("fc", "dm", "fb"):
+        assert torch.equal(getattr(out, f), getattr(plain, f)), f
+    assert int(out.dm.sum()) > 0 and bool(torch.isfinite(out.q_final).all())
+    _assert_k3_close(out, plain, failure=failure is not None)
+    _replay_rounds(cfg, out, h2, v, eta, inc, radio=radio, failure=failure)
+
+
+@pytest.mark.parametrize("T,K,C", [(12, 6, 8), (12, 10, 8), (6, 33, 4), (2, 300, 2)])
+def test_k3_bisect_matches_plain(dev, T, K, C):
+    """The bisect instance against the plain version, whose sweep is
+    ``_prefix_bisect``: whole trajectories and every round replayed."""
+    import dataclasses
+
+    cfg, h2, v, eta, inc = _k3_inputs(dev, 13, C, T, K)
+    cfg = dataclasses.replace(cfg, solver="bisect")
+    before = tt.ocean_traj.instances.get("bisect", 0)
+    out = tt.ocean_traj(cfg, h2, v, eta, inc)
+    plain = tt.ocean_traj_plain(cfg, h2, v, eta, inc)
+    torch.cuda.synchronize()
+    assert tt.ocean_traj.instances["bisect"] == before + 1
+    assert out.fc is None
+    _assert_k3_close(out, plain)
+    _replay_rounds(cfg, out, h2, v, eta, inc)
+
+
+@pytest.mark.parametrize("solver", ["pallas", "bisect"])
+def test_k3_never_firing_guard_equals_unguarded_bitwise(dev, solver):
+    import dataclasses
+
+    from repro_torch.guard import GuardSpec
+
+    cfg, h2, v, eta, inc = _k3_inputs(dev, 14, 8, 30, 10)
+    cfg = dataclasses.replace(cfg, solver=solver)
+    ref = tt.ocean_traj(cfg, h2, v, eta, inc)
+    out = tt.ocean_traj(dataclasses.replace(cfg, guard=GuardSpec(energy_cap=1e6)), h2, v, eta, inc)
+    torch.cuda.synchronize()
+    for f in ("a", "b", "e", "q_pre", "rho", "obj", "nsel", "q_final", "es_final"):
+        assert torch.equal(getattr(ref, f), getattr(out, f)), f
+    assert not bool(out.fc.any() or out.dm.any() or out.fb.any())
+
+
+def test_k3_chaos_and_fallback_equal_the_bisect_instance_bitwise(dev):
+    """objective chaos on base pallas and bisect: the fallback fires every
+    round and commits the guarded bisect run's bits; budget chaos fires on
+    exactly the rounds with m* > 0; objective chaos without a guard (the
+    guarded instance with every defence off) keeps the base's decisions."""
+    import dataclasses
+
+    from repro_torch.guard import GuardSpec, register_chaos_solver
+
+    C, T, K = 8, 30, 10
+    cfg, h2, v, eta, inc = _k3_inputs(dev, 15, C, T, K)
+    g = dataclasses.replace(cfg, guard=GuardSpec())
+    ref = tt.ocean_traj(dataclasses.replace(g, solver="bisect"), h2, v, eta, inc)
+    for base in ("pallas", "bisect"):
+        chaos = register_chaos_solver(base, kind="objective").name
+        out = tt.ocean_traj(dataclasses.replace(g, solver=chaos), h2, v, eta, inc)
+        assert bool((out.fb == 1).all()), base
+        for f in ("a", "b", "e", "q_pre", "nsel", "q_final"):
+            assert torch.equal(getattr(ref, f), getattr(out, f)), (base, f)
+    budget = dataclasses.replace(g, solver=register_chaos_solver("bisect", kind="budget",
+                                                                 scale=1.5).name)
+    out = tt.ocean_traj(budget, h2, v, eta, inc)
+    m_pos = (ref.a & (ref.rho > 1e-30)).any(-1).int()
+    assert torch.equal(out.fb, m_pos) and bool(m_pos.any()) and not bool(m_pos.all())
+    for f in ("a", "b", "e", "q_pre", "q_final"):
+        assert torch.equal(getattr(ref, f), getattr(out, f)), f
+    assert torch.equal(tt.ocean_traj_plain(budget, h2[:, :6], v[:, :6], eta[:, :6],
+                                           inc[:, :6]).fb, out.fb[:, :6])
+    unguarded = register_chaos_solver("pallas", kind="objective").name
+    base_run = tt.ocean_traj(cfg, h2, v, eta, inc)
+    out = tt.ocean_traj(dataclasses.replace(cfg, solver=unguarded), h2, v, eta, inc)
+    torch.cuda.synchronize()
+    assert out.fc is None and bool(torch.isinf(out.obj).all())
+    for f in ("a", "b", "e", "q_pre", "q_final"):
+        assert torch.equal(getattr(base_run, f), getattr(out, f)), f
+
+
+def test_k3_subnormal_gain_is_demoted_not_quarantined(dev):
+    """K3 is built without flush-to-zero: a subnormal gain is a legal
+    positive float that the quarantine passes and the cap demotes."""
+    import dataclasses
+
+    from repro_torch.guard import GuardSpec, inject_h2_faults
+
+    C, T, K = 4, 20, 6
+    cfg, h2, v, eta, inc = _k3_inputs(dev, 16, C, T, K)
+    rows, reps = [], []
+    for c in range(C):
+        x, rep = inject_h2_faults(h2[c].cpu(), 40 + c, num_subnormal=3)
+        rows.append(torch.tensor(x))
+        reps.append(rep)
+    h2 = torch.stack(rows).to(dev).contiguous()
+    cfg = dataclasses.replace(cfg, guard=GuardSpec(energy_cap=1.0))
+    out = tt.ocean_traj(cfg, h2, v, eta, inc)
+    plain = tt.ocean_traj_plain(cfg, h2, v, eta, inc)
+    torch.cuda.synchronize()
+    assert not bool(out.fc.any()) and int(out.dm.sum()) >= 3 * C
+    assert torch.equal(out.dm, plain.dm)
+    for c, rep in enumerate(reps):
+        for t, k in rep.positions["subnormal"]:
+            assert not bool(out.a[c, t, k])
+            assert float(out.rho[c, t, k]) == float(torch.tensor(1e30, dtype=torch.float32))
+    assert float(out.e.max()) <= 0.15 * (1 + 1e-6)

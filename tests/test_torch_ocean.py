@@ -163,7 +163,7 @@ def test_schedules_match_reference():
 
 
 def test_fused_scope_and_config_validation():
-    cfg = TConfig(num_clients=K, num_rounds=T, radio=TRadio(), solver="bisect")
+    cfg = TConfig(num_clients=K, num_rounds=T, radio=TRadio(), solver="newton")
     with pytest.raises(NotImplementedError, match="fused"):
         simulate(cfg, torch.tensor(_h2()), eta_schedule("uniform", T), V, traj="fused", device="cpu")
     with pytest.raises(ValueError, match="frame_len"):
