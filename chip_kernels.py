@@ -15,8 +15,10 @@ cells x 300 rounds x K = 10 on seeded gains, and 192 cells x 40 rounds x
 K = 100; K3's streamed-radio instance and its failure instance under each
 failure mode at the §VI shape, on seeded radio and delivery streams, and
 its guarded instance (a cap that never fires), its bisect instance and a
-chaos backend's instance (the fallback every round) at the §VI shape (each
-where the checkout has it); K5: the long cache; K6: one 4096-channel block of jamba's mixer
+chaos backend's instance (the fallback every round) at the §VI shape, and
+its HasMetrics instance with the telemetry overhead spec of
+benchmarks/traj_bench.py:304 there (each where the checkout has it; that
+reading also carries the digest of its decision outputs alone); K5: the long cache; K6: one 4096-channel block of jamba's mixer
 over 8192 steps; K7: the rwkv6 prefill layer, 8 x 8192 x 32 heads of 64,
 and at B = 4, 128 (b, h) chains, fewer than the card's 132 SMs) and is
 timed two ways: ``ms``, back-to-back wrapper calls between two CUDA events
@@ -78,12 +80,16 @@ def main() -> int:
         for t in outs:
             if t is None:  # an output the instance does not write
                 continue
+            if isinstance(t, dict):  # a HasMetrics launch's telemetry, by key
+                t = torch.cat([t[k].reshape(-1) for k in sorted(t)])
             h.update(t.detach().contiguous().cpu().view(torch.uint8).numpy().tobytes())
         dev_ms, by_kernel, seen = cs.device_ms(torch, fn, reps)
         rec[name] = dict(ms=cs.gpu_ms(torch, fn, reps), device_ms=dev_ms,
                          device_ms_by_kernel=by_kernel, device_records_seen=seen,
                          digest=h.hexdigest()[:16],
                          clocks_sm_mem_power_temp=cs.clocks())
+        if getattr(out, "metrics", None) is not None:
+            rec[name]["decision_digest"] = cs.k3_digest(torch, out)
 
     for K in (10, 100):
         scal, rho, _ = cs._k1_inputs(torch, np, dev, 192, K, seed=K)
@@ -110,6 +116,13 @@ def main() -> int:
     eta = eta_schedule("uniform", T, device=dev).expand(cells, T).contiguous()
     vv = torch.full((cells, T), 1e-5, device=dev)
     timed("k3", lambda: ocean_traj(cfg, h2c, vv, eta, inc), 5)
+    try:
+        from repro_torch.obs import MetricsSpec
+    except ImportError:  # a checkout without the telemetry
+        MetricsSpec = None
+    if MetricsSpec is not None:
+        cfg_m = dataclasses.replace(cfg, metrics=MetricsSpec.of(*cs.OVERHEAD_SPEC))
+        timed("k3_metrics", lambda: ocean_traj(cfg_m, h2c, vv, eta, inc), 5)
     try:
         from repro_torch.env.failure import TracedFailure
         from repro_torch.env.radio import traced_radio

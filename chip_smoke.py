@@ -37,6 +37,14 @@ cut to its first 5 layers (24.05e9 parameters) through
 4096-channel block, K4 on the attention layer, every call held to its
 plain version, the kernel path to the plain path) and the serve loop.
 
+Then the telemetry (``repro_torch.obs``): the §VI grid with a spec of
+every collector and reduction through K3's HasMetrics instances (its
+decisions bit for bit those of the metrics-off grid, its telemetry held to
+the replay of the kernel's own rows), the same spec on the scan path, one
+HasMetrics launch of each radio, failure, guard, bisect and chaos instance,
+K = 2048 with the region in shared and in global memory, and a planted
+fault that must fail.
+
 Each phase prints one JSON line; any failed check raises and the script
 exits non-zero.  The last lines are the card's name and power limit, the
 ``kernels`` record (time on the card, plain version's time, bound, launches
@@ -53,6 +61,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import ctypes
 import dataclasses
 import json
 import math
@@ -938,7 +947,8 @@ def phase_reliability(torch, np, dev, smi, T=300, K=10, seeds=64):
     """The reliability grid (a clean cell and six failure cells, the paper's
     §VI settings) through K3's failure instances, one launch per OCEAN
     variant, with SMO and AMO beside them; every OCEAN variant's rounds
-    replayed against the plain round."""
+    replayed against the plain round.  Returns the phase's record and K3's
+    arguments on the grid's cells by failure mode."""
     from repro_torch.core.patterns import eta_schedule
     from repro_torch.core.scenario import Scenario
     from repro_torch.env import EnvSpec
@@ -978,10 +988,10 @@ def phase_reliability(torch, np, dev, smi, T=300, K=10, seeds=64):
     _, fail = _cells(res, C, T, failure=res.failure_seq)
     rho = res.q[:3].reshape(3, C, T, K) / torch.clamp(res.h2.reshape(C, T, K), min=1e-30)
     n0 = (rho <= 1e-30).sum(-1)
-    variants, errs = {}, []
+    variants, errs, k3_args = {}, [], {}
     for p_idx, pol in enumerate(pols[:3]):
         cfg = dataclasses.replace(engine.cfg, failure_mode=OCEAN_FAILURE_MODES[pol])
-        args = _k3_args(torch, cfg, res, failure=fail)
+        args = k3_args[cfg.failure_mode] = _k3_args(torch, cfg, res, failure=fail)
         r = teacher_forced(torch, dev, cfg, res, p_idx, eta, V_PAPER, failure=res.failure_seq,
                            obj=_k3_replayed_obj(torch, res, p_idx, args))
         r.pop("near")
@@ -1011,14 +1021,15 @@ def phase_reliability(torch, np, dev, smi, T=300, K=10, seeds=64):
                delivered_utility={p: res.delivered[i].float().sum((-1, -2)).mean().item()
                                   for i, p in enumerate(pols)})
     emit({"phase": "reliability", **out})
-    return out
+    return out, k3_args
 
 
 def phase_radio_grid(torch, np, dev, smi, T=300, K=10, seeds=64):
     """The radio grid (nine static (B, tau) cells and a spectrum-sharing
     cell) through K3's streamed-radio instance, with SMO and AMO beside it;
     every round replayed against the plain round, and each static cell
-    held bit for bit to the same cell run as a scalar-radio grid."""
+    held bit for bit to the same cell run as a scalar-radio grid.  Returns
+    the phase's record and K3's arguments on the grid's cells."""
     from repro_torch.core.energy import RadioParams
     from repro_torch.core.patterns import eta_schedule
     from repro_torch.core.scenario import Scenario
@@ -1066,7 +1077,7 @@ def phase_radio_grid(torch, np, dev, smi, T=300, K=10, seeds=64):
                               for i, p in enumerate(pols) for s, sc in enumerate(scen)
                               if s in (0, 4, 8, 9)})
     emit({"phase": "radio_grid", **out})
-    return out
+    return out, args
 
 
 def phase_baselines(torch, np, dev, smi, T=300, K=10, seeds=64, num_iters=400):
@@ -1414,6 +1425,399 @@ def phase_robustness(torch, np, dev, smi, T=300, K=10, seeds=64, t_fault=12):
                replays=replays, k3=readings, parts_s=parts,
                max_abs_err_b=max(r["max_abs_err_b"] for r in replays.values()))
     emit({"phase": "robustness", **out})
+    return out
+
+
+# ---------------------------------------------------------------------------
+# telemetry: repro_torch.obs and K3's HasMetrics instances
+# ---------------------------------------------------------------------------
+# The in-kernel telemetry overhead spec of benchmarks/traj_bench.py:304
+# (chip_kernels.py's reading); the telemetry phase's spec names every
+# collector with every reduction, covering it and the diagnosis spec of
+# examples/diagnose_fig10_13.py:50.
+OVERHEAD_SPEC = ("queue:last", "lyapunov:mean", "num_selected:full_trace",
+                 "energy_headroom:last", "queue:histogram", "solver_residual:mean")
+# The first hex digits of K3's output digest on chip_kernels.py's §VI inputs,
+# which the telemetry must leave as they are.
+K3_VI_DIGEST = "c27a0410"
+# Integer-valued collectors (and ratios of integers): exact wherever two
+# runs' decisions agree.
+EXACT_COLLECTORS = frozenset((
+    "num_selected", "selection_count", "selection_gap", "delivery_rate", "reallocation_count",
+    "fault_count", "demoted_clients", "fallback_rounds", "topm_saturated"))
+
+
+def telemetry_spec(hist_bins=32, names=None, reductions=None):
+    """Every collector (or ``names``) with every reduction (or ``reductions``)."""
+    from repro_torch.obs import REDUCTIONS, MetricsSpec, available_collectors
+
+    return MetricsSpec(collect=tuple(
+        (n, r) for n in (available_collectors() if names is None else names)
+        for r in (REDUCTIONS if reductions is None else reductions)), hist_bins=hist_bins)
+
+
+def k3_digest(torch, out):
+    """chip_kernels.py's digest of a K3 launch's decision outputs (the
+    first 16 hex digits of the SHA-256 of a, b, e, q_pre, rho, obj, nsel,
+    q_final and es_final)."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in out[:9]:
+        h.update(t.detach().contiguous().cpu().view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def metrics_bound(torch, rho, spec, cfg, **k3_kw):
+    """The HasMetrics instance's bound: K3's (``k3_bound``) plus, per
+    cell-round, the collectors' arithmetic (the seven block-summed terms
+    and three state rows a client, four operations a client per
+    per-client entry, eight per scalar entry) and the bytes of the
+    telemetry outputs, each written once."""
+    from repro_torch.kernels.ocean_traj import _metrics_descriptor
+
+    C, T, K = rho.shape
+    ml = _metrics_descriptor(cfg, C, rho.device)
+    _, _, ops, n_bytes = k3_bound(torch, rho, **k3_kw)
+    n_client = ml.layout[1]
+    n_scalar = len(spec.collect) - n_client
+    ops += C * T * (K * (24 + 4 * n_client) + 8 * n_scalar)
+    n_bytes += sum(t.numel() * 4 for t in ml.out.values())
+    return (*bound_ms(n_bytes, ops), ops, n_bytes)
+
+
+def _metrics_launch(torch, args, spec, what):
+    """K3's HasMetrics instance on ``args`` (``_k3_args``'s tuple) beside its
+    metrics-off launch: decisions bit for bit equal, the telemetry held to
+    the replay of its rows (``check_metrics_replay``).  Returns the launch,
+    its comparison record and the replay's wall ms."""
+    from repro_torch.kernels.ocean_traj import check_metrics_replay, ocean_traj
+
+    cfg, h2, v, eta, inc, radio, failure = args
+    off = ocean_traj(*args)
+    cfg_m = dataclasses.replace(cfg, metrics=spec)
+    before = dict(ocean_traj.instances)
+    on = ocean_traj(cfg_m, h2, v, eta, inc, radio, failure)
+    label = [k for k, n in ocean_traj.instances.items() if n != before.get(k, 0)]
+    check(len(label) == 1 and "metrics" in label[0],
+          f"telemetry {what}: the HasMetrics launch launched {label}")
+    for f in ("a", "b", "e", "q_pre", "rho", "obj", "nsel", "q_final", "es_final", "dlv", "ral",
+              "fc", "dm", "fb"):
+        x, y = getattr(off, f), getattr(on, f)
+        check((x is None and y is None) or torch.equal(x, y),
+              f"telemetry {what}: metrics-on {f} differs from metrics-off")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    errs = check_metrics_replay(cfg_m, on.metrics, on, v, eta, inc, radio)
+    torch.cuda.synchronize()
+    replay_ms = 1e3 * (time.perf_counter() - t0)
+    return on, dict(max_abs_err=max(errs.values()), entries=len(errs),
+                    instance=label[0] if label else None, launches=len(label)), replay_ms
+
+
+def _metrics_instance(torch, args, spec, what, plain_rounds=10, **bound_kw):
+    """One HasMetrics instance checked (``_metrics_launch``) and read: its
+    ms, its bound, and the plain version's ms over the first rounds
+    (``ocean_traj_plain`` with the telemetry)."""
+    from repro_torch.kernels.ocean_traj import ocean_traj, ocean_traj_plain
+
+    cfg, h2, v, eta, inc, radio, failure = args
+    on, rec, replay_ms = _metrics_launch(torch, args, spec, what)
+    cfg_m = dataclasses.replace(cfg, metrics=spec)
+    margs = (cfg_m, h2, v, eta, inc, radio, failure)
+    n = plain_rounds
+    cfg_head = dataclasses.replace(cfg_m, num_rounds=n)
+    head = (cfg_head, h2[:, :n], v[:, :n], eta[:, :n], inc[:, :n],
+            None if radio is None else radio.map(lambda x: x[:, :n]),
+            None if failure is None else failure._replace(delivered=failure.delivered[:, :n]))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ocean_traj_plain(*head)
+    torch.cuda.synchronize()
+    plain_ms = 1e3 * (time.perf_counter() - t0)
+    if bound_kw.pop("fallback", False):  # the bisect fallback on the rounds it fired
+        bound_kw["fallback"] = on.fb
+    bms, by, ops, n_bytes = metrics_bound(torch, on.rho, spec, cfg_m,
+                                          radio=radio is not None, failure=failure is not None,
+                                          **bound_kw)
+    return on, dict(rec, ms=gpu_ms(torch, lambda: ocean_traj(*margs), 3), plain_ms=plain_ms,
+                    plain_rounds=n, replay_ms=replay_ms, bound_ms=bms, bound_by=by, ops=ops,
+                    bytes=n_bytes)
+
+
+def _grid_rate(torch, dev, scen, pols, sd, **kw):
+    """Wall seconds of one ``run_grid`` call, ending in a synchronize."""
+    from repro_torch.sim import run_grid
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = run_grid(scen, pols, sd, solver="pallas", device=dev, **kw)
+    torch.cuda.synchronize()
+    return res, time.perf_counter() - t0
+
+
+def phase_telemetry(torch, np, dev, smi, rel_args, radio_args, T=300, K=10, seeds=64):
+    """The telemetry layer (``repro_torch.obs``) through K3's HasMetrics
+    instances, with a spec that names every collector with every reduction.
+
+    1. The §VI grid at full size on ``traj="fused"``, metrics off and on
+       (four turns each after warm-ups; the counts reset just before the
+       first metrics-on run and read just after): the decisions equal the
+       metrics-off grid's bit for bit; K3's launch on the grid's cells gives
+       the grid's bits and telemetry, which holds to the replay of its rows;
+       on chip_kernels.py's §VI inputs the HasMetrics launch keeps K3's
+       digest.
+    2. The same spec on ``traj="scan"`` (K1): in every cell whose
+       decisions agree with the fused grid, the scan telemetry equals the
+       replay of the fused rows exactly where the rows agree bit for bit,
+       and within the parity rule (rtol 2e-4, atol 1e-6 x the collector's
+       histogram span; integer-valued collectors exact) elsewhere.  The scan
+       grid's rate with the named spans on and off, five turns each, and
+       the spans' share of its wall: the ranges one grid opens times one
+       range's host cost (on less off) over the median wall.
+    3. One HasMetrics launch of each other instance on the existing phases'
+       inputs: the radio grid's cells, the reliability grid's cells under
+       each failure mode, and the §VI inputs with injected faults guarded
+       (energy cap 1) on pallas and bisect and under objective chaos (the
+       fallback every round); each held to its replay.
+    4. K = 2048 (phase_k3_large's case) with every per-client collector in
+       mean and histogram: the region in shared memory beside K3's rows
+       (fewer teams), and with 16,384 bins in the global scratch.
+    5. A planted fault (the queue histogram's edges moved by one bin in the
+       launch descriptor) must fail the replay check."""
+    from repro_torch.core.patterns import eta_schedule
+    from repro_torch.guard import GuardSpec, inject_h2_faults, register_chaos_solver
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.ocean_traj import (
+        _metrics_descriptor,
+        check_metrics_replay,
+        metrics_replay,
+        ocean_traj,
+    )
+    from repro_torch.obs import get_collector, metric_key
+    from repro_torch.obs.spans import set_trace_spans
+    from repro_torch.sim import GridEngine
+
+    spec = telemetry_spec()
+    scen, pols, sd = _grid_args(T, K, seeds)
+    P, S, N = len(pols), len(scen), seeds
+    C = S * N
+    rounds_cells = P * C * T
+    parts, t_part = {}, [time.perf_counter()]
+
+    def part(name):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        parts[name] = now - t_part[0]
+        t_part[0] = now
+
+    # 1. the §VI grid, metrics off and on in turns (four each)
+    _grid_rate(torch, dev, scen, pols, sd, traj="fused")
+    _grid_rate(torch, dev, scen, pols, sd, traj="fused", metrics=spec)
+    walls = {"off": [], "on": []}
+    for i, m in enumerate((None, spec) * 4):
+        if i == 1:
+            _reset_counts()
+        res, w = _grid_rate(torch, dev, scen, pols, sd, traj="fused", metrics=m)
+        walls["off" if m is None else "on"].append(w)
+        if i == 0:
+            res_off = res
+        elif i == 1:
+            res_on, launches = res, _counts()
+    del res
+    check(launches["ocean_traj"] == P and launches["ocean_traj_instances"] == {"metrics": P},
+          f"telemetry: the metrics grid launched {launches}")
+    for f in ("a", "b", "e", "q", "num_selected", "energy_spent"):
+        check(torch.equal(getattr(res_on, f), getattr(res_off, f)),
+              f"telemetry: the metrics grid's {f} differs from the metrics-off grid's")
+    check(res_off.metrics is None and len(res_on.metrics) == P
+          and all(set(m) == {metric_key(n, r) for n, r in spec.collect} for m in res_on.metrics),
+          "telemetry: GridResult.metrics")
+    part("grid")
+
+    cfg = GridEngine(scen, pols, solver="pallas", traj="fused", device=dev).cfg
+    cfg_m = dataclasses.replace(cfg, metrics=spec)
+    h2v, vv, etav, incv = _vi_k3_args(torch, np, dev, cfg)
+    d_off = k3_digest(torch, ocean_traj(cfg, h2v, vv, etav, incv))
+    d_on = k3_digest(torch, ocean_traj(cfg_m, h2v, vv, etav, incv))
+    check(d_off == d_on and d_on.startswith(K3_VI_DIGEST),
+          f"telemetry: K3 digests {d_off} (off) / {d_on} (on), expected {K3_VI_DIGEST}...")
+
+    grid_errs, fused_rows, wants = {}, {}, {}
+    h2c = res_on.h2.reshape(C, T, K).contiguous()
+    inc = res_on.budget_inc.reshape(C, T, K).contiguous()
+    vc = torch.full((C, T), V_PAPER, device=dev)
+    for p_idx, pol in enumerate(pols):
+        eta = eta_schedule({"ocean-u": "uniform", "ocean-a": "ascend"}[pol], T,
+                           device=dev).expand(C, T).contiguous()
+        o = ocean_traj(cfg_m, h2c, vc, eta, inc)
+        for f, g in (("a", "a"), ("b", "b"), ("q_pre", "q")):
+            check(torch.equal(getattr(o, f), getattr(res_on, g)[p_idx].reshape(C, T, K)),
+                  f"telemetry: K3 on the grid's cells differs from the grid ({f})")
+        for key, val in res_on.metrics[p_idx].items():
+            check(torch.equal(o.metrics[key], val.reshape(o.metrics[key].shape)),
+                  f"telemetry: K3 on the grid's cells gives other telemetry ({key})")
+        wants[pol] = metrics_replay(cfg_m, o, vc, eta, inc)
+        errs = check_metrics_replay(cfg_m, o.metrics, o, vc, eta, inc, want=wants[pol])
+        grid_errs[pol] = max(errs.values())
+        fused_rows[pol] = o
+    part("grid_replay")
+
+    # 2. the scan grid (K1) with the same spec, and its spans' cost
+    res_scan, w_scan = _grid_rate(torch, dev, scen, pols, sd, traj="scan", metrics=spec)
+    lo_hi = {n: get_collector(n).hist_range(cfg) for n in spec.names}
+    scan_rec = {}
+    for p_idx, pol in enumerate(pols):
+        o = fused_rows[pol]
+        same = ((res_scan.a[p_idx].reshape(C, T, K) == o.a).flatten(1).all(1)
+                & (res_scan.num_selected[p_idx].reshape(C, T) == o.nsel).all(1))
+        bits = same.clone()
+        for f, g in (("b", "b"), ("e", "e"), ("q", "q_pre")):
+            bits &= (getattr(res_scan, f)[p_idx].reshape(C, T, K) == getattr(o, g)).flatten(1).all(1)
+        loose = same & ~bits
+        for key, want in wants[pol].items():
+            got = res_scan.metrics[p_idx][key].reshape(want.shape)
+            name = key.split("/")[0]
+            check(torch.equal(got[bits], want[bits]),
+                  f"telemetry: scan {key} differs from the fused rows' replay in bit-equal cells")
+            if not bool(loose.any()):
+                continue
+            if name in EXACT_COLLECTORS and not key.endswith("/mean"):
+                check(torch.equal(got[loose], want[loose]), f"telemetry: scan {key} not exact")
+            elif key.endswith("/histogram"):
+                check(torch.equal(got[loose].sum(-1), want[loose].sum(-1)),
+                      f"telemetry: scan {key} counts")
+            else:
+                lo, hi = lo_hi[name]
+                check(torch.allclose(got[loose], want[loose], rtol=W_RTOL, atol=1e-6 * (hi - lo)),
+                      f"telemetry: scan {key} beyond the parity rule")
+        scan_rec[pol] = dict(cells_same_decisions=int(same.sum()), cells_bit_equal_rows=int(bits.sum()),
+                             cells_parity_rule=int(loose.sum()))
+    part("scan_grid")
+
+    # the named spans' cost on the scan grid: the ranges one grid opens, one
+    # range's host cost on and off, and the grid's wall in turns
+    from repro_torch.obs import spans as obs_spans
+
+    opened, enter = [0], obs_spans._Span.__enter__
+
+    def counting(self):
+        opened[0] += 1
+        return enter(self)
+
+    obs_spans._Span.__enter__ = counting
+    try:
+        _grid_rate(torch, dev, scen, pols, sd, traj="scan")
+    finally:
+        obs_spans._Span.__enter__ = enter
+    span_s, span_walls = {}, {"on": [], "off": []}
+    for on in (True, False, True, False, True, False, True, False, True, False):
+        prev = set_trace_spans(on)
+        try:
+            if on not in span_s:
+                t0 = time.perf_counter()
+                for _ in range(20000):
+                    with obs_spans.trace_span("ocean/rank"):
+                        pass
+                span_s[on] = (time.perf_counter() - t0) / 20000
+            span_walls["on" if on else "off"].append(
+                _grid_rate(torch, dev, scen, pols, sd, traj="scan")[1])
+        finally:
+            set_trace_spans(prev)
+    wall_off = sorted(span_walls["off"])[len(span_walls["off"]) // 2]
+    spans_share = opened[0] * (span_s[True] - span_s[False]) / wall_off
+    part("scan_spans")
+
+    # 3. the other instances, one launch each
+    instances = {}
+    _, instances["radio"] = _metrics_instance(torch, radio_args, spec, "radio")
+    for mode, args in rel_args.items():
+        _, instances[f"failure/{mode}"] = _metrics_instance(torch, args, spec, f"failure/{mode}")
+    rows = []
+    for c in range(h2v.shape[0]):
+        x, _ = inject_h2_faults(h2v[c].cpu(), 900 + c, **INJECT)
+        rows.append(torch.tensor(x))
+    h2f = torch.stack(rows).to(dev).contiguous()
+    guard = GuardSpec(energy_cap=ENERGY_CAP)
+    chaos = register_chaos_solver("pallas", kind="objective").name
+    for name, cfg_i in (("guard", dataclasses.replace(cfg, guard=guard)),
+                        ("bisect+guard", dataclasses.replace(cfg, guard=guard, solver="bisect")),
+                        ("chaos+guard", dataclasses.replace(cfg, guard=guard, solver=chaos))):
+        on, instances[name] = _metrics_instance(
+            torch, (cfg_i, h2f, vv, etav, incv, None, None), spec, name, guard=True,
+            bisect=name.startswith("bisect"), fallback=name.startswith("chaos"))
+        check(bool(on.metrics["fault_count/last"].eq(on.fc.sum(1).float()).all())
+              and float(on.metrics["fault_count/last"].min()) > 0,
+              f"telemetry {name}: fault_count")
+        check(bool(on.metrics["demoted_clients/last"].eq(on.dm.sum(1).float()).all()),
+              f"telemetry {name}: demoted_clients")
+        check(bool(on.metrics["fallback_rounds/last"].eq(on.fb.sum(1).float()).all()),
+              f"telemetry {name}: fallback_rounds")
+    part("instances")
+
+    # 4. K = 2048, the richest per-client spec, in shared memory and global
+    lib = _build.load("ocean_traj_metrics")
+    large = {}
+    args = _k3_inputs(torch, np, dev, 2, 3, 2048, seed=2048)
+    names = ("queue", "queue_next", "energy_headroom", "selection_count", "selection_gap")
+    for bins in (32, 16384):
+        sp = telemetry_spec(hist_bins=bins, names=names,
+                            reductions=("mean", "histogram", "full_trace_ds"))
+        region = _metrics_descriptor(dataclasses.replace(args[0], metrics=sp), 2, dev).region
+        in_smem = ctypes.c_int(0)
+        warps = lib.ocean_traj_metrics_warps(2048, 0, 0, region, ctypes.byref(in_smem))
+        _, rec, _ = _metrics_launch(torch, (*args, None, None), sp, f"K=2048 bins={bins}")
+        large[bins] = dict(rec, region_floats=region, in_shared=bool(in_smem.value), warps=warps,
+                           warps_without_metrics=_build.load("ocean_traj").ocean_traj_warps(2048, 0))
+    check(large[32]["in_shared"] and not large[16384]["in_shared"],
+          f"telemetry: K=2048 regions {large}")
+    part("k2048")
+
+    # 5. a planted fault: one histogram's edges moved by a bin
+    o = ocean_traj(cfg_m, h2v, vv, etav, incv, hist_shift={"queue": 1})
+    try:
+        check_metrics_replay(cfg_m, o.metrics, o, vv, etav, incv)
+        caught = False
+    except AssertionError as exc:
+        caught = "queue/histogram" in str(exc)
+    check(caught, "telemetry: the planted fault (a shifted histogram edge) was not caught")
+
+    # the HasMetrics instance alone at the §VI shape: the main path's spec
+    args = (cfg_m, h2v, vv, etav, incv)
+    dev_ms, _, seen = device_ms(torch, lambda: ocean_traj(*args), 3)
+    ms = gpu_ms(torch, lambda: ocean_traj(*args), 5)
+    ms_off = gpu_ms(torch, lambda: ocean_traj(cfg, h2v, vv, etav, incv), 5)
+    n = 10
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    from repro_torch.kernels.ocean_traj import ocean_traj_plain
+
+    ocean_traj_plain(dataclasses.replace(cfg_m, num_rounds=n), h2v[:, :n], vv[:, :n],
+                     etav[:, :n], incv[:, :n])
+    torch.cuda.synchronize()
+    plain_ms = 1e3 * (time.perf_counter() - t0)
+    bms, by, ops, n_bytes = metrics_bound(torch, ocean_traj(cfg, h2v, vv, etav, incv).rho,
+                                          spec, cfg_m)
+    part("reading")
+    out = dict(
+        gpu=smi, grid=f"{P} policies x {S} scenarios x {N} seeds, T={T}, K={K}",
+        spec_entries=len(spec.collect), launches=launches,
+        rounds_cells_per_s_off=[rounds_cells / w for w in walls["off"]],
+        rounds_cells_per_s_on=[rounds_cells / w for w in walls["on"]],
+        digest=d_on, grid_max_abs_err=grid_errs, scan=scan_rec,
+        scan_rounds_cells_per_s_metrics=rounds_cells / w_scan,
+        scan_rounds_cells_per_s_spans_on=[rounds_cells / w for w in span_walls["on"]],
+        scan_rounds_cells_per_s_spans_off=[rounds_cells / w for w in span_walls["off"]],
+        scan_spans_per_grid=opened[0], span_host_us_on=1e6 * span_s[True],
+        span_host_us_off=1e6 * span_s[False], scan_spans_share_of_wall=spans_share,
+        instances=instances, large_K=large, planted_fault_caught=caught,
+        k3_ms=ms, k3_ms_metrics_off=ms_off, k3_device_ms=dev_ms, k3_device_records_seen=seen,
+        k3_plain_ms=plain_ms, k3_plain_rounds=n, bound_ms=bms, bound_by=by, ops=ops,
+        bytes=n_bytes, parts_s=parts,
+        max_abs_err=max([*grid_errs.values()] + [r["max_abs_err"] for r in instances.values()]
+                        + [r["max_abs_err"] for r in large.values()]),
+    )
+    emit({"phase": "telemetry", **out})
     return out
 
 
@@ -2366,10 +2770,12 @@ def main() -> int:
     topm = timed("k2_topm_path", phase_topm_path, torch, dev, smi)
     del res
     torch.cuda.empty_cache()
-    reliability = timed("reliability", phase_reliability, torch, np, dev, smi)
+    reliability, rel_args = timed("reliability", phase_reliability, torch, np, dev, smi)
     robustness = timed("robustness", phase_robustness, torch, np, dev, smi)
-    radio_grid = timed("radio_grid", phase_radio_grid, torch, np, dev, smi)
+    radio_grid, radio_args = timed("radio_grid", phase_radio_grid, torch, np, dev, smi)
     baselines = timed("baselines", phase_baselines, torch, np, dev, smi)
+    telemetry = timed("telemetry", phase_telemetry, torch, np, dev, smi, rel_args, radio_args)
+    del rel_args, radio_args
     torch.cuda.empty_cache()
     k4 = timed("k4_flash", phase_k4, torch, dev, smi)
     k5 = timed("k5_long_cache", phase_k5_long, torch, dev, smi)
@@ -2427,6 +2833,18 @@ def main() -> int:
                                **{k: robustness["k3"][name][k] for k in INSTANCE_KEYS})
                     for name in ("guard", "bisect", "chaos")},
              }),
+        dict(name="ocean_traj_metrics", route="cuda",
+             source="src/repro_torch/csrc/ocean_traj_metrics.cu",
+             replaces="src/repro/kernels/ocean_traj.py:96",
+             launches=telemetry["launches"]["ocean_traj_instances"]["metrics"],
+             max_abs_err=telemetry["max_abs_err"],
+             ms=telemetry["k3_ms"], device_ms=telemetry["k3_device_ms"],
+             plain_ms=telemetry["k3_plain_ms"], plain_rounds=telemetry["k3_plain_rounds"],
+             bound_ms=telemetry["bound_ms"], bound_by=telemetry["bound_by"], library_ms=None,
+             instances={name: {k: r[k] for k in ("instance", "launches", "max_abs_err", "ms",
+                                                 "plain_ms", "plain_rounds", "bound_ms",
+                                                 "bound_by")}
+                        for name, r in telemetry["instances"].items()}),
         dict(name="flash_attention", route="cuda", source="src/repro_torch/csrc/flash_attention.cu",
              replaces="src/repro/kernels/flash_attention.py:32",
              launches=prefill["k4_launches"],

@@ -16,10 +16,11 @@ rounds on (C, K) tensors) and ``fused`` (kernel K3,
 launch).  Both take per-round radio physics (a ``TracedRadio`` of (C, T)
 leaves, ``repro_torch.env.radio``) and per-client delivery failures (a
 ``TracedFailure``, ``repro_torch.env.failure``) with the failure-aware
-modes ``overprovision`` and ``reallocate``, and a ``GuardSpec``
-(``repro_torch.guard``: energy admission, solver fallback, quarantine).
-Hooks not ported yet — metrics, checkpointing and bf16 streaming — keep
-their arguments and raise ``NotImplementedError``.
+modes ``overprovision`` and ``reallocate``, a ``GuardSpec``
+(``repro_torch.guard``: energy admission, solver fallback, quarantine)
+and a ``MetricsSpec`` (``repro_torch.obs``: per-round telemetry).  Hooks
+not ported yet — checkpoint/resume (segment launches) and bf16 streaming
+— keep their arguments and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -41,6 +42,14 @@ from repro_torch.core.selection import (
 )
 from repro_torch.core.solvers import SolverBackend, get_solver
 from repro_torch.guard.spec import GuardSpec
+from repro_torch.obs.metrics import (
+    MetricsSpec,
+    finalize_metrics,
+    init_metrics,
+    metrics_round,
+    round_context,
+    stack_traces,
+)
 
 TRAJ_BACKENDS = ("scan", "fused")
 FAILURE_MODES = ("plain", "overprovision", "reallocate")
@@ -82,8 +91,10 @@ class OceanConfig:
     ``failure_mode`` acts only where a failure process is passed
     (``plain``, ``overprovision`` or ``reallocate``; see
     ``_failure_adjust``).  ``guard`` is a ``repro_torch.guard.GuardSpec``
-    or None (every round as unguarded).  ``metrics`` and ``checkpoint``
-    are hooks not ported yet: setting them raises ``NotImplementedError``.
+    or None (every round as unguarded).  ``metrics`` is a
+    ``repro_torch.obs.MetricsSpec`` or None (no telemetry; ``simulate``
+    then returns its 2-tuple).  ``checkpoint`` is a hook not ported yet:
+    setting it raises ``NotImplementedError``.
     """
 
     num_clients: int
@@ -97,7 +108,7 @@ class OceanConfig:
     block_k: int = DEFAULT_BLOCK_K
     traj: str = "scan"
     failure_mode: str = "plain"
-    metrics: Any = None
+    metrics: Optional[MetricsSpec] = None
     guard: Optional[GuardSpec] = None
     checkpoint: Any = None
 
@@ -125,9 +136,16 @@ class OceanConfig:
             raise TypeError(
                 f"guard must be a repro_torch.guard.GuardSpec or None; got {self.guard!r}"
             )
-        for hook in ("metrics", "checkpoint"):
-            if getattr(self, hook) is not None:
-                raise not_ported(f"OceanConfig.{hook}")
+        if self.metrics is not None:
+            if not isinstance(self.metrics, MetricsSpec):
+                raise TypeError(
+                    f"metrics must be a repro_torch.obs.MetricsSpec or None; "
+                    f"got {self.metrics!r}"
+                )
+            # the full-trace memory cap needs this config's (T, K)
+            self.metrics.validate(self.num_rounds, self.num_clients)
+        if self.checkpoint is not None:
+            raise not_ported("OceanConfig.checkpoint (checkpoint/resume)")
 
     @property
     def R(self) -> int:
@@ -453,7 +471,11 @@ def simulate(
     *,
     device=None,
 ):
-    """Run T rounds for every cell; returns the final state and decisions.
+    """Run T rounds for every cell; returns the final state and decisions,
+    and with ``cfg.metrics`` set a third element, the telemetry dict of
+    ``"<collector>/<reduction>"`` keys ((C, ...) tensors, full traces
+    (C, T, ...)).  ``cfg.metrics=None`` returns the 2-tuple, bit for bit as
+    without the hook.
 
     ``h2_seq`` (C, T, K); ``eta_seq`` (T,) or (C, T); ``v`` a scalar or a
     per-frame (M,) sequence; ``budgets`` (K,) or (C, K); ``budget_seq``
@@ -513,18 +535,30 @@ def simulate(
             cfg, h2_seq, v_seq, eta_seq, budget_seq, radio_seq, failure_seq
         )
 
+    spec = cfg.metrics
     state = init_state(cfg, C, device=dev)
-    decs = []
+    mstate = None if spec is None else init_metrics(spec, cfg, C, device=dev)
+    decs, traces = [], []
     for t in range(T):
-        state, dec = ocean_round(
+        radio_t = None if radio_seq is None else radio_seq.at(t)
+        new_state, dec = ocean_round(
             state, h2_seq[:, t], v_seq[:, t], eta_seq[:, t], cfg, budgets,
             budget_inc=budget_seq[:, t],
-            radio=None if radio_seq is None else radio_seq.at(t),
+            radio=radio_t,
             delivered=None if failure_seq is None else failure_seq.delivered[:, t],
             fail_rate=None if failure_seq is None else failure_seq.rate,
         )
+        if spec is not None:
+            # the collectors read the round's outputs and never change them
+            ctx = round_context(state.t, dec, new_state, v_seq[:, t], eta_seq[:, t],
+                                budget_seq[:, t], cfg.radio if radio_t is None else radio_t)
+            mstate, tr = metrics_round(spec, cfg, ctx, mstate)
+            traces.append(tr)
+        state = new_state
         decs.append(dec)
-    return state, stack_decisions(decs)
+    if spec is None:
+        return state, stack_decisions(decs)
+    return state, stack_decisions(decs), finalize_metrics(spec, cfg, mstate, stack_traces(traces))
 
 
 def stack_decisions(decs) -> RoundDecision:

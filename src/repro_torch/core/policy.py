@@ -162,14 +162,20 @@ def run_policy(
 
 
 def _ocean_fn(cfg: OceanConfig, h2_seq, params: PolicyParams, *, device=None):
-    _, decs = simulate(
+    out = simulate(
         cfg, h2_seq, params.eta, params.v,
         budgets=params.budgets, budget_seq=params.budget_seq,
         radio_seq=params.radio_seq, failure_seq=params.failure_seq, device=device,
     )
+    # simulate's arity follows cfg.metrics: the telemetry dict comes third
+    # exactly when a MetricsSpec is set
+    if cfg.metrics is not None:
+        _, decs, metrics = out
+    else:
+        (_, decs), metrics = out, None
     return PolicyTrace(
         a=decs.a, b=decs.b, e=decs.e, num_selected=decs.num_selected,
-        delivered=decs.delivered, q=decs.q,
+        metrics=metrics, delivered=decs.delivered, q=decs.q,
     )
 
 

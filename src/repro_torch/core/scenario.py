@@ -3,12 +3,13 @@
 A scenario is the channel (a path-loss drift with optional i.i.d.
 Rayleigh fading, or any registered process through ``env``), radio
 physics, budgets, the eta schedule, (T, K), the frame length, the
-failure mode, the guard and the solver / ranking / trajectory knobs.
+failure mode, the guard, the telemetry spec and the solver / ranking /
+trajectory knobs.
 ``env`` (an ``EnvSpec``) picks the channel, budget, radio and failure
 processes of ``repro_torch.env``; without it the legacy fields lower to
 ``iid_rayleigh`` / ``static`` / ``static`` / ``none``.  A dict that sets
-a field not ported yet (``metrics``, ``checkpoint``) raises
-``NotImplementedError`` naming it; it is never silently dropped.
+a field not ported yet (``checkpoint``) raises ``NotImplementedError``
+naming it; it is never silently dropped.
 """
 from __future__ import annotations
 
@@ -44,11 +45,11 @@ from repro_torch.env.spec import (
     radio_cell_key,
 )
 from repro_torch.guard.spec import GuardSpec
+from repro_torch.obs.metrics import MetricsSpec
 
 # Fields of the reference Scenario not ported yet, with the value that
 # means "off" (a payload may carry them only at that value).
 _UNPORTED_FIELDS = {
-    "metrics": None,
     "checkpoint": None,
 }
 
@@ -72,6 +73,7 @@ class Scenario:
     top_m: int = DEFAULT_TOP_M
     block_k: int = DEFAULT_BLOCK_K
     traj: str = "scan"
+    metrics: Optional[MetricsSpec] = None
     failure_mode: str = "plain"
     guard: Optional[GuardSpec] = None
 
@@ -99,6 +101,14 @@ class Scenario:
         eta_schedule(self.eta, 1)
         if self.env is not None:
             self.env.validate()
+        if self.metrics is not None:
+            if not isinstance(self.metrics, MetricsSpec):
+                raise TypeError(
+                    f"metrics must be a repro_torch.obs.MetricsSpec or None, got "
+                    f"{type(self.metrics).__name__}"
+                )
+            # the full-trace memory cap needs this scenario's (T, K)
+            self.metrics.validate(self.num_rounds, self.num_clients)
         if self.guard is not None and not isinstance(self.guard, GuardSpec):
             raise TypeError(
                 f"guard must be a repro_torch.guard.GuardSpec or None, got "
@@ -117,6 +127,7 @@ class Scenario:
             top_m=self.top_m,
             block_k=self.block_k,
             traj=self.traj,
+            metrics=self.metrics,
             failure_mode=self.failure_mode,
             guard=self.guard,
         )
@@ -232,6 +243,10 @@ class Scenario:
         ):
             if d[key] == default:
                 d.pop(key)
+        if self.metrics is None:
+            d.pop("metrics")
+        else:
+            d["metrics"] = self.metrics.to_dict()
         if self.guard is None:
             d.pop("guard")
         else:
@@ -261,6 +276,8 @@ class Scenario:
             d["energy_budget_j"] = tuple(d["energy_budget_j"])
         if isinstance(d.get("env"), dict):
             d["env"] = EnvSpec.from_dict(d["env"])
+        if isinstance(d.get("metrics"), dict):
+            d["metrics"] = MetricsSpec.from_dict(d["metrics"])
         if isinstance(d.get("guard"), dict):
             d["guard"] = GuardSpec.from_dict(d["guard"])
         return cls(**d)

@@ -19,6 +19,7 @@ import torch
 
 from repro_torch.core.energy import SAFE_DIV_FLOOR, RadioParams, f_shannon, lead
 from repro_torch.core.solvers import SolverBackend, get_solver
+from repro_torch.obs.spans import trace_span
 
 _RHO_ZERO_TOL = 1e-30
 
@@ -132,11 +133,13 @@ def ocean_p(
             f"ranking config field)"
         )
 
-    order, rho_sorted, n0, delta = prefix_inputs(rho, radio)
+    with trace_span("ocean/rank"):
+        order, rho_sorted, n0, delta = prefix_inputs(rho, radio)
     in_s0 = rho_sorted <= _RHO_ZERO_TOL
-    sol = backend.prefixes(
-        rho_sorted, n0, delta, v_eta, radio, outer_iters, inner_iters
-    )
+    with trace_span(f"ocean/p4_solve/{backend.name}"):
+        sol = backend.prefixes(
+            rho_sorted, n0, delta, v_eta, radio, outer_iters, inner_iters
+        )
     m_star = sol.m_star
     leftover = torch.where(m_star == 0, delta, torch.zeros_like(delta))
     b0_each = radio.b_min + leftover / torch.clamp(n0.to(dtype), min=1.0)
@@ -198,21 +201,24 @@ def _ocean_p_topm(
     delta = 1.0 - n0.to(dtype) * radio.b_min
 
     if backend.topm is not None:
-        m_star, w_star, b_pos, sel_pos = backend.topm(
-            rho, n0, delta, v_eta, radio, top_m=m_cands, block_k=block_k
-        )
+        with trace_span(f"ocean/p4_solve/{backend.name}"):
+            m_star, w_star, b_pos, sel_pos = backend.topm(
+                rho, n0, delta, v_eta, radio, top_m=m_cands, block_k=block_k
+            )
     else:
-        vals, idx = topm_extract(rho, m_cands)
-        # Extracted values land at their exact sorted offsets [n0, n0 + m).
-        buf = torch.full((C, K + m_cands), torch.inf, dtype=dtype, device=dev)
-        slots = n0[:, None] + torch.arange(m_cands, device=dev)[None, :]
-        buf.scatter_(1, slots, vals)
-        rho_rank = buf[:, :K].contiguous()
+        with trace_span("ocean/rank"):
+            vals, idx = topm_extract(rho, m_cands)
+            # Extracted values land at their exact sorted offsets [n0, n0 + m).
+            buf = torch.full((C, K + m_cands), torch.inf, dtype=dtype, device=dev)
+            slots = n0[:, None] + torch.arange(m_cands, device=dev)[None, :]
+            buf.scatter_(1, slots, vals)
+            rho_rank = buf[:, :K].contiguous()
         rho_hi = rho.amax(1)
-        sol = backend.prefixes(
-            rho_rank, n0, delta, v_eta, radio, outer_iters, inner_iters,
-            m_cands=m_cands, rho_hi=rho_hi,
-        )
+        with trace_span(f"ocean/p4_solve/{backend.name}"):
+            sol = backend.prefixes(
+                rho_rank, n0, delta, v_eta, radio, outer_iters, inner_iters,
+                m_cands=m_cands, rho_hi=rho_hi,
+            )
         m_star = sol.m_star
         w_star = sol.w_star
         bpad = torch.cat(

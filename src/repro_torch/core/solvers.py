@@ -34,6 +34,7 @@ from repro_torch.core.energy import (
     f_shannon_second,
     lead,
 )
+from repro_torch.obs.spans import trace_span
 
 DEFAULT_SOLVER = "bisect"
 
@@ -167,10 +168,11 @@ def _prefix_bisect(
     C, K = rho_sorted.shape
     ms, mask = _candidate_axis(n0, m_cands, K, rho_sorted.device)
     feasible = ms[None, :] <= (K - n0.long())[:, None]
-    b_all, cost = solve_p4(
-        rho_sorted[:, None, :], mask, delta[:, None].expand(C, len(ms)),
-        radio, outer_iters, inner_iters,
-    )
+    with trace_span("p4/bisect/candidate_sweep"):
+        b_all, cost = solve_p4(
+            rho_sorted[:, None, :], mask, delta[:, None].expand(C, len(ms)),
+            radio, outer_iters, inner_iters,
+        )
     w = v_eta[:, None] * (n0.long()[:, None] + ms[None, :]).to(rho_sorted.dtype)
     w = w - lead(radio.energy_scale, 2) * cost
     w = torch.where(feasible, w, -torch.inf)
@@ -422,10 +424,11 @@ def _prefix_newton(
     )
     lam_lo_glob = torch.minimum(torch.clamp(lam_lo_glob, min=1e-30), lam_hi_glob)
     lam_grid = _log_grid(lam_lo_glob, lam_hi_glob, n_grid, rho_sorted)  # (C, G)
-    bg = b_of_lam_newton(
-        lam_grid[:, :, None], rho_sorted[:, None, :], beta, b_min,
-        b_cap_glob[:, None, None],
-    )                                                            # (C, G, K)
+    with trace_span("p4/newton/grid_seed"):
+        bg = b_of_lam_newton(
+            lam_grid[:, :, None], rho_sorted[:, None, :], beta, b_min,
+            b_cap_glob[:, None, None],
+        )                                                        # (C, G, K)
     csum = torch.cumsum(torch.where(pos[:, None, :], bg, zero), dim=2)
     csum0 = torch.cat([torch.zeros_like(csum[..., :1]), csum], dim=2)  # (C,G,K+1)
     G = lam_grid.shape[1]
@@ -452,10 +455,11 @@ def _prefix_newton(
     )
 
     rho_b = rho_sorted[:, None, :]
-    b = _outer_newton_polish(
-        lam0, torch.zeros_like(lam0), hi0, rho_b, mask, delta[:, None], beta,
-        b_min, b_max, n_outer, n_inner,
-    )
+    with trace_span("p4/newton/polish"):
+        b = _outer_newton_polish(
+            lam0, torch.zeros_like(lam0), hi0, rho_b, mask, delta[:, None], beta,
+            b_min, b_max, n_outer, n_inner,
+        )
     b = torch.where(mask, b, zero)
     b = _budget_repair(b, mask, delta[:, None, None], b_min, b_max[..., None])
     cost = torch.where(

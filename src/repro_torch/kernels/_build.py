@@ -10,7 +10,7 @@ plain C interface (no PyTorch headers, so a build takes seconds):
 ``--use_fast_math`` is deliberately absent: it turns ``exp2f`` into
 ``ex2.approx`` with flush-to-zero, which breaks parity with the plain
 PyTorch versions near the +-80 exponent clip.  The OCEAN sources
-(``ocean_p``, ``ocean_traj``) add ``-fmad=false``, which keeps
+(``ocean_p``, ``ocean_traj``, ``ocean_traj_metrics``) add ``-fmad=false``, which keeps
 ``a * b + c`` as two rounded operations, as PyTorch's one-op-per-kernel
 plain versions compute it: with contraction, last-bit differences steer
 the Newton iterations onto other safeguard branches and those kernels
@@ -41,14 +41,16 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = (
-    "ocean_p", "ocean_traj", "flash_attention", "decode_attention", "mamba_scan", "rwkv6_scan",
+    "ocean_p", "ocean_traj", "ocean_traj_metrics", "flash_attention", "decode_attention",
+    "mamba_scan", "rwkv6_scan",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",  # report registers and shared memory per kernel
 )
-SOURCE_FLAGS = {"ocean_p": ("-fmad=false",), "ocean_traj": ("-fmad=false",)}
+SOURCE_FLAGS = {"ocean_p": ("-fmad=false",), "ocean_traj": ("-fmad=false",),
+                "ocean_traj_metrics": ("-fmad=false",)}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()

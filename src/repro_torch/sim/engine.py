@@ -6,7 +6,8 @@ one leading cell axis C = S * N (scenario-major) and every policy runs as
 ONE call over all cells — under ``traj="fused"`` an OCEAN policy is one
 launch of kernel K3.  Scenario statics that shape the program (T, K, frame
 length, solver, ranking, top_m, block_k, traj, failure_mode, guard) must
-agree across the grid, as ``_check_compatible`` demands in the reference.
+agree across the grid, as ``_check_compatible`` demands in the reference;
+so must the telemetry spec (``metrics``), which shapes the outputs.
 
 Environments: every scenario's ``EnvSpec`` is lowered once
 (``repro_torch.env``).  Each seed's fading uniforms come from a
@@ -24,7 +25,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Mapping, NamedTuple, Optional, Sequence, Tuple, Union
+from typing import Dict, Mapping, NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -38,6 +39,8 @@ from repro_torch.core.policy import (
     resolve_params,
 )
 from repro_torch.core.scenario import Scenario
+from repro_torch.obs.metrics import MetricsSpec
+from repro_torch.obs.spans import trace_span
 from repro_torch.env.channel import (
     ChannelDraws,
     channel_draws,
@@ -99,6 +102,11 @@ class GridResult(NamedTuple):
     # without queues): not in the reference's result; lets a run be
     # replayed against the plain path.
     q: Optional[torch.Tensor] = None
+    # Telemetry with a MetricsSpec: one entry per policy-axis index (None for
+    # a policy without queues), each a dict of "<collector>/<reduction>" ->
+    # (S, N, ...) tensors; a tuple, since a policy name may repeat.  None
+    # when the grid ran without a spec.
+    metrics: Optional[Tuple[Optional[Dict[str, torch.Tensor]], ...]] = None
 
     def cell(self, policy: str, scenario: str, seed: int) -> PolicyTrace:
         """Extract one (policy, scenario, seed) cell as a PolicyTrace."""
@@ -124,11 +132,15 @@ class GridResult(NamedTuple):
         p = self.policies.index(policy)
         s = self.scenarios.index(scenario)
         n = self.seeds.index(seed)
+        mets = None
+        if self.metrics is not None and self.metrics[p] is not None:
+            mets = {k: v[s, n] for k, v in self.metrics[p].items()}
         return PolicyTrace(
             a=self.a[p, s, n],
             b=self.b[p, s, n],
             e=self.e[p, s, n],
             num_selected=self.num_selected[p, s, n],
+            metrics=mets,
             delivered=None if self.delivered is None else self.delivered[p, s, n],
             q=None if self.q is None else self.q[p, s, n],
         )
@@ -153,7 +165,8 @@ def _check_compatible(scenarios: Sequence[Scenario]) -> Scenario:
             f"{field}: {getattr(base, field)!r} != {getattr(sc, field)!r}"
             for field in (
                 "num_rounds", "num_clients", "frame_len", "solver",
-                "ranking", "top_m", "block_k", "traj", "failure_mode", "guard",
+                "ranking", "top_m", "block_k", "traj", "metrics", "failure_mode",
+                "guard",
             )
             if getattr(base, field) != getattr(sc, field)
         ]
@@ -194,12 +207,14 @@ def _repeat(record, n: int):
 class GridEngine:
     """Sweep (policy, scenario, seed) grids on one device.
 
-    ``solver``/``ranking``/``top_m``/``block_k``/``traj``/``guard``
-    override the scenarios' fields (a ``repro_torch.guard.GuardSpec``
+    ``solver``/``ranking``/``top_m``/``block_k``/``traj``/``metrics``/
+    ``guard`` override the scenarios' fields (a ``repro_torch.guard.GuardSpec``
     guards the OCEAN policies; the baselines ignore it, as in the
-    reference).  ``experiment``, ``metrics``, ``checkpoint`` and
-    ``shard=True`` are hooks not ported yet and raise
-    ``NotImplementedError``.
+    reference).  With a ``repro_torch.obs.MetricsSpec``,
+    ``GridResult.metrics`` carries each OCEAN policy's telemetry, recorded
+    in its one call over all cells (on ``traj="fused"`` inside K3's one
+    launch).  ``experiment``, ``checkpoint`` and ``shard=True`` are hooks
+    not ported yet and raise ``NotImplementedError``.
     """
 
     def __init__(
@@ -214,14 +229,12 @@ class GridEngine:
         top_m: Optional[int] = None,
         block_k: Optional[int] = None,
         traj: Optional[str] = None,
-        metrics=None,
+        metrics: Optional[MetricsSpec] = None,
         checkpoint=None,
         guard=None,
         device=None,
     ):
-        for hook, val in (
-            ("experiment", experiment), ("metrics", metrics), ("checkpoint", checkpoint),
-        ):
+        for hook, val in (("experiment", experiment), ("checkpoint", checkpoint)):
             if val is not None:
                 raise not_ported(f"GridEngine({hook}=...)")
         if shard:
@@ -238,7 +251,8 @@ class GridEngine:
             k: v
             for k, v in (
                 ("solver", solver), ("ranking", ranking), ("top_m", top_m),
-                ("block_k", block_k), ("traj", traj), ("guard", guard),
+                ("block_k", block_k), ("traj", traj), ("metrics", metrics),
+                ("guard", guard),
             )
             if v is not None
         }
@@ -331,7 +345,8 @@ class GridEngine:
         cfg, dev = self.cfg, self.device
         S, N, T, K = len(self.scenarios), len(seeds), cfg.num_rounds, cfg.num_clients
         C = S * N
-        h2, budget_inc, budget_total, radio, failure = self.sample_env(seeds)
+        with trace_span("grid/sample_env"):
+            h2, budget_inc, budget_total, radio, failure = self.sample_env(seeds)
         etas = torch.stack([sc.eta_seq(device=dev) for sc in self.scenarios])
         eta_cells = etas[:, None, :].expand(S, N, T).reshape(C, T)
         h2_cells = h2.reshape(C, T, K)
@@ -357,10 +372,19 @@ class GridEngine:
                 scenario_failure_seq=failure_cells,
                 device=dev,
             )
-            traces.append(pol.trace_fn(cfg, h2_cells, params, device=dev))
+            with trace_span(f"grid/policy/{pol.name}"):
+                traces.append(pol.trace_fn(cfg, h2_cells, params, device=dev))
 
         def grid(x):
             return torch.stack(x).reshape((len(traces), S, N) + x[0].shape[1:])
+
+        metrics = None
+        if any(t.metrics is not None for t in traces):
+            metrics = tuple(
+                None if t.metrics is None
+                else {k: v.reshape((S, N) + v.shape[1:]) for k, v in t.metrics.items()}
+                for t in traces
+            )
 
         e = grid([t.e for t in traces])
         delivered = None
@@ -383,6 +407,7 @@ class GridEngine:
             delivered=delivered,
             failure_seq=failure,
             q=grid([torch.zeros_like(t.e) if t.q is None else t.q for t in traces]),
+            metrics=metrics,
         )
 
 
@@ -398,7 +423,7 @@ def run_grid(
     top_m: Optional[int] = None,
     block_k: Optional[int] = None,
     traj: Optional[str] = None,
-    metrics=None,
+    metrics: Optional[MetricsSpec] = None,
     checkpoint=None,
     guard=None,
     base_key: int = 0,

@@ -72,10 +72,12 @@ def test_grid_checks_compatibility_and_unported_hooks():
     a = Scenario(name="a", num_clients=K, num_rounds=T)
     with pytest.raises(ValueError, match="grid-incompatible"):
         GridEngine([a, Scenario(name="b", num_clients=K, num_rounds=T + 1)], ["ocean"], device="cpu")
-    for kw in ({"metrics": object()}, {"checkpoint": object()},
-               {"experiment": object()}, {"shard": True}):
+    for kw in ({"checkpoint": object()}, {"experiment": object()}, {"shard": True}):
         with pytest.raises(NotImplementedError):
             GridEngine([a], ["ocean"], device="cpu", **kw)
+    # the metrics are ported: a MetricsSpec runs, anything else is refused
+    with pytest.raises(TypeError, match="metrics"):
+        GridEngine([a], ["ocean"], device="cpu", metrics=object())
     # the guard is ported: a GuardSpec runs, anything else is refused
     with pytest.raises(TypeError, match="guard"):
         GridEngine([a], ["ocean"], device="cpu", guard=object())
@@ -124,11 +126,11 @@ def test_scenario_round_trips_through_the_reference_payload():
      ("failure_mode", "reallocate"), ("no_such_field", 1)],
 )
 def test_scenario_refuses_fields_it_does_not_take(field, value):
-    """Fields not ported raise; ``env``, ``failure_mode`` and ``guard``,
-    ported since, load and give the payload back."""
+    """Fields not ported raise; ``env``, ``failure_mode``, ``guard`` and
+    ``metrics``, ported since, load and give the payload back."""
     d = Scenario().to_dict()
     d[field] = value
-    if field in ("env", "failure_mode", "guard"):
+    if field in ("env", "failure_mode", "guard", "metrics"):
         assert scenario_from_reference(d).to_dict() == JScenario.from_dict(d).to_dict()
         return
     with pytest.raises(NotImplementedError, match=field):
@@ -210,7 +212,8 @@ def test_entry_points_refuse_to_fall_back_to_the_cpu(monkeypatch):
 def test_unported_hooks_raise_not_implemented():
     """Hooks not ported raise; the radio and failure hooks, ported since, run
     (a static radio and an all-ones mask give the plain round's bits); the
-    guard, ported since, takes a GuardSpec and refuses anything else."""
+    guard and the metrics, ported since, take a GuardSpec and a MetricsSpec
+    and refuse anything else."""
     cfg = OceanConfig(num_clients=K, num_rounds=T, radio=RadioParams())
     h2 = torch.full((1, T, K), 2.5e-4)
     eta = eta_schedule("uniform", T)
@@ -218,9 +221,10 @@ def test_unported_hooks_raise_not_implemented():
                {"stream_bf16": True, "traj": "fused"}):
         with pytest.raises(NotImplementedError):
             simulate(cfg, h2, eta, 1e-5, device="cpu", **kw)
-    for kw in ({"metrics": object()}, {"checkpoint": object()}):
-        with pytest.raises(NotImplementedError):
-            OceanConfig(num_clients=K, num_rounds=T, radio=RadioParams(), **kw)
+    with pytest.raises(NotImplementedError):
+        OceanConfig(num_clients=K, num_rounds=T, radio=RadioParams(), checkpoint=object())
+    with pytest.raises(TypeError, match="metrics"):
+        OceanConfig(num_clients=K, num_rounds=T, radio=RadioParams(), metrics=object())
     with pytest.raises(TypeError, match="guard"):
         OceanConfig(num_clients=K, num_rounds=T, radio=RadioParams(), guard=object())
     OceanConfig(num_clients=K, num_rounds=T, radio=RadioParams(), failure_mode="overprovision")

@@ -1023,3 +1023,158 @@ def test_k3_subnormal_gain_is_demoted_not_quarantined(dev):
             assert not bool(out.a[c, t, k])
             assert float(out.rho[c, t, k]) == float(torch.tensor(1e30, dtype=torch.float32))
     assert float(out.e.max()) <= 0.15 * (1 + 1e-6)
+
+
+# ---------------------------------------------------------------------------
+# K3's HasMetrics instances: the telemetry inside the kernel
+# ---------------------------------------------------------------------------
+def _metrics_spec(hist_bins=8, ds_samples=7, names=None, reductions=None):
+    from repro_torch.obs import REDUCTIONS, MetricsSpec, available_collectors
+
+    names = available_collectors() if names is None else names
+    reductions = REDUCTIONS if reductions is None else reductions
+    return MetricsSpec(collect=tuple((n, r) for n in names for r in reductions),
+                       hist_bins=hist_bins, ds_samples=ds_samples)
+
+
+def _metrics_run(cfg, h2, v, eta, inc, radio=None, failure=None, label=None):
+    """K3 with cfg.metrics: its decisions equal the metrics-off launch's bit
+    for bit, its telemetry holds to the replay of its own rows."""
+    import dataclasses
+
+    off = tt.ocean_traj(dataclasses.replace(cfg, metrics=None), h2, v, eta, inc, radio=radio,
+                        failure=failure)
+    before = dict(tt.ocean_traj.instances)
+    out = tt.ocean_traj(cfg, h2, v, eta, inc, radio=radio, failure=failure)
+    torch.cuda.synchronize()
+    if label is not None:
+        assert tt.ocean_traj.instances.get(label, 0) == before.get(label, 0) + 1
+    for f in ("a", "b", "e", "q_pre", "rho", "obj", "nsel", "q_final", "es_final", "dlv", "ral",
+              "fc", "dm", "fb"):
+        x, y = getattr(off, f), getattr(out, f)
+        assert (x is None and y is None) or torch.equal(x, y), f
+    tt.check_metrics_replay(cfg, out.metrics, out, v, eta, inc, radio)
+    return out
+
+
+@pytest.mark.parametrize("T,K,C", [(40, 6, 8), (30, 10, 16), (12, 33, 4)])
+def test_k3_metrics_static_matches_the_replay(dev, T, K, C):
+    import dataclasses
+
+    cfg, h2, v, eta, inc = _k3_inputs(dev, 21, C, T, K)
+    cfg = dataclasses.replace(cfg, metrics=_metrics_spec())
+    out = _metrics_run(cfg, h2, v, eta, inc, label="metrics")
+    assert torch.equal(out.metrics["num_selected/full_trace"], out.nsel.float())
+
+
+def test_k3_metrics_radio_matches_the_replay(dev):
+    import dataclasses
+
+    C, T, K = 8, 30, 10
+    cfg, h2, v, eta, inc = _k3_inputs(dev, 22, C, T, K)
+    cfg = dataclasses.replace(cfg, metrics=_metrics_spec())
+    _metrics_run(cfg, h2, v, eta, inc, radio=_k3_radio(dev, 22, C, T, cfg),
+                 label="radio+metrics")
+
+
+@pytest.mark.parametrize("mode", ["plain", "overprovision", "reallocate"])
+def test_k3_metrics_failure_matches_the_replay(dev, mode):
+    import dataclasses
+
+    C, T, K = 8, 30, 10
+    cfg, h2, v, eta, inc = _k3_inputs(dev, 23, C, T, K)
+    cfg = dataclasses.replace(cfg, failure_mode=mode, metrics=_metrics_spec())
+    out = _metrics_run(cfg, h2, v, eta, inc, failure=_k3_failure(dev, 23, C, T, K, p=0.6),
+                       label=f"failure+metrics/{mode}")
+    assert float(out.metrics["delivery_rate/mean"].mean()) < 1.0
+    if mode == "reallocate":
+        assert torch.equal(out.metrics["reallocation_count/last"], out.ral.sum(1).float())
+
+
+@pytest.mark.parametrize("solver", ["pallas", "bisect"])
+def test_k3_metrics_guard_and_bisect_match_the_replay(dev, solver):
+    import dataclasses
+
+    from repro_torch.guard import GuardSpec, register_chaos_solver
+
+    C, T, K = 8, 20, 10
+    cfg, h2, v, eta, inc, _ = _k3_faulty(dev, 24, C, T, K)
+    spec = _metrics_spec()
+    g = dataclasses.replace(cfg, solver=solver, guard=GuardSpec(energy_cap=1.0), metrics=spec)
+    out = _metrics_run(g, h2, v, eta, inc,
+                       label="guard+metrics" if solver == "pallas" else "bisect+guard+metrics")
+    assert torch.equal(out.metrics["fault_count/last"], out.fc.sum(1).float())
+    assert torch.equal(out.metrics["demoted_clients/last"], out.dm.sum(1).float())
+    assert int(out.dm.sum()) > 0
+    chaos = dataclasses.replace(g, solver=register_chaos_solver(solver, kind="objective").name)
+    out = _metrics_run(chaos, h2, v, eta, inc)
+    assert torch.equal(out.metrics["fallback_rounds/last"], torch.full((C,), float(T), device=dev))
+    b = dataclasses.replace(cfg, solver="bisect", metrics=spec)
+    _metrics_run(b, *_k3_inputs(dev, 25, C, T, K)[1:], label="bisect+metrics")
+
+
+def test_k3_metrics_off_keeps_the_digest_of_the_static_instance(dev):
+    """On chip_kernels.py's §VI inputs (192 cells x 300 rounds x K = 10)
+    the instance without telemetry keeps its digest ``c27a0410…``, and the
+    HasMetrics launch gives the same decision outputs."""
+    import dataclasses
+    import hashlib
+
+    from repro_torch.core.scenario import paper_scenarios
+    from repro_torch.sim import GridEngine
+
+    C, T, K = 192, 300, 10
+    cfg = GridEngine(paper_scenarios(T, K), ["ocean-u", "ocean-a"], solver="pallas",
+                     traj="fused", device=dev).cfg
+    h2 = torch.tensor(np.random.default_rng(3).exponential(size=(C, T, K)).astype(np.float32)
+                      * 2.5e-4, device=dev)
+    inc = torch.full_like(h2, 0.15 / T)
+    eta = eta_schedule("uniform", T, device=dev).expand(C, T).contiguous()
+    v = torch.full((C, T), 1e-5, device=dev)
+
+    def digest(out):
+        h = hashlib.sha256()
+        for t in out[:9]:
+            h.update(t.contiguous().cpu().view(torch.uint8).numpy().tobytes())
+        return h.hexdigest()[:16]
+
+    off = tt.ocean_traj(cfg, h2, v, eta, inc)
+    on = tt.ocean_traj(dataclasses.replace(cfg, metrics=_metrics_spec()), h2, v, eta, inc)
+    torch.cuda.synchronize()
+    assert digest(off) == digest(on) and digest(off).startswith("c27a0410")
+
+
+@pytest.mark.parametrize("hist_bins", [32, 16384])
+def test_k3_metrics_at_K_2048_per_client_collectors(dev, hist_bins):
+    """K = 2048 with every per-client collector in mean and histogram (and
+    full_trace_ds): the region sits beside K3's rows in shared memory with
+    fewer teams, or with 16,384 bins a histogram in the global scratch."""
+    import dataclasses
+
+    lib = _build.load("ocean_traj_metrics")
+    C, T, K = 2, 3, 2048
+    cfg, h2, v, eta, inc = _k3_inputs(dev, 26, C, T, K)
+    names = ("queue", "queue_next", "energy_headroom", "selection_count", "selection_gap")
+    spec = _metrics_spec(hist_bins=hist_bins, names=names,
+                         reductions=("mean", "histogram", "full_trace_ds"))
+    cfg = dataclasses.replace(cfg, metrics=spec)
+    region = tt._metrics_descriptor(cfg, C, dev).region
+    import ctypes
+
+    in_smem = ctypes.c_int(0)
+    warps = lib.ocean_traj_metrics_warps(K, 0, 0, region, ctypes.byref(in_smem))
+    assert warps >= 1 and in_smem.value == (1 if hist_bins == 32 else 0)
+    _metrics_run(cfg, h2, v, eta, inc, label="metrics")
+
+
+def test_k3_metrics_planted_fault_fails_the_check(dev):
+    """A histogram edge moved by one bin in the launch descriptor must fail
+    the replay check."""
+    import dataclasses
+
+    cfg, h2, v, eta, inc = _k3_inputs(dev, 27, 8, 30, 10)
+    cfg = dataclasses.replace(cfg, metrics=_metrics_spec())
+    out = tt.ocean_traj(cfg, h2, v, eta, inc, hist_shift={"queue": 1})
+    torch.cuda.synchronize()
+    with pytest.raises(AssertionError, match="queue/histogram"):
+        tt.check_metrics_replay(cfg, out.metrics, out, v, eta, inc)
