@@ -18,7 +18,10 @@ its guarded instance (a cap that never fires), its bisect instance and a
 chaos backend's instance (the fallback every round) at the §VI shape, and
 its HasMetrics instance with the telemetry overhead spec of
 benchmarks/traj_bench.py:304 there (each where the checkout has it; that
-reading also carries the digest of its decision outputs alone); K5: the long cache; K6: one 4096-channel block of jamba's mixer
+reading also carries the digest of its decision outputs alone), and a
+segment launch of rounds 128-192 from round 128's carry (``k3_seg``, where
+the checkout has checkpoint/resume); the §VI instance's reading also
+carries ptxas's registers and spills (``ptxas``); K5: the long cache; K6: one 4096-channel block of jamba's mixer
 over 8192 steps; K7: the rwkv6 prefill layer, 8 x 8192 x 32 heads of 64,
 and at B = 4, 128 (b, h) chains, fewer than the card's 132 SMs) and is
 timed two ways: ``ms``, back-to-back wrapper calls between two CUDA events
@@ -116,6 +119,27 @@ def main() -> int:
     eta = eta_schedule("uniform", T, device=dev).expand(cells, T).contiguous()
     vv = torch.full((cells, T), 1e-5, device=dev)
     timed("k3", lambda: ocean_traj(cfg, h2c, vv, eta, inc), 5)
+    from repro_torch.kernels import _build
+
+    build_output = getattr(_build, "build_output", None)
+    log = (build_output("ocean_traj") if build_output is not None
+           else _build.BUILD_LOG.get("ocean_traj", {}).get("output"))
+    # registers and spills of the §VI instance (None where this process did
+    # not build it and the checkout keeps no build log)
+    rec["k3"]["ptxas"] = cs.ptxas_of(log, cs.K3_VI_INSTANCE)
+    try:
+        from repro_torch.core.ocean import segment_step, slice_rounds
+    except ImportError:  # a checkout without checkpoint/resume
+        segment_step = None
+    if segment_step is not None:
+        from repro_torch.core.ocean import init_state
+
+        streams = (h2c, vv, eta, inc, None, None)
+        carry = init_state(cfg, cells, device=dev)
+        for t0, t1 in ((0, 64), (64, 128)):
+            carry = segment_step(cfg, "fused", carry, None, slice_rounds(streams, t0, t1))[0]
+        seg = slice_rounds(streams, 128, 192)[:4]
+        timed("k3_seg", lambda: ocean_traj(cfg, *seg, init_state=carry), 5)
     try:
         from repro_torch.obs import MetricsSpec
     except ImportError:  # a checkout without the telemetry

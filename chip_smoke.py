@@ -43,7 +43,11 @@ decisions bit for bit those of the metrics-off grid, its telemetry held to
 the replay of the kernel's own rows), the same spec on the scan path, one
 HasMetrics launch of each radio, failure, guard, bisect and chaos instance,
 K = 2048 with the region in shared and in global memory, and a planted
-fault that must fail.
+fault that must fail.  Then checkpoint/resume (``repro_torch.checkpoint``):
+the §VI grid with and without that spec run as 64-round segments (K3's
+segment launches) and resumed from round 128, bit for bit the whole grid;
+one segmented run per other K3 instance family, K = 2048, the scan path
+and the baselines, each bit for bit its whole run.
 
 Each phase prints one JSON line; any failed check raises and the script
 exits non-zero.  The last lines are the card's name and power limit, the
@@ -313,6 +317,41 @@ def draws(np, rng, C, K, zero_frac=0.2, tie_eps=None):
 
 
 # ---------------------------------------------------------------------------
+# The §VI grid's K3 instance (K <= 16: half-warp teams; no radio, failure,
+# guard or bisect branch; no telemetry), as ptxas names it.
+K3_VI_INSTANCE = r"ocean_traj_kernelILi16ELb0ELb0ELb0ELb0E.*NoMetrics"
+
+
+def ptxas_kernels(output):
+    """Every kernel's ptxas report in an ``nvcc -Xptxas -v`` output: the
+    mangled name, registers, stack frame and spill bytes."""
+    import re
+
+    rows, name, frame = [], None, None
+    for ln in output.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            name = m.group(1)
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill "
+                      r"loads", ln)
+        if m:
+            frame = [int(x) for x in m.groups()]
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and name is not None:
+            rows.append(dict(name=name, registers=int(m.group(1)), stack_bytes=frame[0],
+                             spill_store_bytes=frame[1], spill_load_bytes=frame[2]))
+            name = None
+    return rows
+
+
+def ptxas_of(output, pattern):
+    """The ptxas report of the one kernel whose name matches ``pattern``."""
+    import re
+
+    hits = [r for r in ptxas_kernels(output or "") if re.search(pattern, r["name"])]
+    return hits[0] if len(hits) == 1 else None
+
+
 def phase_card(torch):
     from repro_torch.kernels import _build
 
@@ -330,11 +369,19 @@ def phase_card(torch):
         k: [ln for ln in v["output"].splitlines() if "registers" in ln or "smem" in ln]
         for k, v in _build.BUILD_LOG.items()
     }
+    log = _build.build_output("ocean_traj")
+    vi = ptxas_of(log, K3_VI_INSTANCE)
+    check(log is None or (vi is not None and vi["spill_store_bytes"] == 0
+                          and vi["spill_load_bytes"] == 0),
+          f"card: K3's §VI instance spills or is missing from ptxas's report ({vi})")
     emit({
         "phase": "card", "gpu": smi, "torch": torch.__version__,
         "cuda": torch.version.cuda, "build_s": round(build_s, 3),
         "nvcc_s": {k: round(v["seconds"], 3) for k, v in _build.BUILD_LOG.items()},
-        "ptxas": ptxas,
+        "ptxas": ptxas, "k3_vi_instance": vi,
+        "spilling_kernels": {k: [(r["name"], r["spill_store_bytes"], r["spill_load_bytes"])
+                                 for r in ptxas_kernels(v["output"]) if r["spill_store_bytes"]]
+                             for k, v in _build.BUILD_LOG.items()},
     })
     return smi
 
@@ -1821,6 +1868,315 @@ def phase_telemetry(torch, np, dev, smi, rel_args, radio_args, T=300, K=10, seed
     return out
 
 
+def _same_bits(torch, x, y):
+    """Two tensors of one dtype and shape with the same bytes (NaN equal
+    to NaN)."""
+    return (x.dtype == y.dtype and x.shape == y.shape
+            and torch.equal(x.reshape(-1).view(torch.uint8), y.reshape(-1).view(torch.uint8)))
+
+
+def _check_tree_bits(torch, ref, got, what):
+    """Every tensor of two results (tuples, NamedTuples, dicts) bit for bit."""
+    if ref is None or isinstance(ref, (str, int, float)):
+        check(got == ref, f"{what}: {got!r} != {ref!r}")
+    elif isinstance(ref, torch.Tensor):
+        check(isinstance(got, torch.Tensor) and _same_bits(torch, ref, got),
+              f"{what}: not bit for bit")
+    elif isinstance(ref, dict):
+        check(isinstance(got, dict) and sorted(got) == sorted(ref), f"{what}: keys")
+        for k in ref:
+            _check_tree_bits(torch, ref[k], got[k], f"{what}/{k}")
+    else:
+        check(len(got) == len(ref), f"{what}: length")
+        for i, (r, g) in enumerate(zip(ref, got)):
+            _check_tree_bits(torch, r, g, f"{what}[{i}]")
+
+
+@contextlib.contextmanager
+def _timed_snapshots(rec, write=True):
+    """Time every ``save_snapshot`` (the segmented runs call it through
+    the module) and add its seconds and file bytes to ``rec``; with
+    ``write=False`` no snapshot is written (the segments' own time)."""
+    from repro_torch.checkpoint import trajectory as ckpt_io
+
+    orig = ckpt_io.save_snapshot
+
+    def timed(spec, snapshot, round_idx):
+        if not write:
+            return None
+        t0 = time.perf_counter()
+        path = orig(spec, snapshot, round_idx)
+        rec["seconds"] += time.perf_counter() - t0
+        rec["bytes"] += os.path.getsize(path)
+        rec["count"] += 1
+        return path
+
+    ckpt_io.save_snapshot = timed
+    try:
+        yield rec
+    finally:
+        ckpt_io.save_snapshot = orig
+
+
+def _seg_launches():
+    from repro_torch.kernels.ocean_traj import ocean_traj
+
+    return {k: n for k, n in ocean_traj.instances.items() if "+seg" in k}
+
+
+def phase_checkpoint(torch, np, dev, smi, rel_args, radio_args, T=300, K=10, seeds=64,
+                     every=64, cells=8):
+    """Checkpoint/resume (``repro_torch.checkpoint``) through K3's segment
+    launches; every snapshot in a fresh temporary directory.
+
+    1. The §VI grid (``traj="fused"``) whole and with
+       ``CheckpointSpec(every_rounds=64)``, in turns (whole, segmented,
+       segmented, whole; the counts reset just before the first segmented
+       run and read just after): segments 0-64, ..., 256-300 (no frame
+       reset inside: R = T), one K3 segment launch per policy and
+       segment and no whole launch; a, b, e, q, num_selected and
+       energy_spent bit for bit those of the whole grid; snapshots at 64,
+       128, 192, 256 and 300; those above 128 deleted, ``resume_from=True``
+       bit for bit again.  The rates whole, segmented, and segmented with
+       the snapshot writes skipped (two turns), and the snapshots' seconds
+       and bytes.
+    2. The same grid with every (collector, reduction) entry (K3's
+       HasMetrics segment launches, the region in shared memory): the
+       telemetry bit for bit too, segmented and resumed.
+    3. One segmented ``simulate`` per other instance family on ``cells``
+       cells of the earlier phases' inputs at T = 300 (the radio grid's,
+       the reliability grid's under each failure mode, the §VI inputs
+       with injected faults guarded on pallas, bisect and objective
+       chaos), metrics off and on, each held bit for bit to its whole
+       launch; and the scan trajectory segmented on the card.
+    4. K = 2048 with per-client telemetry, the region in shared memory and
+       (16,384 bins) in the global scratch, ``every_rounds=2``.
+    5. The baselines (select_all, SMO, AMO, pattern) segmented on 4 seeds
+       of one scenario, bit for bit those of the whole grid.
+    6. A 64-round segment launch alone at the §VI shape (from round 128's
+       carry): its ms, device ms, its plain version's ms and bound; five
+       segments of the §VI inputs give the whole launch's digest."""
+    import tempfile
+
+    from repro_torch.checkpoint import CheckpointSpec, segment_bounds
+    from repro_torch.core.ocean import (
+        concat_rounds,
+        init_state,
+        segment_step,
+        simulate,
+        slice_rounds,
+    )
+    from repro_torch.core.policy import PolicyParams
+    from repro_torch.core.scenario import paper_scenarios
+    from repro_torch.guard import GuardSpec, inject_h2_faults, register_chaos_solver
+    from repro_torch.kernels.ocean_traj import ocean_traj, ocean_traj_plain
+    from repro_torch.sim import GridEngine, run_grid
+
+    scen, pols, sd = _grid_args(T, K, seeds)
+    P, S, N = len(pols), len(scen), seeds
+    C = S * N
+    rounds_cells = P * C * T
+    tmp = tempfile.TemporaryDirectory(prefix="chip-smoke-ckpt-")
+    n_dir = [0]
+
+    def fresh(every_rounds=every):
+        n_dir[0] += 1
+        return CheckpointSpec(directory=os.path.join(tmp.name, f"run{n_dir[0]}"),
+                              every_rounds=every_rounds)
+
+    def steps(spec):
+        return sorted(int(f[5:13]) for f in os.listdir(spec.directory))
+
+    def drop_after(spec, r):
+        for st in steps(spec):
+            if st > r:
+                os.remove(os.path.join(spec.directory, f"step_{st:08d}.npz"))
+
+    fields = ("a", "b", "e", "q", "num_selected", "energy_spent", "metrics")
+    bounds = segment_bounds(T, every)
+    mid = bounds[1][1]  # a run killed after its second snapshot
+    parts, t_part = {}, [time.perf_counter()]
+
+    def part(name):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        parts[name] = now - t_part[0]
+        t_part[0] = now
+
+    # 1-2. the §VI grid, whole and segmented, without and with telemetry
+    spec95 = telemetry_spec()
+    grids = {}
+    for label, m in (("plain", None), ("metrics", spec95)):
+        _grid_rate(torch, dev, scen, pols, sd, traj="fused", metrics=m)  # warm-up
+        walls = {"whole": [], "segmented": [], "no_saves": []}
+        snap_s = []
+        turns = ("whole", "segmented", "no_saves", "no_saves", "segmented", "whole")
+        for turn, kind in enumerate(turns):
+            ck = None if kind == "whole" else fresh()
+            if turn == 1:
+                _reset_counts()
+            r = dict(seconds=0.0, bytes=0, count=0)
+            with (_timed_snapshots(r, write=kind == "segmented") if kind != "whole"
+                  else contextlib.nullcontext()):
+                res, w = _grid_rate(torch, dev, scen, pols, sd, traj="fused", metrics=m,
+                                    checkpoint=ck)
+            walls[kind].append(w)
+            if kind == "segmented":
+                snap_s.append(r["seconds"])
+                rec = r
+            if turn == 0:
+                whole = res
+            elif turn == 1:
+                launches, seg_res, ck1 = _counts(), res, ck
+        inst = "metrics+seg" if m is not None else "static+seg"
+        n_seg = P * len(bounds)
+        check(launches["ocean_traj"] == n_seg and launches["ocean_traj_instances"] == {inst: n_seg},
+              f"checkpoint {label}: the segmented grid launched {launches}")
+        for f in fields:
+            _check_tree_bits(torch, getattr(whole, f), getattr(seg_res, f),
+                             f"checkpoint {label}: segmented {f}")
+        check(steps(ck1) == [t1 for _, t1 in bounds], f"checkpoint {label}: snapshots {steps(ck1)}")
+        drop_after(ck1, mid)
+        _reset_counts()
+        res, w_resume = _grid_rate(torch, dev, scen, pols, sd, traj="fused", metrics=m,
+                                   checkpoint=ck1, resume_from=True)
+        resumed = _counts()
+        check(resumed["ocean_traj_instances"] == {inst: P * (len(bounds) - 2)},
+              f"checkpoint {label}: the resumed grid launched {resumed}")
+        for f in fields:
+            _check_tree_bits(torch, getattr(whole, f), getattr(res, f),
+                             f"checkpoint {label}: resumed {f}")
+        grids[label] = dict(
+            launches=launches, resumed_launches=resumed["ocean_traj_instances"],
+            rounds_cells_per_s_whole=[rounds_cells / w for w in walls["whole"]],
+            rounds_cells_per_s_segmented=[rounds_cells / w for w in walls["segmented"]],
+            rounds_cells_per_s_resumed=P * C * (T - mid) / w_resume, resumed_from=mid,
+            rounds_cells_per_s_segmented_no_saves=[rounds_cells / w for w in walls["no_saves"]],
+            snapshots=rec["count"], snapshot_s=snap_s, snapshot_bytes=rec["bytes"])
+        del whole, seg_res, res
+        part(f"grid_{label}")
+
+    # 3. one segmented simulate per other instance family, metrics off and on
+    cfg = GridEngine(scen, pols, solver="pallas", traj="fused", device=dev).cfg
+    h2v, vv, etav, incv = _vi_k3_args(torch, np, dev, cfg, C=cells, T=T)
+    rows = [torch.tensor(inject_h2_faults(h2v[c].cpu(), 900 + c, **INJECT)[0])
+            for c in range(cells)]
+    h2f = torch.stack(rows).to(dev).contiguous()
+    guard = GuardSpec(energy_cap=ENERGY_CAP)
+    chaos = register_chaos_solver("pallas", kind="objective").name
+
+    def head(args):
+        cfg_a, h2, v, eta, inc, radio, failure = args
+        return (cfg_a, h2[:cells], v[:cells], eta[:cells], inc[:cells],
+                None if radio is None else radio.map(lambda x: x[:cells].contiguous()),
+                None if failure is None else failure._replace(
+                    delivered=failure.delivered[:cells], rate=failure.rate[:cells]))
+
+    families = {"radio": head(radio_args),
+                **{f"failure/{mode}": head(a) for mode, a in rel_args.items()},
+                "guard": (dataclasses.replace(cfg, guard=guard), h2f, vv, etav, incv, None, None),
+                "bisect+guard": (dataclasses.replace(cfg, guard=guard, solver="bisect"), h2f, vv,
+                                 etav, incv, None, None),
+                "chaos+guard": (dataclasses.replace(cfg, guard=guard, solver=chaos), h2f, vv,
+                                etav, incv, None, None)}
+    fam = {}
+    for name, (cfg_f, h2, v, eta, inc, radio, failure) in families.items():
+        for m in (None, spec95):
+            cfg_m = dataclasses.replace(cfg_f, metrics=m, traj="fused")
+            kw = dict(budget_seq=inc, radio_seq=radio, failure_seq=failure, device=dev)
+            ref = simulate(cfg_m, h2, eta, V_PAPER, **kw)
+            before = _seg_launches()
+            got = simulate(cfg_m, h2, eta, V_PAPER, checkpoint=fresh(), **kw)
+            new = {k: c - before.get(k, 0) for k, c in _seg_launches().items()
+                   if c != before.get(k, 0)}
+            check(sum(new.values()) == len(bounds),
+                  f"checkpoint {name}: segment launches {new}")
+            _check_tree_bits(torch, ref, got, f"checkpoint {name} metrics={m is not None}")
+            fam[f"{name}{'+metrics' if m is not None else ''}"] = new
+    cfg_scan = dataclasses.replace(cfg, traj="scan")
+    ref = simulate(cfg_scan, h2v, etav, V_PAPER, budget_seq=incv, device=dev)
+    got = simulate(cfg_scan, h2v, etav, V_PAPER, budget_seq=incv, checkpoint=fresh(),
+                   device=dev)
+    _check_tree_bits(torch, ref, got, "checkpoint scan")
+    part("families")
+
+    # 4. K = 2048, the region in shared memory and in the global scratch
+    large = {}
+    cfg_l, h2l, vl, etal, incl = _k3_inputs(torch, np, dev, 2, 3, 2048, seed=2048)
+    names = ("queue", "queue_next", "energy_headroom", "selection_count", "selection_gap")
+    for bins in (32, 16384):
+        sp = telemetry_spec(hist_bins=bins, names=names,
+                            reductions=("mean", "histogram", "full_trace_ds", "last"))
+        cfg_m = dataclasses.replace(cfg_l, metrics=sp)
+        ref = simulate(cfg_m, h2l, etal, V_PAPER, budget_seq=incl, device=dev)
+        before = sum(_seg_launches().values())
+        got = simulate(cfg_m, h2l, etal, V_PAPER, budget_seq=incl, checkpoint=fresh(2),
+                       device=dev)
+        _check_tree_bits(torch, ref, got, f"checkpoint K=2048 bins={bins}")
+        large[bins] = dict(segment_launches=sum(_seg_launches().values()) - before)
+    part("k2048")
+
+    # 5. the baselines, segmented on a few seeds
+    one = [paper_scenarios(T, K)["scenario1"]]
+    base = [("select_all", PolicyParams()), ("smo", PolicyParams()), ("amo", PolicyParams()),
+            ("pattern", PolicyParams(counts=torch.tensor([(t % K) + 1 for t in range(T)])))]
+    ref = run_grid(one, base, range(4), solver="pallas", device=dev)
+    got = run_grid(one, base, range(4), solver="pallas", checkpoint=fresh(), device=dev)
+    for f in fields:
+        _check_tree_bits(torch, getattr(ref, f), getattr(got, f), f"checkpoint baselines {f}")
+    part("baselines")
+
+    # 6. one segment launch alone at the §VI shape, and the §VI digest
+    h2s, vs, etas, incs = _vi_k3_args(torch, np, dev, cfg, T=T)
+    streams = (h2s, vs, etas, incs, None, None)
+    Cv = h2s.shape[0]
+    state = init_state(cfg, Cv, device=dev)
+    decs = []
+    for t0, t1 in bounds:
+        if t0 == mid:
+            carry = state
+        state, _, d, _ = segment_step(cfg, "fused", state, None, slice_rounds(streams, t0, t1))
+        decs.append(d)
+    d = concat_rounds(decs)
+    digest = k3_digest(torch, (d.a, d.b, d.e, d.q, d.rho, d.objective, d.num_selected, state.q,
+                               state.energy_spent))
+    whole = k3_digest(torch, ocean_traj(cfg, h2s, vs, etas, incs))
+    check(digest == whole and (T != 300 or digest.startswith(K3_VI_DIGEST)),
+          f"checkpoint: the §VI inputs in segments give digest {digest}, whole {whole}")
+    seg_args = slice_rounds(streams, mid, mid + every)[:4]
+
+    def seg_launch():
+        return ocean_traj(cfg, *seg_args, init_state=carry)
+
+    ms = gpu_ms(torch, seg_launch, 5)
+    dev_ms, _, seen = device_ms(torch, seg_launch, 3)
+    n = 10
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ocean_traj_plain(cfg, *(x[:, :n] for x in seg_args), init_state=carry)
+    torch.cuda.synchronize()
+    plain_ms = 1e3 * (time.perf_counter() - t0)
+    bms, by, ops, n_bytes = k3_bound(torch, seg_launch().rho)
+    # the segment's bytes add the carry read (q0, es0, t0)
+    bms, by = bound_ms(n_bytes + Cv * (K * 8 + 4), ops)
+    part("reading")
+    tmp.cleanup()
+    out = dict(
+        gpu=smi, grid=f"{P} policies x {S} scenarios x {N} seeds, T={T}, K={K}",
+        every_rounds=every, segments=bounds, grids=grids, families=fam,
+        scan_segmented=True, large_K=large, baselines=[p for p, _ in base], digest=digest,
+        segment=dict(shape=f"{Cv} cells x rounds {mid}-{mid + every} x K={K}", ms=ms,
+                     device_ms=dev_ms, device_records_seen=seen, plain_ms=plain_ms,
+                     plain_rounds=n, bound_ms=bms, bound_by=by, ops=ops,
+                     bytes=n_bytes + Cv * (K * 8 + 4),
+                     launches=grids["plain"]["launches"]["ocean_traj"]),
+        segment_metrics_launches=grids["metrics"]["launches"]["ocean_traj"],
+        parts_s=parts,
+    )
+    emit({"phase": "checkpoint", **out})
+    return out
+
+
 def _near_rounds(torch, rho, v_eta, radio):
     """Rounds (rows of ``rho``, priorities with the guard's demotions) whose
     best and runner-up prefix W of the plain K1 sweep lie within W_RTOL |W*|."""
@@ -2775,6 +3131,7 @@ def main() -> int:
     radio_grid, radio_args = timed("radio_grid", phase_radio_grid, torch, np, dev, smi)
     baselines = timed("baselines", phase_baselines, torch, np, dev, smi)
     telemetry = timed("telemetry", phase_telemetry, torch, np, dev, smi, rel_args, radio_args)
+    ckpt = timed("checkpoint", phase_checkpoint, torch, np, dev, smi, rel_args, radio_args)
     del rel_args, radio_args
     torch.cuda.empty_cache()
     k4 = timed("k4_flash", phase_k4, torch, dev, smi)
@@ -2832,6 +3189,10 @@ def main() -> int:
                                             if label == name or name == "chaos" and name in label),
                                **{k: robustness["k3"][name][k] for k in INSTANCE_KEYS})
                     for name in ("guard", "bisect", "chaos")},
+                 # the segment launches of checkpoint/resume: the §VI grid's
+                 # in the checkpoint phase, one timed alone
+                 "static+seg": dict(launches=ckpt["segment"]["launches"],
+                                    **{k: ckpt["segment"][k] for k in INSTANCE_KEYS}),
              }),
         dict(name="ocean_traj_metrics", route="cuda",
              source="src/repro_torch/csrc/ocean_traj_metrics.cu",
@@ -2841,10 +3202,12 @@ def main() -> int:
              ms=telemetry["k3_ms"], device_ms=telemetry["k3_device_ms"],
              plain_ms=telemetry["k3_plain_ms"], plain_rounds=telemetry["k3_plain_rounds"],
              bound_ms=telemetry["bound_ms"], bound_by=telemetry["bound_by"], library_ms=None,
-             instances={name: {k: r[k] for k in ("instance", "launches", "max_abs_err", "ms",
-                                                 "plain_ms", "plain_rounds", "bound_ms",
-                                                 "bound_by")}
-                        for name, r in telemetry["instances"].items()}),
+             instances={**{name: {k: r[k] for k in ("instance", "launches", "max_abs_err", "ms",
+                                                    "plain_ms", "plain_rounds", "bound_ms",
+                                                    "bound_by")}
+                           for name, r in telemetry["instances"].items()},
+                        # the §VI grid's HasMetrics segment launches (checkpoint phase)
+                        "metrics+seg": dict(launches=ckpt["segment_metrics_launches"])}),
         dict(name="flash_attention", route="cuda", source="src/repro_torch/csrc/flash_attention.cu",
              replaces="src/repro/kernels/flash_attention.py:32",
              launches=prefill["k4_launches"],

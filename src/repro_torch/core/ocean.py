@@ -18,18 +18,22 @@ leaves, ``repro_torch.env.radio``) and per-client delivery failures (a
 ``TracedFailure``, ``repro_torch.env.failure``) with the failure-aware
 modes ``overprovision`` and ``reallocate``, a ``GuardSpec``
 (``repro_torch.guard``: energy admission, solver fallback, quarantine)
-and a ``MetricsSpec`` (``repro_torch.obs``: per-round telemetry).  Hooks
-not ported yet — checkpoint/resume (segment launches) and bf16 streaming
-— keep their arguments and raise ``NotImplementedError``.
+and a ``MetricsSpec`` (``repro_torch.obs``: per-round telemetry).  With a
+``CheckpointSpec`` (``repro_torch.checkpoint``) ``simulate`` runs the
+trajectory as segments, one round loop or one K3 segment launch each, and
+snapshots the carry at every boundary; ``resume_from`` continues from the
+latest snapshot.  The hook not ported yet — bf16 streaming — keeps its
+argument and raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, NamedTuple, Optional, Tuple, Union
+from typing import NamedTuple, Optional, Tuple, Union
 
 import torch
 
 from repro_torch._device import resolve_device
+from repro_torch.checkpoint.trajectory import CheckpointSpec
 from repro_torch.core.bandwidth import solve_p4
 from repro_torch.core.energy import RadioParams, as_f32, energy, lead
 from repro_torch.core.selection import (
@@ -73,6 +77,16 @@ def check_failure_mode(name: str) -> str:
     return name
 
 
+def check_checkpoint_spec(spec):
+    """A ``CheckpointSpec`` or None; anything else raises ``TypeError``."""
+    if spec is not None and not isinstance(spec, CheckpointSpec):
+        raise TypeError(
+            f"checkpoint must be a repro_torch.checkpoint.CheckpointSpec or None; "
+            f"got {spec!r}"
+        )
+    return spec
+
+
 def check_traj_backend(name: str) -> str:
     if name not in TRAJ_BACKENDS:
         raise ValueError(
@@ -93,8 +107,9 @@ class OceanConfig:
     ``_failure_adjust``).  ``guard`` is a ``repro_torch.guard.GuardSpec``
     or None (every round as unguarded).  ``metrics`` is a
     ``repro_torch.obs.MetricsSpec`` or None (no telemetry; ``simulate``
-    then returns its 2-tuple).  ``checkpoint`` is a hook not ported yet:
-    setting it raises ``NotImplementedError``.
+    then returns its 2-tuple).  ``checkpoint`` is a
+    ``repro_torch.checkpoint.CheckpointSpec`` or None: with one,
+    ``simulate`` runs segmented and snapshots every ``every_rounds``.
     """
 
     num_clients: int
@@ -110,7 +125,7 @@ class OceanConfig:
     failure_mode: str = "plain"
     metrics: Optional[MetricsSpec] = None
     guard: Optional[GuardSpec] = None
-    checkpoint: Any = None
+    checkpoint: Optional[CheckpointSpec] = None
 
     def __post_init__(self):
         backend = get_solver(self.solver)
@@ -144,8 +159,7 @@ class OceanConfig:
                 )
             # the full-trace memory cap needs this config's (T, K)
             self.metrics.validate(self.num_rounds, self.num_clients)
-        if self.checkpoint is not None:
-            raise not_ported("OceanConfig.checkpoint (checkpoint/resume)")
+        check_checkpoint_spec(self.checkpoint)
 
     @property
     def R(self) -> int:
@@ -455,52 +469,12 @@ def _per_cell(x, C, shape, name, dev) -> torch.Tensor:
     return x.contiguous()
 
 
-def simulate(
-    cfg: OceanConfig,
-    h2_seq,
-    eta_seq,
-    v,
-    budgets=None,
-    budget_seq=None,
-    radio_seq=None,
-    failure_seq=None,
-    traj: Optional[str] = None,
-    stream_bf16: bool = False,
-    checkpoint=None,
-    resume_from=None,
-    *,
-    device=None,
-):
-    """Run T rounds for every cell; returns the final state and decisions,
-    and with ``cfg.metrics`` set a third element, the telemetry dict of
-    ``"<collector>/<reduction>"`` keys ((C, ...) tensors, full traces
-    (C, T, ...)).  ``cfg.metrics=None`` returns the 2-tuple, bit for bit as
-    without the hook.
-
-    ``h2_seq`` (C, T, K); ``eta_seq`` (T,) or (C, T); ``v`` a scalar or a
-    per-frame (M,) sequence; ``budgets`` (K,) or (C, K); ``budget_seq``
-    (T, K) or (C, T, K) per-round increments; ``radio_seq`` a
-    ``TracedRadio`` of (T,) or (C, T) leaves (None: the static
-    ``cfg.radio``); ``failure_seq`` a ``TracedFailure`` ((T, K) or
-    (C, T, K) mask, (K,) or (C, K) rates; None: no failures).  Decisions
-    come back stacked as (C, T, K) and (C, T).  Runs on the card unless
-    ``device="cpu"``.
-
-    ``budgets`` also sets a guard's energy cap on the scan path, as in the
-    reference; the fused path, like the reference's fused kernel, caps at
-    ``cfg.budgets()`` (``ROADMAP.md`` Queue 3).
-    """
-    traj = check_traj_backend(cfg.traj if traj is None else traj)
-    if stream_bf16:
-        if traj != "fused":
-            raise ValueError(
-                "stream_bf16=True requires the 'fused' trajectory backend; "
-                f"got traj={traj!r}"
-            )
-        raise not_ported("stream_bf16")
-    if checkpoint not in (None, False) or resume_from is not None:
-        raise not_ported("checkpoint/resume")
-    dev = resolve_device(device)
+def simulate_inputs(cfg, h2_seq, eta_seq, v, budgets, budget_seq, radio_seq, failure_seq,
+                    dev):
+    """``simulate``'s inputs with the cell axis, float32 on ``dev``: the
+    streams (h2 (C, T, K), V and eta (C, T), the per-round increments
+    (C, T, K), radio leaves (C, T) or None, the failure mask and rates
+    (C, T, K), (C, K) or None) and the budgets, (C, K) or None."""
     h2_seq = torch.as_tensor(h2_seq, dtype=torch.float32, device=dev)
     if h2_seq.dim() != 3 or tuple(h2_seq.shape[1:]) != (cfg.num_rounds, cfg.num_clients):
         raise ValueError(
@@ -527,38 +501,86 @@ def simulate(
             delivered=_per_cell(failure_seq.delivered, C, (T, K), "failure_seq.delivered", dev),
             rate=_per_cell(failure_seq.rate, C, (K,), "failure_seq.rate", dev),
         )
+    return (h2_seq, v_seq, eta_seq, budget_seq, radio_seq, failure_seq), budgets
+
+
+def simulate(
+    cfg: OceanConfig,
+    h2_seq,
+    eta_seq,
+    v,
+    budgets=None,
+    budget_seq=None,
+    radio_seq=None,
+    failure_seq=None,
+    traj: Optional[str] = None,
+    stream_bf16: bool = False,
+    checkpoint: Union[CheckpointSpec, None, bool] = None,
+    resume_from: Union[str, bool, None] = None,
+    *,
+    device=None,
+):
+    """Run T rounds for every cell; returns the final state and decisions,
+    and with ``cfg.metrics`` set a third element, the telemetry dict of
+    ``"<collector>/<reduction>"`` keys ((C, ...) tensors, full traces
+    (C, T, ...)).  ``cfg.metrics=None`` returns the 2-tuple, bit for bit as
+    without the hook.
+
+    ``h2_seq`` (C, T, K); ``eta_seq`` (T,) or (C, T); ``v`` a scalar or a
+    per-frame (M,) sequence; ``budgets`` (K,) or (C, K); ``budget_seq``
+    (T, K) or (C, T, K) per-round increments; ``radio_seq`` a
+    ``TracedRadio`` of (T,) or (C, T) leaves (None: the static
+    ``cfg.radio``); ``failure_seq`` a ``TracedFailure`` ((T, K) or
+    (C, T, K) mask, (K,) or (C, K) rates; None: no failures).  Decisions
+    come back stacked as (C, T, K) and (C, T).  Runs on the card unless
+    ``device="cpu"``.
+
+    ``budgets`` also sets a guard's energy cap on the scan path, as in the
+    reference; the fused path, like the reference's fused kernel, caps at
+    ``cfg.budgets()`` (``ROADMAP.md`` Queue 3).
+
+    ``checkpoint`` (default ``None``: ``cfg.checkpoint``; ``False`` forces
+    it off) switches to **segmented execution**: the T rounds run as
+    segments ending on multiples of ``every_rounds`` — one round loop, or
+    one K3 segment launch on ``traj="fused"``, each — with the carry
+    (queues, spent energy, round index, the metrics state) and the
+    decision and trace prefix snapshotted atomically at every boundary.
+    ``resume_from`` (a snapshot directory, or ``True`` for the spec's own)
+    restores the latest committed snapshot and continues from it.  The
+    segmented run equals the single-program run bit for bit, and a
+    resumed run the uninterrupted one, on both trajectory backends.
+    """
+    traj = check_traj_backend(cfg.traj if traj is None else traj)
+    if stream_bf16:
+        if traj != "fused":
+            raise ValueError(
+                "stream_bf16=True requires the 'fused' trajectory backend; "
+                f"got traj={traj!r}"
+            )
+        raise not_ported("stream_bf16")
+    ckpt_spec = check_checkpoint_spec(cfg.checkpoint if checkpoint is None
+                                      else (checkpoint or None))
+    if resume_from is False:
+        resume_from = None
+    dev = resolve_device(device)
+    streams, budgets = simulate_inputs(cfg, h2_seq, eta_seq, v, budgets, budget_seq, radio_seq,
+                                       failure_seq, dev)
+    if ckpt_spec is not None or resume_from is not None:
+        return _simulate_segmented(cfg, traj, ckpt_spec, resume_from, streams, budgets)
 
     if traj == "fused":
         from repro_torch.kernels.ocean_traj import ocean_trajectory_fused
 
-        return ocean_trajectory_fused(
-            cfg, h2_seq, v_seq, eta_seq, budget_seq, radio_seq, failure_seq
-        )
+        return ocean_trajectory_fused(cfg, *streams)
 
     spec = cfg.metrics
-    state = init_state(cfg, C, device=dev)
-    mstate = None if spec is None else init_metrics(spec, cfg, C, device=dev)
-    decs, traces = [], []
-    for t in range(T):
-        radio_t = None if radio_seq is None else radio_seq.at(t)
-        new_state, dec = ocean_round(
-            state, h2_seq[:, t], v_seq[:, t], eta_seq[:, t], cfg, budgets,
-            budget_inc=budget_seq[:, t],
-            radio=radio_t,
-            delivered=None if failure_seq is None else failure_seq.delivered[:, t],
-            fail_rate=None if failure_seq is None else failure_seq.rate,
-        )
-        if spec is not None:
-            # the collectors read the round's outputs and never change them
-            ctx = round_context(state.t, dec, new_state, v_seq[:, t], eta_seq[:, t],
-                                budget_seq[:, t], cfg.radio if radio_t is None else radio_t)
-            mstate, tr = metrics_round(spec, cfg, ctx, mstate)
-            traces.append(tr)
-        state = new_state
-        decs.append(dec)
+    C = streams[0].shape[0]
+    state, mstate, decs, traces = segment_step(
+        cfg, "scan", init_state(cfg, C, device=dev),
+        None if spec is None else init_metrics(spec, cfg, C, device=dev), streams, budgets)
     if spec is None:
-        return state, stack_decisions(decs)
-    return state, stack_decisions(decs), finalize_metrics(spec, cfg, mstate, stack_traces(traces))
+        return state, decs
+    return state, decs, finalize_metrics(spec, cfg, mstate, traces)
 
 
 def stack_decisions(decs) -> RoundDecision:
@@ -570,3 +592,161 @@ def stack_decisions(decs) -> RoundDecision:
             for f in RoundDecision._fields
         )
     )
+
+
+# ---------------------------------------------------------------------------
+# Segmented execution with preemption-safe checkpoint/resume.
+#
+# The T-round trajectory is split at multiples of ``every_rounds``; each
+# segment is one round loop (or one K3 segment launch) continuing from the
+# carried state, so the concatenated decisions are the same operations as
+# the single-program run.  At every boundary the carry and the decision /
+# trace prefix are snapshotted through ``repro_torch.checkpoint`` (atomic
+# replace, bit-exact dtypes); a resumed run re-enters the same segment
+# grid, which makes resumed == uninterrupted a structural identity.
+# ---------------------------------------------------------------------------
+def slice_rounds(streams, t0: int, t1: int):
+    """Rounds [t0, t1) of ``simulate``'s (h2, v, eta, increments, radio,
+    failure) streams, contiguous; a failure's (C, K) rates go whole."""
+    h2, v, eta, inc, radio, failure = streams
+
+    def sl(x):
+        return x[:, t0:t1].contiguous()
+
+    return (sl(h2), sl(v), sl(eta), sl(inc), None if radio is None else radio.map(sl),
+            None if failure is None else failure._replace(delivered=sl(failure.delivered)))
+
+
+def segment_step(cfg, traj, state, mstate, streams, budgets=None):
+    """The rounds of ``streams`` (``slice_rounds``) from a carry:
+    ``(state', mstate', stacked decisions, stacked full traces)``, the
+    telemetry unfinalized (``mstate`` and the traces None without
+    ``cfg.metrics``).  ``traj="fused"`` is one K3 segment launch."""
+    spec = cfg.metrics
+    h2, v, eta, inc, radio, failure = streams
+    if traj == "fused":
+        from repro_torch.kernels.ocean_traj import ocean_trajectory_fused
+
+        out = ocean_trajectory_fused(cfg, *streams, init_state=state, init_mstate=mstate,
+                                     raw_metrics=True)
+        if spec is None:
+            return out[0], None, out[1], None
+        return out[0], out[2], out[1], out[3]
+    decs, traces = [], []
+    for t in range(h2.shape[1]):
+        radio_t = None if radio is None else radio.at(t)
+        new_state, dec = ocean_round(
+            state, h2[:, t], v[:, t], eta[:, t], cfg, budgets,
+            budget_inc=inc[:, t],
+            radio=radio_t,
+            delivered=None if failure is None else failure.delivered[:, t],
+            fail_rate=None if failure is None else failure.rate,
+        )
+        if spec is not None:
+            # the collectors read the round's outputs and never change them
+            ctx = round_context(state.t, dec, new_state, v[:, t], eta[:, t],
+                                inc[:, t], cfg.radio if radio_t is None else radio_t)
+            mstate, tr = metrics_round(spec, cfg, ctx, mstate)
+            traces.append(tr)
+        state = new_state
+        decs.append(dec)
+    return state, mstate, stack_decisions(decs), None if spec is None else stack_traces(traces)
+
+
+def concat_rounds(parts):
+    """Concatenate per-segment results (tensors, dicts, NamedTuples, None)
+    along the round axis after the cell axis."""
+    first = parts[0]
+    if len(parts) == 1 or first is None:
+        return first
+    if isinstance(first, torch.Tensor):
+        return torch.cat(parts, dim=1)
+    if isinstance(first, dict):
+        return {k: concat_rounds([p[k] for p in parts]) for k in first}
+    return type(first)(*(concat_rounds([p[i] for p in parts]) for i in range(len(first))))
+
+
+def resume_directory(ckpt_spec, resume_from) -> str:
+    """The directory ``resume_from`` names: the spec's for ``True``."""
+    if resume_from is True:
+        if ckpt_spec is None:
+            raise ValueError(
+                "resume_from=True needs a CheckpointSpec to name the snapshot directory"
+            )
+        return ckpt_spec.directory
+    return str(resume_from)
+
+
+def latest_snapshot_round(directory: str) -> int:
+    """The latest committed snapshot round in ``directory``; raises
+    ``FileNotFoundError`` when there is none."""
+    from repro_torch.checkpoint import trajectory as ckpt_io
+
+    r = ckpt_io.latest_round(directory)
+    if r is None:
+        raise FileNotFoundError(f"resume_from: no committed snapshots in {directory!r}")
+    return r
+
+
+def traces_like(cfg, C: int, r: int):
+    """The template of r rounds of ``cfg.metrics``' full traces, by key."""
+    from repro_torch.checkpoint import TensorSpec
+    from repro_torch.obs.metrics import get_collector, metric_key
+
+    return {metric_key(n, "full_trace"): TensorSpec(
+        (C, r) + get_collector(n).shape(cfg.num_clients), torch.float32)
+        for n in cfg.metrics.full_trace_entries}
+
+
+def _decisions_like(cfg, C: int, r: int, has_failure: bool) -> RoundDecision:
+    """The template of r rounds of stacked decisions."""
+    from repro_torch.checkpoint import TensorSpec
+
+    K = cfg.num_clients
+    f32, i32 = torch.float32, torch.int32
+    rows = {f: TensorSpec((C, r, K), f32) for f in ("b", "e", "q", "rho")}
+    cell = dict(objective=TensorSpec((C, r), f32), num_selected=TensorSpec((C, r), i32))
+    if has_failure:
+        cell.update(delivered=TensorSpec((C, r, K), torch.bool), realloc=TensorSpec((C, r), i32))
+    if cfg.guard is not None:
+        cell.update({f: TensorSpec((C, r), i32) for f in ("fault_count", "demoted", "fallback")})
+    return RoundDecision(a=TensorSpec((C, r, K), torch.bool), **rows, **cell)
+
+
+def _simulate_segmented(cfg, traj, ckpt_spec, resume_from, streams, budgets):
+    from repro_torch.checkpoint import trajectory as ckpt_io
+
+    spec = cfg.metrics
+    C, T = streams[0].shape[:2]
+    dev = streams[0].device
+    every = ckpt_spec.every_rounds if ckpt_spec is not None else T
+    state = init_state(cfg, C, device=dev)
+    mstate = None if spec is None else init_metrics(spec, cfg, C, device=dev)
+    decs = traces = None
+    start = 0
+    if resume_from is not None:
+        directory = resume_directory(ckpt_spec, resume_from)
+        r = latest_snapshot_round(directory)
+        # the template from known shapes (the zero carry has the carry's):
+        # nothing of the prefix is recomputed
+        like = {"state": state, "decs": _decisions_like(cfg, C, r, streams[5] is not None)}
+        if spec is not None:
+            like.update(mstate=mstate, traces=traces_like(cfg, C, r))
+        snap, start = ckpt_io.load_snapshot(directory, like, r, device=dev)
+        state, decs = snap["state"], snap["decs"]
+        if spec is not None:
+            mstate, traces = snap["mstate"], snap["traces"]
+    for t0, t1 in ckpt_io.segment_bounds(T, every, start):
+        state, mstate, decs_s, traces_s = segment_step(
+            cfg, traj, state, mstate, slice_rounds(streams, t0, t1), budgets)
+        decs = decs_s if decs is None else concat_rounds([decs, decs_s])
+        if spec is not None:
+            traces = traces_s if traces is None else concat_rounds([traces, traces_s])
+        if ckpt_spec is not None:
+            snapshot = {"state": state, "decs": decs}
+            if spec is not None:
+                snapshot.update(mstate=mstate, traces=traces)
+            ckpt_io.save_snapshot(ckpt_spec, snapshot, t1)
+    if spec is None:
+        return state, decs
+    return state, decs, finalize_metrics(spec, cfg, mstate, traces)

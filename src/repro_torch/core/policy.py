@@ -7,9 +7,17 @@ Every policy is a function
 looked up by name: OCEAN (``ocean``, the eta variants ``ocean-a`` /
 ``ocean-d`` / ``ocean-u`` and the failure-aware ``ocean-over`` /
 ``ocean-realloc``), the baselines ``select_all`` / ``smo`` / ``amo``, and
-the stochastic count ``pattern``.  The reference's ``seg_init``/``seg_fn``
-slots (segmented execution for checkpoint/resume) stay empty until that
-hook is ported.
+the stochastic count ``pattern``.  Each also registers the hooks of
+segmented execution (checkpoint/resume, ``repro_torch.sim.engine``):
+
+    seg_init(cfg, num_cells, device) -> carry
+    seg_fn(cfg, carry, h2_full, params, t0, n, *, device) -> (carry', trace)
+
+``seg_fn`` runs rounds t0 .. t0 + n - 1 of the full (C, T, K) streams from
+the carry; the segments' traces concatenated equal the unsegmented trace
+bit for bit.  OCEAN's carry is ``(OceanState, MetricsState or None)`` and
+its trace carries the raw full traces (finalized once, from the last
+carry), AMO's the spent energy, the others' none.
 """
 from __future__ import annotations
 
@@ -18,8 +26,15 @@ from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple, Union
 
 import torch
 
-from repro_torch.core.baselines import PolicyTrace, amo, select_all, smo
-from repro_torch.core.ocean import OceanConfig, simulate
+from repro_torch.core.baselines import PolicyTrace, amo, amo_segment, select_all, smo
+from repro_torch.core.ocean import (
+    OceanConfig,
+    init_state,
+    segment_step,
+    simulate,
+    simulate_inputs,
+    slice_rounds,
+)
 from repro_torch.core.patterns import eta_schedule
 
 __all__ = [
@@ -49,6 +64,7 @@ class PolicyParams(NamedTuple):
 
 
 TraceFn = Callable[[OceanConfig, torch.Tensor, PolicyParams], PolicyTrace]
+SegFn = Callable[..., Tuple[Any, PolicyTrace]]
 
 
 class Policy(NamedTuple):
@@ -56,8 +72,8 @@ class Policy(NamedTuple):
     trace_fn: TraceFn
     default_eta: Optional[str] = None
     needs_key: bool = False
-    seg_init: Optional[Callable] = None  # segmented execution: not ported yet
-    seg_fn: Optional[Callable] = None
+    seg_init: Optional[Callable] = None  # segmented execution (checkpoint/resume)
+    seg_fn: Optional[SegFn] = None
 
 
 _REGISTRY: Dict[str, Policy] = {}
@@ -71,8 +87,13 @@ def register_policy(
     *,
     default_eta: Optional[str] = None,
     needs_key: bool = False,
+    seg_init: Optional[Callable] = None,
+    seg_fn: Optional[SegFn] = None,
 ) -> Policy:
-    pol = Policy(name, trace_fn, default_eta, needs_key)
+    """Register ``trace_fn`` under ``name``; ``seg_init``/``seg_fn`` are the
+    hooks of segmented execution (module docstring), without which a
+    checkpointed grid refuses the policy."""
+    pol = Policy(name, trace_fn, default_eta, needs_key, seg_init, seg_fn)
     _REGISTRY[name] = pol
     return pol
 
@@ -239,14 +260,114 @@ def _pattern_fn(cfg, h2_seq, params: PolicyParams, *, device=None):
     return PolicyTrace(*(x if not isinstance(x, torch.Tensor) else x.to(device) for x in tr))
 
 
-register_policy("select_all", _select_all_fn)
-register_policy("smo", _smo_fn)
-register_policy("amo", _amo_fn)
-register_policy("ocean", _ocean_fn)
+# --------------------------------------------------------------------------
+# segmented-execution hooks (checkpoint/resume; see sim/engine.py)
+# --------------------------------------------------------------------------
+def _rounds(x, t0: int, n: int):
+    """Rounds t0 .. t0 + n - 1 of a (C, T, ...) stream (None passes)."""
+    return None if x is None else x[:, t0:t0 + n]
+
+
+def _radio_rounds(radio_seq, t0: int, n: int):
+    return None if radio_seq is None else radio_seq.map(lambda x: _rounds(x, t0, n))
+
+
+def _failure_rounds(failure_seq, t0: int, n: int):
+    """A ``TracedFailure``'s rounds: only the (C, T, K) mask has a round
+    axis; the (C, K) declared rates pass whole."""
+    if failure_seq is None:
+        return None
+    return failure_seq._replace(delivered=_rounds(failure_seq.delivered, t0, n))
+
+
+def _stateless_init(cfg, num_cells, device):
+    return ()
+
+
+def _select_all_seg(cfg, carry, h2_full, params, t0, n, *, device=None):
+    return carry, select_all(cfg, _rounds(_on(h2_full, device), t0, n),
+                             radio_seq=_radio_rounds(params.radio_seq, t0, n),
+                             failure_seq=_failure_rounds(params.failure_seq, t0, n))
+
+
+def _smo_seg(cfg, carry, h2_full, params, t0, n, *, device=None):
+    # the default H_k / T cap is the same on any slice; only a time-varying
+    # budget_seq needs the global offset
+    return carry, smo(cfg, _rounds(_on(h2_full, device), t0, n), budgets=params.budgets,
+                      budget_seq=_rounds(params.budget_seq, t0, n),
+                      radio_seq=_radio_rounds(params.radio_seq, t0, n),
+                      failure_seq=_failure_rounds(params.failure_seq, t0, n))
+
+
+def _amo_seg_init(cfg, num_cells, device):
+    return torch.zeros((num_cells, cfg.num_clients), dtype=torch.float32, device=device)
+
+
+def _amo_seg(cfg, spent, h2_full, params, t0, n, *, device=None):
+    # the global rounds: AMO's recycling rate depends on the rounds left
+    return amo_segment(cfg, spent, _rounds(_on(h2_full, device), t0, n), range(t0, t0 + n),
+                       budgets=params.budgets, radio_seq=_radio_rounds(params.radio_seq, t0, n),
+                       failure_seq=_failure_rounds(params.failure_seq, t0, n))
+
+
+def _pattern_seg(cfg, carry, h2_full, params, t0, n, *, device=None):
+    if params.counts is None:
+        raise ValueError("policy 'pattern' requires PolicyParams.counts (T,)")
+    # the SAME full (C, T, K) block of uniforms every segment, drawn from a
+    # copy of the key's state, sliced: the rounds' scores are the
+    # unsegmented run's wherever the boundaries fall
+    gen = torch.Generator(device=params.key.device)
+    gen.set_state(params.key.get_state())
+    counts = torch.as_tensor(params.counts)
+    scores = torch.rand((h2_full.shape[0], counts.shape[-1], cfg.num_clients), generator=gen,
+                        device=gen.device)
+    counts = counts[t0:t0 + n]
+    tr = pattern_trace_scores(scores[:, t0:t0 + n], counts)
+    return carry, PolicyTrace(*(x if not isinstance(x, torch.Tensor) else x.to(device)
+                                for x in tr))
+
+
+def _ocean_seg_init(cfg, num_cells, device):
+    from repro_torch.obs.metrics import init_metrics
+
+    mstate = None if cfg.metrics is None else init_metrics(cfg.metrics, cfg, num_cells,
+                                                           device=device)
+    return init_state(cfg, num_cells, device=device), mstate
+
+
+def _ocean_seg(cfg, carry, h2_full, params, t0, n, *, device=None):
+    state, mstate = carry
+    streams, budgets = simulate_inputs(cfg, h2_full, params.eta, params.v, params.budgets,
+                                       params.budget_seq, params.radio_seq, params.failure_seq,
+                                       device)
+    state, mstate, decs, traces = segment_step(cfg, cfg.traj, state, mstate,
+                                               slice_rounds(streams, t0, t0 + n), budgets)
+    # the raw full traces (not finalized): the segmented grid concatenates
+    # them and finalizes once from the last carry
+    return (state, mstate), PolicyTrace(
+        a=decs.a, b=decs.b, e=decs.e, num_selected=decs.num_selected,
+        metrics=traces, delivered=decs.delivered, q=decs.q,
+    )
+
+
+def _ocean_mode_seg(mode: str) -> SegFn:
+    def fn(cfg, carry, h2_full, params, t0, n, *, device=None):
+        return _ocean_seg(dataclasses.replace(cfg, failure_mode=mode), carry, h2_full, params,
+                          t0, n, device=device)
+    return fn
+
+
+register_policy("select_all", _select_all_fn, seg_init=_stateless_init, seg_fn=_select_all_seg)
+register_policy("smo", _smo_fn, seg_init=_stateless_init, seg_fn=_smo_seg)
+register_policy("amo", _amo_fn, seg_init=_amo_seg_init, seg_fn=_amo_seg)
+register_policy("ocean", _ocean_fn, seg_init=_ocean_seg_init, seg_fn=_ocean_seg)
 for _v, _sched in _OCEAN_VARIANTS.items():
-    register_policy(f"ocean-{_v}", _ocean_fn, default_eta=_sched)
+    register_policy(f"ocean-{_v}", _ocean_fn, default_eta=_sched,
+                    seg_init=_ocean_seg_init, seg_fn=_ocean_seg)
 # failure-aware OCEAN as policy names, so a grid sweeps them beside plain
 # OCEAN; without a failure process they run the plain program
 for _mode, _suffix in (("overprovision", "over"), ("reallocate", "realloc")):
-    register_policy(f"ocean-{_suffix}", _ocean_mode_fn(_mode))
-register_policy("pattern", _pattern_fn, needs_key=True)
+    register_policy(f"ocean-{_suffix}", _ocean_mode_fn(_mode),
+                    seg_init=_ocean_seg_init, seg_fn=_ocean_mode_seg(_mode))
+register_policy("pattern", _pattern_fn, needs_key=True,
+                seg_init=_stateless_init, seg_fn=_pattern_seg)

@@ -3,13 +3,13 @@
 A scenario is the channel (a path-loss drift with optional i.i.d.
 Rayleigh fading, or any registered process through ``env``), radio
 physics, budgets, the eta schedule, (T, K), the frame length, the
-failure mode, the guard, the telemetry spec and the solver / ranking /
-trajectory knobs.
+failure mode, the guard, the telemetry spec, the checkpoint spec and the
+solver / ranking / trajectory knobs.
 ``env`` (an ``EnvSpec``) picks the channel, budget, radio and failure
 processes of ``repro_torch.env``; without it the legacy fields lower to
 ``iid_rayleigh`` / ``static`` / ``static`` / ``none``.  A dict that sets
-a field not ported yet (``checkpoint``) raises ``NotImplementedError``
-naming it; it is never silently dropped.
+a field the port does not know raises ``NotImplementedError`` naming it;
+it is never silently dropped.
 """
 from __future__ import annotations
 
@@ -20,10 +20,12 @@ from typing import Any, Dict, Optional, Tuple, Union
 import torch
 
 from repro_torch._device import resolve_device
+from repro_torch.checkpoint.trajectory import CheckpointSpec
 from repro_torch.core.channel import ChannelModel, constant_pathloss, linear_pathloss
 from repro_torch.core.energy import RadioParams
 from repro_torch.core.ocean import (
     OceanConfig,
+    check_checkpoint_spec,
     check_failure_mode,
     check_traj_backend,
     not_ported,
@@ -47,13 +49,6 @@ from repro_torch.env.spec import (
 from repro_torch.guard.spec import GuardSpec
 from repro_torch.obs.metrics import MetricsSpec
 
-# Fields of the reference Scenario not ported yet, with the value that
-# means "off" (a payload may carry them only at that value).
-_UNPORTED_FIELDS = {
-    "checkpoint": None,
-}
-
-
 @dataclasses.dataclass(frozen=True)
 class Scenario:
     """One point on the scenario axis of a (policy, scenario, seed) grid."""
@@ -74,6 +69,7 @@ class Scenario:
     block_k: int = DEFAULT_BLOCK_K
     traj: str = "scan"
     metrics: Optional[MetricsSpec] = None
+    checkpoint: Optional[CheckpointSpec] = None
     failure_mode: str = "plain"
     guard: Optional[GuardSpec] = None
 
@@ -114,6 +110,7 @@ class Scenario:
                 f"guard must be a repro_torch.guard.GuardSpec or None, got "
                 f"{type(self.guard).__name__}"
             )
+        check_checkpoint_spec(self.checkpoint)
 
     def ocean_config(self) -> OceanConfig:
         return OceanConfig(
@@ -128,6 +125,7 @@ class Scenario:
             block_k=self.block_k,
             traj=self.traj,
             metrics=self.metrics,
+            checkpoint=self.checkpoint,
             failure_mode=self.failure_mode,
             guard=self.guard,
         )
@@ -247,6 +245,10 @@ class Scenario:
             d.pop("metrics")
         else:
             d["metrics"] = self.metrics.to_dict()
+        if self.checkpoint is None:
+            d.pop("checkpoint")  # keep pre-checkpoint payloads byte-stable
+        else:
+            d["checkpoint"] = self.checkpoint.to_dict()
         if self.guard is None:
             d.pop("guard")
         else:
@@ -258,13 +260,9 @@ class Scenario:
         """Build from a dict; raises on any field this slice does not take."""
         known = {f.name for f in dataclasses.fields(cls)}
         d = dict(d)
-        for key in list(d):
-            if key in known:
-                continue
-            if key in _UNPORTED_FIELDS and d[key] == _UNPORTED_FIELDS[key]:
-                d.pop(key)
-                continue
-            raise not_ported(f"Scenario field {key!r}={d[key]!r}")
+        for key in d:
+            if key not in known:
+                raise not_ported(f"Scenario field {key!r}={d[key]!r}")
         d["pathloss_db"] = tuple(d.get("pathloss_db", (36.0, 36.0)))
         if isinstance(d.get("radio"), dict):
             radio_known = {f.name for f in dataclasses.fields(RadioParams)}
@@ -278,6 +276,8 @@ class Scenario:
             d["env"] = EnvSpec.from_dict(d["env"])
         if isinstance(d.get("metrics"), dict):
             d["metrics"] = MetricsSpec.from_dict(d["metrics"])
+        if isinstance(d.get("checkpoint"), dict):
+            d["checkpoint"] = CheckpointSpec.from_dict(d["checkpoint"])
         if isinstance(d.get("guard"), dict):
             d["guard"] = GuardSpec.from_dict(d["guard"])
         return cls(**d)

@@ -65,6 +65,15 @@
 //               that only the cell's block touches.  What to collect is a
 //               launch descriptor (MetricsDesc), a __grid_constant__
 //               parameter; the instances without it take an empty one.
+// Every instance also runs as a segment of a longer trajectory (the
+// checkpoint/resume launches): runtime arguments, no template
+// flag.  A segment launch seeds q and the spent energy from q0/es0 (C, K)
+// and its first global round from t0 (C,), resets frames and times the
+// telemetry by the global round t0 + t (rows stay launch-local), and with
+// HasMetrics seeds the per-cell region and the running counters from a
+// (C, region + 4) copy (MetricsDesc::seed) and writes them back at the
+// end (MetricsDesc::raw).  A whole launch passes null pointers: t0 = 0, a
+// zero carry, the empty region.
 // Scope: ranking="sort", solver="pallas" or "bisect" (and chaos backends
 // of either); K <= 2048 (the sort and the per-client state live in shared
 // memory).
@@ -125,6 +134,8 @@ struct TrajArgs {
   const float *r_bmin, *r_beta, *r_scale;  // (C, T) radio streams
   const float *dlv, *rate;                 // (C, T, K) delivery mask, (C, K) rates
   const float* frac;                       // the masked P4's grid fractions
+  const float *q0, *es0;                   // (C, K) a segment's carry, or null: zeros
+  const int* t0;                           // (C,) a segment's first global round, or null
   uint8_t* a_out;
   float *b_out, *e_out, *qpre_out, *rho_out, *obj_out;
   int* nsel_out;
@@ -132,6 +143,7 @@ struct TrajArgs {
   uint8_t* dlv_out;
   int* ral_out;
   int T, K, P, R;
+  int T_total;               // the whole trajectory's rounds (full_trace_ds' slots)
   float b_min, beta, scale;  // the static radio (instances without HasRadio)
   int outer, inner;          // the sweep's Newton steps
   int mode;                  // failure mode: kPlain, kOverprovision, kReallocate
@@ -162,6 +174,9 @@ constexpr int kMaxEntries = kNumCollectors * 5;
 // The block sums of a round's scalar terms: sum q^2, sum q_next^2, sum q e,
 // sum b, the b_min clamp count, the delivered count, the wasted energy.
 constexpr int kMetricSums = 7;
+// The running counters: reallocations, quarantined draws, demotions,
+// fallback rounds.
+constexpr int kCounters = 4;
 
 // The instances without telemetry.
 struct NoMetrics {
@@ -186,6 +201,11 @@ struct MetricsDesc {
   int stride;                  // full_trace_ds's stride
   int bins;                    // histogram bins
   float* scratch;              // (C, region) global region where it does not fit
+  // A segment launch: the region and the four running counters of every
+  // cell, (C, region + kCounters), to start from (seed) and to leave
+  // behind (raw); null: the empty region, nothing written back.
+  const float* seed;
+  float* raw;
   int col[kMaxEntries], red[kMaxEntries], off[kMaxEntries];
   float lo[kMaxEntries], width[kMaxEntries];  // histogram: lo and bin width
   float* out[kMaxEntries];     // the entry's output
@@ -245,12 +265,13 @@ __device__ __forceinline__ int hist_bin(float v, float lo, float width, int bins
   return f >= (float)(bins - 1) ? bins - 1 : (f >= 0.f ? (int)f : 0);
 }
 
-// One reduction of entry j on a value of the cell's round t: ``elem`` is
-// the client (per-client collectors, every thread for its own clients) or
-// 0 with ``width`` 1 (scalar collectors, one thread an entry).
+// One reduction of entry j on a value of the cell's round t (tg the
+// global round, T_total the trajectory's rounds): ``elem`` is the client
+// (per-client collectors, every thread for its own clients) or 0 with
+// ``width`` 1 (scalar collectors, one thread an entry).
 __device__ __forceinline__ void metrics_reduce(const MetricsDesc& md, const MetricsEntry& e,
                                                float* reg, float v, int c, int elem, int width,
-                                               int T, int t) {
+                                               int T, int t, int tg, int T_total) {
   switch (e.red) {
     case kLast:
       if (t == T - 1) e.out[(size_t)c * width + elem] = v;
@@ -265,9 +286,9 @@ __device__ __forceinline__ void metrics_reduce(const MetricsDesc& md, const Metr
       e.out[((size_t)c * T + t) * width + elem] = v;
       break;
     default:  // kTraceDs
-      if (t % md.stride == 0) {
-        const int slots = (T + md.stride - 1) / md.stride;
-        e.out[((size_t)c * slots + t / md.stride) * width + elem] = v;
+      if (tg % md.stride == 0) {
+        const int slots = (T_total + md.stride - 1) / md.stride;
+        e.out[((size_t)c * slots + tg / md.stride) * width + elem] = v;
       }
   }
 }
@@ -282,7 +303,8 @@ template <bool HasFailure>
 __device__ __forceinline__ void metrics_pass(const MetricsDesc& md, const TrajArgs& args,
                                              const MetricsEntry* s_ent, float* reg,
                                              float* s_msum, const float* s_q,
-                                             const float* s_es, int c, int t, size_t row,
+                                             const float* s_es, int c, int t, int tg,
+                                             size_t row,
                                              int n_act, float v_eta, float b_min, float ral,
                                              float n_fault, float n_dem, float fell,
                                              float (&ctr)[4]) {
@@ -317,9 +339,9 @@ __device__ __forceinline__ void metrics_pass(const MetricsDesc& md, const TrajAr
     if (md.last >= 0) {
       const float lt = reg[md.last + k];
       const bool take = a && lt >= 0.f;
-      const float gs = reg[md.gsum + k] + (take ? (float)(t - (int)lt) : 0.f);
+      const float gs = reg[md.gsum + k] + (take ? (float)(tg - (int)lt) : 0.f);
       const float gn = reg[md.gn + k] + (take ? 1.f : 0.f);
-      if (a) reg[md.last + k] = (float)t;
+      if (a) reg[md.last + k] = (float)tg;
       reg[md.gsum + k] = gs;
       reg[md.gn + k] = gn;
       gap = gs / jmax(gn, 1.f);
@@ -334,7 +356,7 @@ __device__ __forceinline__ void metrics_pass(const MetricsDesc& md, const TrajAr
         case kSelectionCount: v = cnt; break;
         default: v = gap;  // kSelectionGap
       }
-      metrics_reduce(md, e, reg, v, c, k, K, T, t);
+      metrics_reduce(md, e, reg, v, c, k, K, T, t, tg, args.T_total);
     }
   }
   block_sum_n<kMetricSums>(part, s_msum);
@@ -362,7 +384,7 @@ __device__ __forceinline__ void metrics_pass(const MetricsDesc& md, const TrajAr
       case kFallbackRounds: v = ctr[3]; break;
       default: v = 0.f;  // kTopmSaturated: ranking="sort", the only one K3 runs
     }
-    metrics_reduce(md, e, reg, v, c, 0, 1, T, t);
+    metrics_reduce(md, e, reg, v, c, 0, 1, T, t, tg, args.T_total);
   }
 }
 
@@ -402,6 +424,7 @@ __global__ void __maxnreg__(NT == 32 ? kMaxRegs : 128)
   float* s_cap = s_h2 + K;                                                // K
   const int c = blockIdx.x, tid = threadIdx.x, nt = blockDim.x;
   const int lane = tid & 31;
+  const int t0 = args.t0 != nullptr ? args.t0[c] : 0;  // the first global round
   const bool admits = (args.guard & (kQuarantine | kFloor)) != 0 || args.cap != nullptr;
   // HasMetrics: past the round's own layout (16-byte aligned) the entries,
   // the block-sum scratch, then the cell's region there or in the global
@@ -409,7 +432,7 @@ __global__ void __maxnreg__(NT == 32 ? kMaxRegs : 128)
   MetricsEntry* s_ent = nullptr;
   float* s_msum = nullptr;
   float* reg = nullptr;
-  float mctr[4] = {0.f, 0.f, 0.f, 0.f};  // the running counters (block-uniform)
+  float mctr[kCounters] = {0.f, 0.f, 0.f, 0.f};  // the running counters (block-uniform)
   if constexpr (HasMetrics) {
     const size_t base = (traj_smem(K, P, nteams, HasFailure, HasGuard) + 15) & ~(size_t)15;
     s_ent = reinterpret_cast<MetricsEntry*>(reinterpret_cast<char*>(smem) + base);
@@ -417,13 +440,20 @@ __global__ void __maxnreg__(NT == 32 ? kMaxRegs : 128)
     reg = md.in_smem ? s_msum + 32 * kMetricSums : md.scratch + (size_t)c * md.region;
     for (int j = tid; j < md.n; j += nt)
       s_ent[j] = MetricsEntry{md.out[j], md.col[j], md.red[j], md.off[j], md.lo[j], md.width[j]};
-    for (int i = tid; i < md.region; i += nt)
-      reg[i] = md.last >= 0 && i >= md.last && i < md.last + K ? -1.f : 0.f;
+    if (md.seed != nullptr) {
+      const float* seed = md.seed + (size_t)c * (md.region + kCounters);
+      for (int i = tid; i < md.region; i += nt) reg[i] = seed[i];
+#pragma unroll
+      for (int j = 0; j < kCounters; ++j) mctr[j] = seed[md.region + j];
+    } else {
+      for (int i = tid; i < md.region; i += nt)
+        reg[i] = md.last >= 0 && i >= md.last && i < md.last + K ? -1.f : 0.f;
+    }
   }
 
   for (int i = tid; i < K; i += nt) {
-    s_q[i] = 0.f;
-    s_es[i] = 0.f;
+    s_q[i] = args.q0 != nullptr ? args.q0[(size_t)c * K + i] : 0.f;
+    s_es[i] = args.es0 != nullptr ? args.es0[(size_t)c * K + i] : 0.f;
     if constexpr (HasFailure) s_rate[i] = args.rate[(size_t)c * K + i];
     if constexpr (HasGuard) s_cap[i] = args.cap != nullptr ? args.cap[i] : 0.f;
   }
@@ -433,7 +463,8 @@ __global__ void __maxnreg__(NT == 32 ? kMaxRegs : 128)
     const size_t ct = (size_t)c * T + t;
     const size_t row = ct * K;
     const float* h2_t = args.h2 + row;
-    const bool reset = t > 0 && (t % R) == 0;
+    const int tg = t0 + t;  // the global round: frame resets and telemetry
+    const bool reset = tg > 0 && (tg % R) == 0;
     float b_min = args.b_min, beta = args.beta, scale = args.scale;
     if constexpr (HasRadio) {
       b_min = args.r_bmin[ct];
@@ -676,7 +707,8 @@ __global__ void __maxnreg__(NT == 32 ? kMaxRegs : 128)
     }
     __syncthreads();  // this round's queue writes before the next round's reads
     if constexpr (HasMetrics) {
-      metrics_pass<HasFailure>(md, args, s_ent, reg, s_msum, s_q, s_es, c, t, row, n_act, p.v_eta,
+      metrics_pass<HasFailure>(md, args, s_ent, reg, s_msum, s_q, s_es, c, t, tg, row, n_act,
+                               p.v_eta,
                                b_min, failed ? 1.f : 0.f, (float)n_fault, (float)n_dem,
                                (float)fell, mctr);
     }
@@ -694,6 +726,14 @@ __global__ void __maxnreg__(NT == 32 ? kMaxRegs : 128)
         for (int i = tid; i < width; i += nt) e.out[(size_t)c * width + i] = reg[e.off + i];
       } else if (e.red == kHistogram) {
         for (int i = tid; i < md.bins; i += nt) e.out[(size_t)c * md.bins + i] = reg[e.off + i];
+      }
+    }
+    if (md.raw != nullptr) {  // a segment's region and counters, for the next one
+      float* raw = md.raw + (size_t)c * (md.region + kCounters);
+      for (int i = tid; i < md.region; i += nt) raw[i] = reg[i];
+      if (tid == 0) {
+#pragma unroll
+        for (int j = 0; j < kCounters; ++j) raw[md.region + j] = mctr[j];
       }
     }
   }
@@ -804,7 +844,9 @@ int launch_any(const TrajArgs& args, const M& md, int C, cudaStream_t stream, bo
 // ``guarded`` the HasGuard instance, which applies the ``guard`` bits,
 // ``gain_floor``, the (K,) ``cap`` row (null: no energy test),
 // ``residual_tol`` and the ``chaos`` corruption, and writes fc_out, dm_out
-// and fb_out (C, T).
+// and fb_out (C, T).  q0/es0 (C, K) and t0 (C,) make the launch a segment
+// from that carry and global round (null: a whole trajectory from round 0);
+// T_total is the whole trajectory's rounds (T for a whole launch).
 #define OCEAN_TRAJ_PARAMS                                                                     \
   const float *h2, const float *v, const float *eta, const float *inc, uint8_t *a, float *b,  \
       float *e, float *q_pre, float *rho, float *obj, int *nsel, float *q_final,               \
@@ -813,12 +855,14 @@ int launch_any(const TrajArgs& args, const M& md, int C, cudaStream_t stream, bo
       const float *dlv, const float *rate, uint8_t *dlv_out, int *ral_out, int mode,           \
       int wf_outer, int wf_inner, int wf_grid, const float *frac, int bisect, int bis_outer,   \
       int bis_inner, int guarded, const float *cap, int *fc_out, int *dm_out, int *fb_out,     \
-      int guard, float gain_floor, float residual_tol, int chaos, float chaos_scale
+      int guard, float gain_floor, float residual_tol, int chaos, float chaos_scale,          \
+      const float *q0, const float *es0, const int *t0, int T_total
 
 #define OCEAN_TRAJ_ARGS                                                                       \
   TrajArgs {                                                                                  \
-    h2, v, eta, inc, r_bmin, r_beta, r_scale, dlv, rate, frac, a, b, e, q_pre, rho, obj, nsel, \
-        q_final, es_final, dlv_out, ral_out, T, K, sort_slots(K), R, b_min, beta, scale,       \
+    h2, v, eta, inc, r_bmin, r_beta, r_scale, dlv, rate, frac, q0, es0, t0, a, b, e, q_pre,  \
+        rho, obj, nsel, q_final, es_final, dlv_out, ral_out, T, K, sort_slots(K), R, T_total,  \
+        b_min, beta, scale,                                                                    \
         outer, inner, mode, wf_outer, wf_inner, wf_grid, bis_outer, bis_inner, cap, fc_out,    \
         dm_out, fb_out, guard, gain_floor, residual_tol, chaos, chaos_scale                    \
   }

@@ -10,9 +10,10 @@ namespace {
 // n_client, cum, cnt, last, gsum, gn, region, stride, bins; per entry j
 // ``ent[3j..3j+2]`` the collector, the reduction and the region offset,
 // ``entf[2j..2j+1]`` the histogram's lo and bin width, ``outs[j]`` the
-// output.
+// output; ``seed``/``raw`` a segment launch's (C, region + 4) region and
+// counters in and out (null for a whole launch).
 MetricsDesc make_desc(const int* layout, const int* ent, const float* entf, float* const* outs,
-                      float* scratch) {
+                      float* scratch, const float* seed, float* raw) {
   MetricsDesc md{};
   md.n = layout[0];
   md.n_client = layout[1];
@@ -25,6 +26,8 @@ MetricsDesc make_desc(const int* layout, const int* ent, const float* entf, floa
   md.stride = layout[8];
   md.bins = layout[9];
   md.scratch = scratch;
+  md.seed = seed;
+  md.raw = raw;
   for (int j = 0; j < md.n; ++j) {
     md.col[j] = ent[3 * j];
     md.red[j] = ent[3 * j + 1];
@@ -64,12 +67,13 @@ extern "C" int ocean_traj_metrics_warps(int K, int failure, int guard, int regio
 }
 
 // One launch with telemetry: ocean_traj_launch's parameters, then the
-// descriptor's host arrays (make_desc) and the (C, region) global scratch.
+// descriptor's host arrays (make_desc), the (C, region) global scratch and
+// a segment launch's seed and raw regions (null for a whole launch).
 extern "C" int ocean_traj_metrics_launch(OCEAN_TRAJ_PARAMS, const int* layout, const int* ent,
                                          const float* entf, float* const* outs, float* scratch,
-                                         void* stream) {
+                                         const float* seed, float* raw, void* stream) {
   if (layout[0] < 0 || layout[0] > kMaxEntries || layout[1] < 0 || layout[1] > layout[0])
     return (int)cudaErrorInvalidValue;
-  return launch_any(OCEAN_TRAJ_ARGS, make_desc(layout, ent, entf, outs, scratch), C,
+  return launch_any(OCEAN_TRAJ_ARGS, make_desc(layout, ent, entf, outs, scratch, seed, raw), C,
                     (cudaStream_t)stream, guarded != 0, bisect != 0);
 }

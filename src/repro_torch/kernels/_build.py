@@ -21,9 +21,11 @@ or a linear recurrence is continuous in its inputs, so an ulp of
 contraction moves the output by an ulp, and they compile with
 contraction on.  The
 output name carries a hash of the sources and flags, so an edited source
-is rebuilt, never reused stale.  The build directory is ``build/repro_torch_kernels/`` at
-the root of the checkout, or ``$REPRO_TORCH_BUILD_DIR``.  Building happens
-at first use, never at import.
+is rebuilt, never reused stale; nvcc's output is kept beside the library
+(``<name>-<hash>.log``, ``build_output``).  The build directory is
+``build/repro_torch_kernels/`` at the root of the checkout, or
+``$REPRO_TORCH_BUILD_DIR``.  Building happens at first use, never at
+import.
 """
 from __future__ import annotations
 
@@ -123,9 +125,20 @@ def build(names: Iterable[str] = SOURCES):
         if proc.returncode != 0:
             failures.append(f"nvcc failed for csrc/{name}.cu:\n{out}")
             continue
+        target.with_suffix(".log").write_text(out)  # ptxas's report, read by build_output
         os.replace(tmp, target)
     if failures:
         raise RuntimeError("\n".join(failures))
+
+
+def build_output(name: str) -> Optional[str]:
+    """nvcc's output (ptxas's register and spill report) for the current
+    library of ``csrc/<name>.cu``: this process's build, or the log kept
+    beside the library; None if neither exists."""
+    if name in BUILD_LOG:
+        return BUILD_LOG[name]["output"]
+    log = _lib_path(name).with_suffix(".log")
+    return log.read_text() if log.exists() else None
 
 
 def load(name: str) -> ctypes.CDLL:

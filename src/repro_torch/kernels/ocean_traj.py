@@ -18,6 +18,10 @@ guarded instance, which applies its corruption inside the round.  With
 ``cfg.metrics`` (a ``repro_torch.obs.MetricsSpec``) the ``HasMetrics``
 instances collect the telemetry inside the kernel, round by round, from a
 launch descriptor (``_metrics_descriptor``); the wrapper finalizes it.
+Every instance also runs as a *segment* of a longer trajectory, the
+checkpoint/resume launch (``init_state``, ``init_mstate``,
+``raw_metrics``): runtime launch arguments seed the carry and the global
+round, and the telemetry region goes in and comes back out raw.
 
 * ``ocean_traj`` — the wrapper: launches K3 for CUDA tensors (counting
   launches in ``ocean_traj.launches``, raising on CUDA errors) and runs
@@ -33,15 +37,14 @@ launch descriptor (``_metrics_descriptor``); the wrapper finalizes it.
 
 Scope: ``ranking="sort"``, ``solver`` ``pallas`` or ``bisect`` (or a chaos
 backend of either), K <= 2048 (K3's shared-memory sort).  Anything else
-raises ``NotImplementedError``, as do the segment launches of
-checkpoint/resume and ``stream_bf16``.  Like the reference's kernel, K3 caps a
-guard's energy at ``energy_cap x cfg.budgets()``.
+raises ``NotImplementedError``, as does ``stream_bf16``.  Like the
+reference's kernel, K3 caps a guard's energy at ``energy_cap x cfg.budgets()``.
 """
 from __future__ import annotations
 
 import ctypes
 import dataclasses
-from typing import Dict, NamedTuple, Optional
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -80,6 +83,10 @@ class TrajOut(NamedTuple):
     fb: Optional[torch.Tensor] = None   # (C, T) int32 fallback, with a guard
     # with cfg.metrics: the finalized telemetry, "<collector>/<reduction>" keys
     metrics: Optional[Dict[str, torch.Tensor]] = None
+    # with cfg.metrics and raw_metrics: the unfinalized MetricsState after
+    # the launch's last round, and its full traces by key; None otherwise
+    mstate: Any = None
+    traces: Optional[Dict[str, torch.Tensor]] = None
 
 
 def _base_solver(backend) -> str:
@@ -133,14 +140,20 @@ def _plain_solver(backend):
     return chaos_backend(PALLAS_PLAIN, backend.name, kind=kind, scale=scale)
 
 
-def ocean_traj_plain(cfg, h2, v, eta, inc, radio=None, failure=None) -> TrajOut:
+def ocean_traj_plain(cfg, h2, v, eta, inc, radio=None, failure=None, *, init_state=None,
+                     init_mstate=None, raw_metrics: bool = False) -> TrajOut:
     """Plain PyTorch K3: the scan loop through ``ocean_round`` with plain K1
     (or bisect), guarded by ``cfg.guard`` with caps at ``cfg.budgets()``.
 
     ``radio`` is a ``TracedRadio`` of (C, T) leaves; ``failure`` a
     ``TracedFailure`` with a (C, T, K) ``delivered`` mask and (C, K) ``rate``.
+    ``init_state`` (an ``OceanState``) and ``init_mstate`` (a
+    ``MetricsState``) make the T rounds a segment from that carry;
+    ``raw_metrics`` returns the telemetry unfinalized (``TrajOut.mstate``,
+    ``TrajOut.traces``).
     """
-    from repro_torch.core.ocean import init_state, ocean_round, stack_decisions
+    from repro_torch.core.ocean import init_state as zero_state
+    from repro_torch.core.ocean import ocean_round, stack_decisions
     from repro_torch.core.solvers import get_solver
     from repro_torch.obs.metrics import (
         finalize_metrics,
@@ -154,8 +167,11 @@ def ocean_traj_plain(cfg, h2, v, eta, inc, radio=None, failure=None) -> TrajOut:
         cfg, solver=_plain_solver(get_solver(cfg.solver)), traj="scan")
     spec = cfg.metrics
     C, T, _ = h2.shape
-    state = init_state(cfg_plain, C, device=h2.device)
-    mstate = None if spec is None else init_metrics(spec, cfg, C, device=h2.device)
+    state = zero_state(cfg_plain, C, device=h2.device) if init_state is None else init_state
+    mstate = None
+    if spec is not None:
+        mstate = init_metrics(spec, cfg, C, device=h2.device) if init_mstate is None \
+            else init_mstate
     decs, traces = [], []
     for t in range(T):
         radio_t = None if radio is None else radio.at(t)
@@ -173,13 +189,16 @@ def ocean_traj_plain(cfg, h2, v, eta, inc, radio=None, failure=None) -> TrajOut:
         state = new_state
         decs.append(dec)
     d = stack_decisions(decs)
-    return TrajOut(
+    out = TrajOut(
         a=d.a, b=d.b, e=d.e, q_pre=d.q, rho=d.rho, obj=d.objective,
         nsel=d.num_selected, q_final=state.q, es_final=state.energy_spent,
         dlv=d.delivered, ral=d.realloc, fc=d.fault_count, dm=d.demoted, fb=d.fallback,
-        metrics=None if spec is None else finalize_metrics(spec, cfg, mstate,
-                                                           stack_traces(traces)),
     )
+    if spec is None:
+        return out
+    if raw_metrics:
+        return out._replace(mstate=mstate, traces=stack_traces(traces))
+    return out._replace(metrics=finalize_metrics(spec, cfg, mstate, stack_traces(traces)))
 
 
 def metrics_replay(cfg, out: TrajOut, v, eta, inc, radio=None) -> Dict[str, torch.Tensor]:
@@ -348,7 +367,8 @@ KERNEL_COLLECTORS = (
 class MetricsLaunch(NamedTuple):
     """A MetricsSpec lowered to one K3 launch (``csrc/ocean_traj_metrics.cu``,
     ``make_desc``): ctypes arrays of the layout and entries, the outputs
-    by key, and the per-cell region's size in floats."""
+    by key, the per-cell region's size in floats, and per region entry
+    (a mean accumulator or histogram) its key, offset and width."""
 
     layout: ctypes.Array
     ent: ctypes.Array
@@ -356,16 +376,21 @@ class MetricsLaunch(NamedTuple):
     outs: ctypes.Array
     out: Dict[str, torch.Tensor]
     region: int
+    slots: Tuple[Tuple[str, int, int], ...]
 
 
-def _metrics_descriptor(cfg, C: int, dev, hist_shift: Optional[Dict[str, int]] = None
-                        ) -> MetricsLaunch:
-    """Lower ``cfg.metrics`` for one launch of C cells: the entries with
-    per-client collectors first, the region's layout (the state rows the
-    spec's collectors need, and per entry its mean accumulator or histogram
-    bins), each entry's histogram ``lo`` and width, and its output tensor: (C,) + shape for
-    ``last``/``mean`` (a mean leaves the kernel as a sum), (C, bins),
-    (C, T) + shape or (C, slots) + shape.  ``hist_shift`` moves named
+def _metrics_descriptor(cfg, C: int, dev, hist_shift: Optional[Dict[str, int]] = None,
+                        T: Optional[int] = None, init_accs=None) -> MetricsLaunch:
+    """Lower ``cfg.metrics`` for one launch of C cells over T rounds (default
+    ``cfg.num_rounds``; fewer for a segment): the entries with per-client
+    collectors first, the region's layout (the state rows the spec's
+    collectors need, and per entry its mean accumulator or histogram bins),
+    each entry's histogram ``lo`` and width, and its output tensor: (C,) +
+    shape for ``last``/``mean`` (a mean leaves the kernel as a sum), (C,
+    bins), (C, T) + shape or (C, slots) + shape, the slots and their stride
+    those of the whole trajectory.  ``init_accs`` (a segment's restored
+    accumulators) fills the ``last`` and ``full_trace_ds`` outputs, so the
+    slots earlier segments wrote survive.  ``hist_shift`` moves named
     histograms' ``lo`` by that many bins: a planted fault for the checks."""
     from repro_torch.obs.metrics import (
         REDUCTIONS,
@@ -377,7 +402,8 @@ def _metrics_descriptor(cfg, C: int, dev, hist_shift: Optional[Dict[str, int]] =
     )
 
     spec = cfg.metrics
-    T, K = cfg.num_rounds, cfg.num_clients
+    T_total, K = cfg.num_rounds, cfg.num_clients
+    T = T_total if T is None else T
     names = spec.names
     off = 0
 
@@ -391,39 +417,116 @@ def _metrics_descriptor(cfg, C: int, dev, hist_shift: Optional[Dict[str, int]] =
     last = gsum = gn = -1
     if "selection_gap" in names:
         last, gsum, gn = take(K), take(K), take(K)
-    slots = ds_slots(T, spec.ds_samples)
+    slots = ds_slots(T_total, spec.ds_samples)
     n = len(spec.collect)
     ent = (ctypes.c_int * (3 * n))()
     entf = (ctypes.c_float * (2 * n))()
     outs = (ctypes.c_void_p * n)()
     out = {}
+    region_slots = []
     entries = sorted(spec.collect, key=lambda e: not get_collector(e[0]).shape(K))
     n_client = sum(1 for name, _ in entries if get_collector(name).shape(K))
     for j, (name, red) in enumerate(entries):
         shape = get_collector(name).shape(K)
         width = K if shape else 1
+        key = metric_key(name, red)
         o = -1
         if red == "mean":
             o = take(width)
+            region_slots.append((key, o, width))
         elif red == "histogram":
             o = take(spec.hist_bins)
+            region_slots.append((key, o, spec.hist_bins))
             lo, bw = hist_edges(spec, cfg, name)
             entf[2 * j] = lo + bw * (hist_shift or {}).get(name, 0)
             entf[2 * j + 1] = bw
         full = {"histogram": (spec.hist_bins,), "full_trace": (T,) + shape,
                 "full_trace_ds": (slots,) + shape}.get(red, shape)
-        t = torch.empty((C,) + full, dtype=torch.float32, device=dev)  # the kernel writes all
-        out[metric_key(name, red)] = t
+        if init_accs is not None and red in ("last", "full_trace_ds"):
+            t = init_accs[key].to(device=dev, dtype=torch.float32).clone()
+        else:
+            t = torch.empty((C,) + full, dtype=torch.float32, device=dev)  # the kernel writes all
+        out[key] = t
         ent[3 * j], ent[3 * j + 1], ent[3 * j + 2] = (
             KERNEL_COLLECTORS.index(name), REDUCTIONS.index(red), o)
         outs[j] = t.data_ptr()
     layout = (ctypes.c_int * 10)(n, n_client, cum, cnt, last, gsum, gn, off,
-                                  ds_stride(T, spec.ds_samples), spec.hist_bins)
-    return MetricsLaunch(layout, ent, entf, outs, out, off)
+                                  ds_stride(T_total, spec.ds_samples), spec.hist_bins)
+    return MetricsLaunch(layout, ent, entf, outs, out, off, tuple(region_slots))
+
+
+# The collectors of the kernel's running counters, in its order; a segment
+# launch's region carries them after the region's floats.
+COUNTER_COLLECTORS = ("reallocation_count", "fault_count", "demoted_clients", "fallback_rounds")
+
+
+def _region_seed(cfg, ml: MetricsLaunch, mstate, C: int, dev) -> torch.Tensor:
+    """A ``MetricsState`` of C cells as a segment launch's (C, region + 4)
+    seed on ``dev``: the state rows (the allowance, selection counts, the
+    selection gap's last round, gap sum and count), each mean's sum and
+    each histogram's counts at their offsets, then the four running
+    counters."""
+    K = cfg.num_clients
+    st = mstate.states
+    seed = torch.zeros((C, ml.region + len(COUNTER_COLLECTORS)), dtype=torch.float32, device=dev)
+    n, n_client, cum, cnt, last, gsum, gn = ml.layout[:7]
+    if cum >= 0:
+        seed[:, cum:cum + K] = st["energy_headroom"]
+    if cnt >= 0:
+        seed[:, cnt:cnt + K] = st["selection_count"]
+    if last >= 0:
+        lt, gs, gc = st["selection_gap"]
+        seed[:, last:last + K] = lt.to(torch.float32)
+        seed[:, gsum:gsum + K] = gs
+        seed[:, gn:gn + K] = gc
+    for key, off, width in ml.slots:
+        seed[:, off:off + width] = mstate.accs[key].reshape(C, width)
+    for j, name in enumerate(COUNTER_COLLECTORS):
+        if name in st:
+            seed[:, ml.region + j] = st[name]
+    return seed
+
+
+def _region_state(cfg, ml: MetricsLaunch, raw: torch.Tensor):
+    """A segment launch's raw (C, region + 4) region and outputs as the
+    ``MetricsState`` a round loop would carry, and the full traces by key
+    (``_region_seed``'s inverse)."""
+    from repro_torch.obs.metrics import MetricsState, get_collector, metric_key
+
+    spec = cfg.metrics
+    K = cfg.num_clients
+    C = raw.shape[0]
+    n, n_client, cum, cnt, last, gsum, gn = ml.layout[:7]
+    rows = {"energy_headroom": cum, "selection_count": cnt}
+    states = {}
+    for name in spec.names:
+        if name in rows:
+            states[name] = raw[:, rows[name]:rows[name] + K].clone()
+        elif name == "selection_gap":
+            states[name] = (raw[:, last:last + K].to(torch.int32), raw[:, gsum:gsum + K].clone(),
+                            raw[:, gn:gn + K].clone())
+        elif name in COUNTER_COLLECTORS:
+            states[name] = raw[:, ml.region + COUNTER_COLLECTORS.index(name)].clone()
+        else:
+            states[name] = ()
+    region = {key: (off, width) for key, off, width in ml.slots}
+    accs, traces = {}, {}
+    for name, red in spec.collect:
+        key = metric_key(name, red)
+        if red == "full_trace":
+            traces[key] = ml.out[key]
+        elif key in region:
+            off, width = region[key]
+            shape = (spec.hist_bins,) if red == "histogram" else get_collector(name).shape(K)
+            accs[key] = raw[:, off:off + width].reshape((C,) + shape).clone()
+        else:  # last, full_trace_ds: the outputs themselves
+            accs[key] = ml.out[key]
+    return MetricsState(states=states, accs=accs), traces
 
 
 def ocean_traj(cfg, h2, v, eta, inc, radio=None, failure=None, *,
-               hist_shift: Optional[Dict[str, int]] = None) -> TrajOut:
+               hist_shift: Optional[Dict[str, int]] = None, init_state=None, init_mstate=None,
+               raw_metrics: bool = False) -> TrajOut:
     """K3: every cell's T rounds in one launch.
 
     ``h2``/``inc`` (C, T, K) and ``v``/``eta`` (C, T), contiguous float32
@@ -437,19 +540,45 @@ def ocean_traj(cfg, h2, v, eta, inc, radio=None, failure=None, *,
     (``TrajOut.metrics``); ``hist_shift`` ({collector: bins}) moves those
     collectors' histogram edges in the launch descriptor, a planted fault
     that the checks must catch.
+
+    ``init_state`` (an ``OceanState`` of (C, K) queues and spent energy and
+    (C,) global rounds) makes the launch a segment: the streams then cover
+    T <= ``cfg.num_rounds`` rounds from that carry, frame resets and the
+    telemetry follow the global round, and with ``cfg.metrics``
+    ``init_mstate`` (the ``MetricsState`` after the earlier rounds) seeds
+    the telemetry.  ``raw_metrics`` returns the telemetry unfinalized
+    (``TrajOut.mstate`` and ``TrajOut.traces``) for the next segment.
+    Segment launches count under their instance's label with ``+seg``.
     """
     check_fused_scope(cfg)
     for name, x, nd in (("h2", h2, 3), ("v", v, 2), ("eta", eta, 2), ("inc", inc, 3)):
         _check_f32(name, x, nd)
     C, T, K = h2.shape
-    if (T, K) != (cfg.num_rounds, cfg.num_clients) or inc.shape != h2.shape:
+    seg = init_state is not None
+    spec = cfg.metrics
+    if (K != cfg.num_clients or inc.shape != h2.shape
+            or not (T <= cfg.num_rounds if seg else T == cfg.num_rounds)):
         raise ValueError(
-            f"h2/inc must be (C, {cfg.num_rounds}, {cfg.num_clients}); got "
-            f"{tuple(h2.shape)} and {tuple(inc.shape)}"
+            f"h2/inc must be (C, {cfg.num_rounds}, {cfg.num_clients}) (a segment: "
+            f"(C, T <= {cfg.num_rounds}, {cfg.num_clients})); got {tuple(h2.shape)} "
+            f"and {tuple(inc.shape)}"
         )
     if v.shape != (C, T) or eta.shape != (C, T):
         raise ValueError(f"v and eta must be ({C}, {T})")
+    if init_mstate is not None and (spec is None or not seg):
+        raise ValueError("init_mstate seeds a segment launch with cfg.metrics set; pass "
+                         "init_state with it")
+    if seg and spec is not None and init_mstate is None:
+        raise ValueError("a segment launch with cfg.metrics set needs init_mstate (the "
+                         "restored MetricsState carry)")
     streams = [h2, v, eta, inc]
+    if seg:
+        _check_f32("init_state.q", init_state.q, 2)
+        _check_f32("init_state.energy_spent", init_state.energy_spent, 2)
+        if (init_state.q.shape != (C, K) or init_state.energy_spent.shape != (C, K)
+                or init_state.t.shape != (C,)):
+            raise ValueError(f"init_state must hold ({C}, {K}) q and energy_spent and ({C},) t")
+        streams += [init_state.q, init_state.energy_spent, init_state.t]
     if radio is not None:
         for f in ("b_min", "beta", "energy_scale"):
             _check_f32(f"radio.{f}", getattr(radio, f), 2)
@@ -463,13 +592,14 @@ def ocean_traj(cfg, h2, v, eta, inc, radio=None, failure=None, *,
             raise ValueError(f"failure.delivered must be {tuple(h2.shape)} and rate ({C}, {K})")
         streams += [failure.delivered, failure.rate]
     if _launch_target(*streams) == "cpu":
-        return ocean_traj_plain(cfg, h2, v, eta, inc, radio, failure)
+        return ocean_traj_plain(cfg, h2, v, eta, inc, radio, failure, init_state=init_state,
+                                init_mstate=init_mstate, raw_metrics=raw_metrics)
     from repro_torch.kernels import _build
 
     from repro_torch.core.ocean import guard_caps
     from repro_torch.core.solvers import get_solver
 
-    spec = cfg.metrics
+    raw_metrics = raw_metrics and spec is not None
     lib = _build.load("ocean_traj" if spec is None else "ocean_traj_metrics")
     fn = lib.ocean_traj_launch if spec is None else lib.ocean_traj_metrics_launch
     fn.restype = ctypes.c_int
@@ -498,13 +628,22 @@ def ocean_traj(cfg, h2, v, eta, inc, radio=None, failure=None, *,
         ral=None if failure is None else torch.empty((C, T), dtype=torch.int32, device=dev),
         **dict(zip(("fc", "dm", "fb"), gout if guard is not None else [None] * 3)),
     )
-    extra = []
+    extra, raw = [], None
     if spec is not None:
-        ml = _metrics_descriptor(cfg, C, dev, hist_shift)
+        ml = _metrics_descriptor(cfg, C, dev, hist_shift, T=T,
+                                 init_accs=None if init_mstate is None else init_mstate.accs)
         scratch = torch.empty((max(C * ml.region, 1),), **f32)
-        extra = [ml.layout, ml.ent, ml.entf, ml.outs, _ptr(scratch)]
+        seed = None if init_mstate is None else _region_seed(cfg, ml, init_mstate, C, dev)
+        if raw_metrics:
+            raw = torch.empty((C, ml.region + len(COUNTER_COLLECTORS)), **f32)
+        extra = [ml.layout, ml.ent, ml.entf, ml.outs, _ptr(scratch), _ptr(seed), _ptr(raw)]
     if C == 0:
-        return out if spec is None else out._replace(metrics=_finalize_launch(cfg, ml.out))
+        if spec is None:
+            return out
+        if raw_metrics:
+            return out._replace(mstate=init_mstate, traces={
+                k: t for k, t in ml.out.items() if k.endswith("/full_trace")})
+        return out._replace(metrics=_finalize_launch(cfg, ml.out))
     # the kernel's kPlain, kOverprovision, kReallocate are this tuple's order
     from repro_torch.core.ocean import FAILURE_MODES
 
@@ -521,6 +660,11 @@ def ocean_traj(cfg, h2, v, eta, inc, radio=None, failure=None, *,
         floor = guard.gain_floor or 0.0
         tol = guard.residual_tol
     kind, scale = (None, 1.0) if chaos is None else chaos[1:]
+    q0 = es0 = t0 = None
+    if seg:
+        q0 = init_state.q.contiguous()
+        es0 = init_state.energy_spent.contiguous()
+        t0 = init_state.t.to(torch.int32).contiguous()
     err = fn(
         _ptr(h2), _ptr(v), _ptr(eta), _ptr(inc), *(_ptr(x) for x in out[:9]),
         ctypes.c_int(C), ctypes.c_int(T), ctypes.c_int(K), ctypes.c_int(cfg.R),
@@ -534,16 +678,22 @@ def ocean_traj(cfg, h2, v, eta, inc, radio=None, failure=None, *,
         ctypes.c_int(int(bisect)), ctypes.c_int(BISECT_ITERS), ctypes.c_int(BISECT_ITERS),
         ctypes.c_int(int(guarded)), _ptr(cap), *(_ptr(x) for x in gout), ctypes.c_int(bits),
         ctypes.c_float(floor), ctypes.c_float(tol), ctypes.c_int(_CHAOS[kind]),
-        ctypes.c_float(scale), *extra, _stream(),
+        ctypes.c_float(scale), _ptr(q0), _ptr(es0), _ptr(t0), ctypes.c_int(cfg.num_rounds),
+        *extra, _stream(),
     )
     _build.check(err, lib, "ocean_traj")
-    if spec is not None:  # the means divide what the kernel wrote
+    if raw_metrics:
+        mstate, traces = _region_state(cfg, ml, raw)
+        out = out._replace(mstate=mstate, traces=traces)
+    elif spec is not None:  # the means divide what the kernel wrote
         out = out._replace(metrics=_finalize_launch(cfg, ml.out))
     ocean_traj.launches += 1
     parts = (("radio", radio is not None), ("bisect", bisect), ("guard", guard is not None),
              ("chaos", chaos is not None), ("failure", failure is not None),
              ("metrics", spec is not None))
     inst = "+".join(n for n, on in parts if on) or "static"
+    if seg:
+        inst += "+seg"
     if failure is not None:
         inst += f"/{cfg.failure_mode}"
     ocean_traj.instances[inst] = ocean_traj.instances.get(inst, 0) + 1
@@ -552,8 +702,9 @@ def ocean_traj(cfg, h2, v, eta, inc, radio=None, failure=None, *,
 
 ocean_traj.launches = 0
 # launches by instance: "static", or the "+"-joined branches it ran of
-# "radio", "bisect", "guard", "chaos", "failure" and "metrics" (then
-# "/<mode>" with failures), e.g. "bisect+guard" or "radio+failure+metrics/plain"
+# "radio", "bisect", "guard", "chaos", "failure" and "metrics", then "+seg"
+# for a segment launch (and "/<mode>" with failures), e.g. "bisect+guard",
+# "static+seg" or "radio+failure+metrics+seg/plain"
 ocean_traj.instances = {}
 
 
@@ -589,21 +740,27 @@ def ocean_trajectory_fused(
     ``chunk`` is accepted for signature parity and has no role: K3 keeps
     every round on chip.  With ``cfg.metrics`` a third element, the
     telemetry dict, comes back.
+
+    ``init_state`` turns the launch into a mid-trajectory segment (the
+    streams cover only its rounds; the returned state's ``t`` is
+    ``init_state.t`` plus them), with ``cfg.metrics`` seeded by
+    ``init_mstate``; ``raw_metrics=True`` returns the unfinalized
+    ``(state, decisions, mstate, traces)`` so that a segmented run can
+    keep accumulating (``ocean_traj``).
     """
     from repro_torch.core.ocean import OceanState, RoundDecision, not_ported
 
     del chunk
     if stream_bf16:
         raise not_ported("stream_bf16")
-    if init_state is not None or init_mstate is not None or raw_metrics:
-        raise not_ported("segment launches (checkpoint/resume)")
-    out = ocean_traj(cfg, h2_seq, v_seq, eta_seq, budget_seq, radio_seq, failure_seq)
-    C = h2_seq.shape[0]
-    state = OceanState(
-        q=out.q_final,
-        t=torch.full((C,), cfg.num_rounds, dtype=torch.int32, device=h2_seq.device),
-        energy_spent=out.es_final,
-    )
+    out = ocean_traj(cfg, h2_seq, v_seq, eta_seq, budget_seq, radio_seq, failure_seq,
+                     init_state=init_state, init_mstate=init_mstate, raw_metrics=raw_metrics)
+    C, T = h2_seq.shape[:2]
+    if init_state is None:
+        t = torch.full((C,), cfg.num_rounds, dtype=torch.int32, device=h2_seq.device)
+    else:
+        t = init_state.t + T
+    state = OceanState(q=out.q_final, t=t, energy_spent=out.es_final)
     decs = RoundDecision(
         a=out.a, b=out.b, e=out.e, q=out.q_pre, rho=out.rho,
         objective=out.obj, num_selected=out.nsel, delivered=out.dlv, realloc=out.ral,
@@ -611,4 +768,6 @@ def ocean_trajectory_fused(
     )
     if cfg.metrics is None:
         return state, decs
+    if raw_metrics:
+        return state, decs, out.mstate, out.traces
     return state, decs, out.metrics

@@ -7,7 +7,18 @@ ONE call over all cells — under ``traj="fused"`` an OCEAN policy is one
 launch of kernel K3.  Scenario statics that shape the program (T, K, frame
 length, solver, ranking, top_m, block_k, traj, failure_mode, guard) must
 agree across the grid, as ``_check_compatible`` demands in the reference;
-so must the telemetry spec (``metrics``), which shapes the outputs.
+so must the telemetry spec (``metrics``), which shapes the outputs, and the
+checkpoint spec (``checkpoint``).
+
+Preemption safety (``checkpoint=``, a ``repro_torch.checkpoint.
+CheckpointSpec``): ``run`` then executes the grid as segments of
+``every_rounds`` rounds — each policy's ``seg_fn`` once per segment over
+all cells, on ``traj="fused"`` one K3 segment launch per OCEAN policy —
+and snapshots every policy's carry and the trace prefix at each boundary.
+``run(resume_from=...)`` restores the latest snapshot and continues; the
+environment is sampled again from the seeds, never snapshotted.  Both the
+segmented and the resumed run equal the single-call run bit for bit;
+``checkpoint=None`` keeps the single-call path.
 
 Environments: every scenario's ``EnvSpec`` is lowered once
 (``repro_torch.env``).  Each seed's fading uniforms come from a
@@ -30,7 +41,14 @@ from typing import Dict, Mapping, NamedTuple, Optional, Sequence, Tuple, Union
 import torch
 
 from repro_torch._device import resolve_device
-from repro_torch.core.ocean import OceanConfig, not_ported
+from repro_torch.core.ocean import (
+    OceanConfig,
+    concat_rounds,
+    latest_snapshot_round,
+    not_ported,
+    resume_directory,
+    traces_like,
+)
 from repro_torch.core.policy import (
     Policy,
     PolicyParams,
@@ -39,7 +57,7 @@ from repro_torch.core.policy import (
     resolve_params,
 )
 from repro_torch.core.scenario import Scenario
-from repro_torch.obs.metrics import MetricsSpec
+from repro_torch.obs.metrics import MetricsSpec, MetricsState, finalize_metrics
 from repro_torch.obs.spans import trace_span
 from repro_torch.env.channel import (
     ChannelDraws,
@@ -165,8 +183,8 @@ def _check_compatible(scenarios: Sequence[Scenario]) -> Scenario:
             f"{field}: {getattr(base, field)!r} != {getattr(sc, field)!r}"
             for field in (
                 "num_rounds", "num_clients", "frame_len", "solver",
-                "ranking", "top_m", "block_k", "traj", "metrics", "failure_mode",
-                "guard",
+                "ranking", "top_m", "block_k", "traj", "metrics", "checkpoint",
+                "failure_mode", "guard",
             )
             if getattr(base, field) != getattr(sc, field)
         ]
@@ -208,13 +226,15 @@ class GridEngine:
     """Sweep (policy, scenario, seed) grids on one device.
 
     ``solver``/``ranking``/``top_m``/``block_k``/``traj``/``metrics``/
-    ``guard`` override the scenarios' fields (a ``repro_torch.guard.GuardSpec``
-    guards the OCEAN policies; the baselines ignore it, as in the
-    reference).  With a ``repro_torch.obs.MetricsSpec``,
+    ``checkpoint``/``guard`` override the scenarios' fields (a
+    ``repro_torch.guard.GuardSpec`` guards the OCEAN policies; the baselines
+    ignore it, as in the reference).  With a ``repro_torch.obs.MetricsSpec``,
     ``GridResult.metrics`` carries each OCEAN policy's telemetry, recorded
     in its one call over all cells (on ``traj="fused"`` inside K3's one
-    launch).  ``experiment``, ``checkpoint`` and ``shard=True`` are hooks
-    not ported yet and raise ``NotImplementedError``.
+    launch).  With a ``repro_torch.checkpoint.CheckpointSpec`` the grid runs
+    segmented (module docstring); every policy then needs its
+    ``seg_init``/``seg_fn`` hooks.  ``experiment`` and ``shard=True`` are
+    hooks not ported yet and raise ``NotImplementedError``.
     """
 
     def __init__(
@@ -234,9 +254,8 @@ class GridEngine:
         guard=None,
         device=None,
     ):
-        for hook, val in (("experiment", experiment), ("checkpoint", checkpoint)):
-            if val is not None:
-                raise not_ported(f"GridEngine({hook}=...)")
+        if experiment is not None:
+            raise not_ported("GridEngine(experiment=...)")
         if shard:
             raise not_ported("GridEngine(shard=True)")
         if isinstance(scenarios, Mapping):
@@ -252,7 +271,7 @@ class GridEngine:
             for k, v in (
                 ("solver", solver), ("ranking", ranking), ("top_m", top_m),
                 ("block_k", block_k), ("traj", traj), ("metrics", metrics),
-                ("guard", guard),
+                ("checkpoint", checkpoint), ("guard", guard),
             )
             if v is not None
         }
@@ -260,6 +279,8 @@ class GridEngine:
             self.cfg = dataclasses.replace(self.cfg, **overrides)
         self._resolved = _resolve_policy_specs(policies)
         self.policies = tuple(pol.name for pol, _ in self._resolved)
+        if self.cfg.checkpoint is not None:
+            self._check_segment_hooks()
         self._lowered = [_lowered_on(sc, self.device)[0] for sc in self.scenarios]
         specs = [sc.env_spec() for sc in self.scenarios]
         # one static radio everywhere: the scalar path (K3's scalar-radio
@@ -335,11 +356,28 @@ class GridEngine:
             failure = TracedFailure(delivered=torch.stack(fails), rate=torch.stack(rates))
         return torch.stack(h2), torch.stack(inc), torch.stack(total), radio, failure
 
-    def run(self, seeds: Sequence[int], *, base_key: int = 0) -> GridResult:
-        """Sweep the grid over ``seeds``: one call per policy over all cells.
+    def _check_segment_hooks(self) -> None:
+        missing = [pol.name for pol, _ in self._resolved if pol.seg_fn is None]
+        if missing:
+            raise ValueError(
+                f"checkpointed (segmented) execution needs seg_init/seg_fn hooks, "
+                f"missing for: {', '.join(missing)}; register them or run without "
+                f"checkpoint="
+            )
+
+    def run(self, seeds: Sequence[int], *, base_key: int = 0,
+            resume_from: Union[str, bool, None] = None) -> GridResult:
+        """Sweep the grid over ``seeds``: one call per policy over all cells
+        (with a checkpoint spec, or when resuming: one per policy and
+        segment).
 
         ``base_key`` seeds the generator of stochastic policies (``pattern``)
-        that were given no ``PolicyParams.key``.
+        that were given no ``PolicyParams.key``.  ``resume_from`` restores
+        the latest committed snapshot before running: ``True`` resumes from
+        the ``CheckpointSpec``'s directory, a string names one.  The resumed
+        sweep must use the same grid, seeds and keys as the interrupted one
+        (a snapshot holds the policies' carries and the trace prefix; the
+        environment is sampled again from the seeds).
         """
         seeds = tuple(int(s) for s in seeds)
         cfg, dev = self.cfg, self.device
@@ -357,13 +395,13 @@ class GridEngine:
                 delivered=failure.delivered.reshape(C, T, K), rate=failure.rate.reshape(C, K)
             )
 
-        traces = []
+        params = []
         for pol, pp in self._resolved:
             if pol.needs_key and pp.key is None:
                 gen = torch.Generator(device=dev)
                 gen.manual_seed(int(base_key))
                 pp = pp._replace(key=gen)
-            params = resolve_params(
+            params.append(resolve_params(
                 pol, cfg, pp,
                 scenario_eta=eta_cells,
                 scenario_budgets=budget_total.reshape(C, K),
@@ -371,9 +409,16 @@ class GridEngine:
                 scenario_radio_seq=radio_cells,
                 scenario_failure_seq=failure_cells,
                 device=dev,
-            )
-            with trace_span(f"grid/policy/{pol.name}"):
-                traces.append(pol.trace_fn(cfg, h2_cells, params, device=dev))
+            ))
+        if resume_from is False:
+            resume_from = None
+        if cfg.checkpoint is not None or resume_from is not None:
+            traces = self._run_segmented(h2_cells, params, resume_from, failure is not None)
+        else:
+            traces = []
+            for (pol, _), pp in zip(self._resolved, params):
+                with trace_span(f"grid/policy/{pol.name}"):
+                    traces.append(pol.trace_fn(cfg, h2_cells, pp, device=dev))
 
         def grid(x):
             return torch.stack(x).reshape((len(traces), S, N) + x[0].shape[1:])
@@ -410,6 +455,74 @@ class GridEngine:
             metrics=metrics,
         )
 
+    # -- segmented (checkpointed) execution -----------------------------------
+    def _trace_like(self, carry, C: int, r: int, has_failure: bool) -> PolicyTrace:
+        """The template of r rounds of a policy's normalized segment traces
+        (``_normalized``); an OCEAN carry with a MetricsState adds its raw
+        full traces."""
+        from repro_torch.checkpoint import TensorSpec
+
+        K = self.cfg.num_clients
+        rows = TensorSpec((C, r, K), torch.float32)
+        mask = TensorSpec((C, r, K), torch.bool)
+        with_metrics = (isinstance(carry, tuple) and len(carry) == 2
+                        and isinstance(carry[1], MetricsState))
+        return PolicyTrace(
+            a=mask, b=rows, e=rows, num_selected=TensorSpec((C, r), torch.int32),
+            metrics=traces_like(self.cfg, C, r) if with_metrics else None,
+            delivered=mask if has_failure else None, q=rows,
+        )
+
+    @staticmethod
+    def _normalized(tr: PolicyTrace, has_failure: bool) -> PolicyTrace:
+        """A segment's trace with the fields ``run`` fills anyway: the
+        selections as the delivered mask of a policy without one (in a grid
+        with failures) and zero queues for a policy without queues."""
+        return tr._replace(
+            delivered=(tr.a if tr.delivered is None else tr.delivered) if has_failure else None,
+            q=torch.zeros_like(tr.e) if tr.q is None else tr.q,
+        )
+
+    def _run_segmented(self, h2_cells, params, resume_from, has_failure):
+        """Every policy's trace over all cells, run as segments: each
+        policy's ``seg_fn`` once per segment, a snapshot of the carries and
+        the trace prefix at every boundary, the telemetry finalized once
+        from the last carry."""
+        from repro_torch.checkpoint import trajectory as ckpt_io
+
+        cfg, dev = self.cfg, self.device
+        ckpt_spec = cfg.checkpoint
+        C, T = h2_cells.shape[:2]
+        every = ckpt_spec.every_rounds if ckpt_spec is not None else T
+        self._check_segment_hooks()
+        carries = tuple(pol.seg_init(cfg, C, dev) for pol, _ in self._resolved)
+        traces = None
+        start = 0
+        if resume_from is not None:
+            directory = resume_directory(ckpt_spec, resume_from)
+            r = latest_snapshot_round(directory)
+            like = {"carries": carries,
+                    "traces": tuple(self._trace_like(c, C, r, has_failure) for c in carries)}
+            snap, start = ckpt_io.load_snapshot(directory, like, r, device=dev)
+            carries, traces = snap["carries"], snap["traces"]
+        for t0, t1 in ckpt_io.segment_bounds(T, every, start):
+            new_carries, seg = [], []
+            for (pol, _), pp, carry in zip(self._resolved, params, carries):
+                with trace_span(f"grid/policy/{pol.name}"):
+                    carry, tr = pol.seg_fn(cfg, carry, h2_cells, pp, t0, t1 - t0, device=dev)
+                new_carries.append(carry)
+                seg.append(self._normalized(tr, has_failure))
+            carries = tuple(new_carries)
+            traces = tuple(seg) if traces is None else tuple(
+                concat_rounds([a, b]) for a, b in zip(traces, seg))
+            if ckpt_spec is not None:
+                ckpt_io.save_snapshot(ckpt_spec, {"carries": carries, "traces": traces}, t1)
+        # the OCEAN traces carry raw full traces: finalize each from its
+        # last carried MetricsState, once, as the single call does
+        return [tr if tr.metrics is None
+                else tr._replace(metrics=finalize_metrics(cfg.metrics, cfg, carry[1], tr.metrics))
+                for carry, tr in zip(carries, traces)]
+
 
 def run_grid(
     scenarios,
@@ -427,6 +540,7 @@ def run_grid(
     checkpoint=None,
     guard=None,
     base_key: int = 0,
+    resume_from: Union[str, bool, None] = None,
     device=None,
 ) -> GridResult:
     """One-shot convenience wrapper around ``GridEngine``; on the card by default."""
@@ -434,4 +548,4 @@ def run_grid(
         scenarios, policies, experiment=experiment, solver=solver, shard=shard,
         ranking=ranking, top_m=top_m, block_k=block_k, traj=traj,
         metrics=metrics, checkpoint=checkpoint, guard=guard, device=device,
-    ).run(seeds, base_key=base_key)
+    ).run(seeds, base_key=base_key, resume_from=resume_from)

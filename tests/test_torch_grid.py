@@ -25,6 +25,7 @@ from repro.core.channel import pathloss_to_gain as j_pathloss_to_gain  # noqa: E
 from repro.core.energy import RadioParams as JRadio  # noqa: E402
 from repro.core.scenario import Scenario as JScenario  # noqa: E402
 from repro.core.scenario import paper_scenarios as j_paper_scenarios  # noqa: E402
+from repro_torch.checkpoint import CheckpointSpec  # noqa: E402
 from repro_torch.convert import (  # noqa: E402
     decisions_to_numpy,
     scenario_from_reference,
@@ -72,9 +73,14 @@ def test_grid_checks_compatibility_and_unported_hooks():
     a = Scenario(name="a", num_clients=K, num_rounds=T)
     with pytest.raises(ValueError, match="grid-incompatible"):
         GridEngine([a, Scenario(name="b", num_clients=K, num_rounds=T + 1)], ["ocean"], device="cpu")
-    for kw in ({"checkpoint": object()}, {"experiment": object()}, {"shard": True}):
+    for kw in ({"experiment": object()}, {"shard": True}):
         with pytest.raises(NotImplementedError):
             GridEngine([a], ["ocean"], device="cpu", **kw)
+    # checkpointing is ported: a CheckpointSpec runs, anything else is refused
+    with pytest.raises(TypeError, match="checkpoint"):
+        GridEngine([a], ["ocean"], device="cpu", checkpoint=object())
+    ck = CheckpointSpec(directory="unused", every_rounds=5)
+    assert GridEngine([a], ["ocean"], device="cpu", checkpoint=ck).cfg.checkpoint == ck
     # the metrics are ported: a MetricsSpec runs, anything else is refused
     with pytest.raises(TypeError, match="metrics"):
         GridEngine([a], ["ocean"], device="cpu", metrics=object())
@@ -122,15 +128,16 @@ def test_scenario_round_trips_through_the_reference_payload():
 @pytest.mark.parametrize(
     "field,value",
     [("env", {"channel": "gauss_markov"}), ("metrics", {"collectors": []}),
-     ("guard", {"energy_cap": 1.0}), ("checkpoint", {"directory": "x"}),
+     ("guard", {"energy_cap": 1.0}), ("checkpoint", {"directory": "x", "every_rounds": 5}),
      ("failure_mode", "reallocate"), ("no_such_field", 1)],
 )
 def test_scenario_refuses_fields_it_does_not_take(field, value):
-    """Fields not ported raise; ``env``, ``failure_mode``, ``guard`` and
-    ``metrics``, ported since, load and give the payload back."""
+    """Fields not ported raise; ``env``, ``failure_mode``, ``guard``,
+    ``metrics`` and ``checkpoint``, ported since, load and give the payload
+    back."""
     d = Scenario().to_dict()
     d[field] = value
-    if field in ("env", "failure_mode", "guard", "metrics"):
+    if field in ("env", "failure_mode", "guard", "metrics", "checkpoint"):
         assert scenario_from_reference(d).to_dict() == JScenario.from_dict(d).to_dict()
         return
     with pytest.raises(NotImplementedError, match=field):
@@ -212,16 +219,19 @@ def test_entry_points_refuse_to_fall_back_to_the_cpu(monkeypatch):
 def test_unported_hooks_raise_not_implemented():
     """Hooks not ported raise; the radio and failure hooks, ported since, run
     (a static radio and an all-ones mask give the plain round's bits); the
-    guard and the metrics, ported since, take a GuardSpec and a MetricsSpec
-    and refuse anything else."""
+    guard, the metrics and the checkpoint, ported since, take a GuardSpec, a
+    MetricsSpec and a CheckpointSpec and refuse anything else (resuming from
+    a directory without snapshots is an error)."""
     cfg = OceanConfig(num_clients=K, num_rounds=T, radio=RadioParams())
     h2 = torch.full((1, T, K), 2.5e-4)
     eta = eta_schedule("uniform", T)
-    for kw in ({"checkpoint": object()}, {"resume_from": "x"},
-               {"stream_bf16": True, "traj": "fused"}):
-        with pytest.raises(NotImplementedError):
-            simulate(cfg, h2, eta, 1e-5, device="cpu", **kw)
     with pytest.raises(NotImplementedError):
+        simulate(cfg, h2, eta, 1e-5, device="cpu", stream_bf16=True, traj="fused")
+    with pytest.raises(TypeError, match="checkpoint"):
+        simulate(cfg, h2, eta, 1e-5, device="cpu", checkpoint=object())
+    with pytest.raises(FileNotFoundError, match="no committed snapshots"):
+        simulate(cfg, h2, eta, 1e-5, device="cpu", resume_from="no-such-snapshot-directory")
+    with pytest.raises(TypeError, match="checkpoint"):
         OceanConfig(num_clients=K, num_rounds=T, radio=RadioParams(), checkpoint=object())
     with pytest.raises(TypeError, match="metrics"):
         OceanConfig(num_clients=K, num_rounds=T, radio=RadioParams(), metrics=object())

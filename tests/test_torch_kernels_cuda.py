@@ -1178,3 +1178,112 @@ def test_k3_metrics_planted_fault_fails_the_check(dev):
     torch.cuda.synchronize()
     with pytest.raises(AssertionError, match="queue/histogram"):
         tt.check_metrics_replay(cfg, out.metrics, out, v, eta, inc)
+
+
+# ---------------------------------------------------------------------------
+# K3's segment launches (checkpoint/resume): a trajectory cut into segments
+# equals the whole launch bit for bit
+# ---------------------------------------------------------------------------
+def _bits(x):
+    """A tensor's bytes as a comparable tensor (NaN equal to NaN)."""
+    return x.contiguous().view(torch.uint8) if x.dtype != torch.bool else x
+
+
+def _k3_segmented(cfg, h2, v, eta, inc, radio=None, failure=None, every=7):
+    """K3 as segments ending on multiples of ``every``, each launch seeded
+    with the last one's carry (``core.ocean.segment_step``), against the
+    whole launch: every decision, the final carry and the telemetry equal
+    bit for bit, and every segment counted as a ``+seg`` launch."""
+    from repro_torch.checkpoint import segment_bounds
+    from repro_torch.core.ocean import concat_rounds, init_state, segment_step, slice_rounds
+    from repro_torch.obs.metrics import finalize_metrics, init_metrics
+
+    C, T, _ = h2.shape
+    whole = tt.ocean_traj(cfg, h2, v, eta, inc, radio=radio, failure=failure)
+    state = init_state(cfg, C, device=h2.device)
+    mstate = None if cfg.metrics is None else init_metrics(cfg.metrics, cfg, C, device=h2.device)
+    streams = (h2, v, eta, inc, radio, failure)
+    bounds = segment_bounds(T, every)
+    before = sum(n for k, n in tt.ocean_traj.instances.items() if "+seg" in k)
+    decs, traces = [], []
+    for t0, t1 in bounds:
+        state, mstate, d, tr = segment_step(cfg, "fused", state, mstate,
+                                            slice_rounds(streams, t0, t1))
+        decs.append(d)
+        traces.append(tr)
+    torch.cuda.synchronize()
+    assert sum(n for k, n in tt.ocean_traj.instances.items() if "+seg" in k) == \
+        before + len(bounds)
+    d = concat_rounds(decs)
+    for f, g in (("a", "a"), ("b", "b"), ("e", "e"), ("q_pre", "q"), ("rho", "rho"),
+                 ("obj", "objective"), ("nsel", "num_selected"), ("dlv", "delivered"),
+                 ("ral", "realloc"), ("fc", "fault_count"), ("dm", "demoted"),
+                 ("fb", "fallback")):
+        x, y = getattr(whole, f), getattr(d, g)
+        assert (x is None and y is None) or torch.equal(_bits(x), _bits(y)), f
+    assert torch.equal(_bits(whole.q_final), _bits(state.q))
+    assert torch.equal(_bits(whole.es_final), _bits(state.energy_spent))
+    assert torch.equal(state.t.cpu(), torch.full((C,), T, dtype=torch.int32))
+    if cfg.metrics is not None:
+        got = finalize_metrics(cfg.metrics, cfg, mstate, concat_rounds(traces))
+        assert sorted(got) == sorted(whole.metrics)
+        for k in got:
+            assert torch.equal(_bits(got[k]), _bits(whole.metrics[k])), k
+    return whole
+
+
+@pytest.mark.parametrize("metrics", [False, True])
+@pytest.mark.parametrize("T,K,C,every", [(40, 6, 8, 7), (30, 33, 4, 13), (300, 10, 16, 64)])
+def test_k3_segments_equal_the_whole_launch(dev, metrics, T, K, C, every):
+    """The static and HasMetrics instances (region in shared memory), cut
+    across frame resets (frames of 13 rounds) and, at the §VI shape, into
+    64-round segments with a last one of 44."""
+    import dataclasses
+
+    cfg, h2, v, eta, inc = _k3_inputs(dev, 31, C, T, K)
+    if metrics:
+        cfg = dataclasses.replace(cfg, metrics=_metrics_spec())
+    _k3_segmented(cfg, h2, v, eta, inc, every=every)
+
+
+@pytest.mark.parametrize("hist_bins", [32, 16384])
+def test_k3_segments_at_K_2048_with_the_region_in_shared_and_global_memory(dev, hist_bins):
+    import dataclasses
+
+    C, T, K = 2, 3, 2048
+    cfg, h2, v, eta, inc = _k3_inputs(dev, 26, C, T, K)
+    names = ("queue", "queue_next", "energy_headroom", "selection_count", "selection_gap")
+    spec = _metrics_spec(hist_bins=hist_bins, names=names,
+                         reductions=("mean", "histogram", "full_trace_ds", "last"))
+    _k3_segmented(dataclasses.replace(cfg, metrics=spec), h2, v, eta, inc, every=2)
+
+
+@pytest.mark.parametrize("metrics", [False, True])
+@pytest.mark.parametrize("mode", ["plain", "overprovision", "reallocate"])
+def test_k3_segments_with_failures_and_radio(dev, metrics, mode):
+    import dataclasses
+
+    C, T, K = 8, 30, 10
+    cfg, h2, v, eta, inc = _k3_inputs(dev, 32, C, T, K)
+    cfg = dataclasses.replace(cfg, failure_mode=mode,
+                              metrics=_metrics_spec() if metrics else None)
+    _k3_segmented(cfg, h2, v, eta, inc, failure=_k3_failure(dev, 32, C, T, K, p=0.6))
+    if mode == "plain":
+        _k3_segmented(cfg, h2, v, eta, inc, radio=_k3_radio(dev, 32, C, T, cfg))
+
+
+@pytest.mark.parametrize("metrics", [False, True])
+@pytest.mark.parametrize("solver", ["pallas", "bisect", "chaos"])
+def test_k3_segments_with_the_guard(dev, metrics, solver):
+    import dataclasses
+
+    from repro_torch.guard import GuardSpec, register_chaos_solver
+
+    C, T, K = 8, 20, 10
+    cfg, h2, v, eta, inc, _ = _k3_faulty(dev, 33, C, T, K)
+    if solver == "chaos":
+        solver = register_chaos_solver("pallas", kind="objective").name
+    g = dataclasses.replace(cfg, solver=solver, guard=GuardSpec(energy_cap=1.0),
+                            metrics=_metrics_spec() if metrics else None)
+    whole = _k3_segmented(g, h2, v, eta, inc, every=6)
+    assert int(whole.fc.sum()) > 0 and int(whole.dm.sum()) > 0
