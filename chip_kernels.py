@@ -1,13 +1,15 @@
 #!/usr/bin/env python3
 """Times the port's kernels K1, K2, K3, K5, K6 and K7 of one checkout on the card.
 
-    python3 chip_kernels.py [--src DIR] [--save FILE]
+    python3 chip_kernels.py [--src DIR] [--save FILE] [--only PREFIX,...]
 
 ``--src`` names the ``src/`` directory whose ``repro_torch`` is timed
 (default: this checkout's), so that two checkouts can be compared on one
 card in one call, in turns: ``--src A/src``, ``--src B/src``, ``--src
 B/src``, ``--src A/src``, each in its own process; ``--save FILE`` keeps
-K2's outputs, to hold two checkouts' against each other.  Every kernel
+K2's outputs, to hold two checkouts' against each other; ``--only`` times
+just the readings whose names start with one of the given prefixes
+(``k3`` for K3's).  Every kernel
 runs on ``chip_smoke.py``'s inputs at that script's shapes (K1: 192 cells
 at K = 10 and K = 100; K2: 8 cells at K = 10^4, top_m 128, at V = 1e-5
 (m* <= 8) and 1e-3 (m* ~ 62); K3: the §VI grid's 192
@@ -16,7 +18,8 @@ K = 100; K3's streamed-radio instance and its failure instance under each
 failure mode at the §VI shape, on seeded radio and delivery streams, and
 its guarded instance (a cap that never fires), its bisect instance and a
 chaos backend's instance (the fallback every round) at the §VI shape, and
-its HasMetrics instance with the telemetry overhead spec of
+its newton instance (``k3_newton``, where the checkout has it) and its
+HasMetrics instance with the telemetry overhead spec of
 benchmarks/traj_bench.py:304 there (each where the checkout has it; that
 reading also carries the digest of its decision outputs alone), and a
 segment launch of rounds 128-192 from round 128's carry (``k3_seg``, where
@@ -49,7 +52,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--src", default=str(ROOT / "src"))
     ap.add_argument("--save", help="file to torch.save K2's outputs (b, wm) in, by reading")
+    ap.add_argument("--only", default="", help="comma-separated prefixes of the readings to take")
     args = ap.parse_args()
+    only = tuple(p for p in args.only.split(",") if p)
     import numpy as np
     import torch
 
@@ -77,6 +82,8 @@ def main() -> int:
         """Both times, the device time by kernel, and a digest of the outputs
         (the first 16 hex digits of their bytes' SHA-256), which tells
         whether two checkouts compute the same bits."""
+        if only and not name.startswith(only):
+            return
         out = fn()
         outs = out if isinstance(out, tuple) else (out,)
         h = hashlib.sha256()
@@ -119,6 +126,11 @@ def main() -> int:
     eta = eta_schedule("uniform", T, device=dev).expand(cells, T).contiguous()
     vv = torch.full((cells, T), 1e-5, device=dev)
     timed("k3", lambda: ocean_traj(cfg, h2c, vv, eta, inc), 5)
+    from repro_torch.kernels.ocean_traj import FUSED_SOLVERS
+
+    if "newton" in FUSED_SOLVERS:
+        cfg_n = dataclasses.replace(cfg, solver="newton")
+        timed("k3_newton", lambda: ocean_traj(cfg_n, h2c, vv, eta, inc), 5)
     from repro_torch.kernels import _build
 
     build_output = getattr(_build, "build_output", None)
@@ -126,7 +138,8 @@ def main() -> int:
            else _build.BUILD_LOG.get("ocean_traj", {}).get("output"))
     # registers and spills of the §VI instance (None where this process did
     # not build it and the checkout keeps no build log)
-    rec["k3"]["ptxas"] = cs.ptxas_of(log, cs.K3_VI_INSTANCE)
+    if "k3" in rec:
+        rec["k3"]["ptxas"] = cs.ptxas_of(log, cs.K3_VI_INSTANCE)
     try:
         from repro_torch.core.ocean import segment_step, slice_rounds
     except ImportError:  # a checkout without checkpoint/resume
@@ -182,8 +195,9 @@ def main() -> int:
             timed(name, lambda cfg_r=cfg_r: ocean_traj(cfg_r, h2c, vv, eta, inc), reps)
     k3_large = cs._k3_inputs(torch, np, dev, 192, 40, 100, seed=3)
     timed("k3_K100", lambda: ocean_traj(*k3_large), 3)
-    rec["k3_K100"]["bound_ms"], rec["k3_K100"]["bound_by"] = cs.k3_bound(
-        torch, ocean_traj(*k3_large).rho)[:2]
+    if "k3_K100" in rec:
+        rec["k3_K100"]["bound_ms"], rec["k3_K100"]["bound_by"] = cs.k3_bound(
+            torch, ocean_traj(*k3_large).rho)[:2]
     del h2c, inc, k3_large
 
     qd, kc, vc, vl = cs._k5_inputs(torch, dev, 4, 8192, 32, 16, 128, 8000)

@@ -11,7 +11,11 @@ path through the user entry point ``run_grid`` (the paper's §VI grid:
 version at K = 100 and K = 2048, and drives the paths of K1 (the scan
 trajectory) and K2 (the sort-free top-m solve at K = 10^4, one cluster
 of CTAs per cell) with the launch counters reset just before and read
-just after.
+just after.  Then K3's ranking and solver branches (phase ``k3_ranking``):
+the §VI grid with solver="newton", and K = 2048 under ranking="topm"
+(top_m 128) with pallas, newton and pallas_tiled, each bit for bit the
+sort instance on the rounds whose optimum fits and held to its plain
+version round by round.
 
 Then the LM serving path at gemma2-27b's full width and depth (46 layers,
 27.2e9 random bf16 parameters from a seed): K4 and K5 against their plain
@@ -144,12 +148,13 @@ def ops_b_of_lam(inner):
     return OPS_B_OF_LAM_SETUP + inner * OPS_NEWTON_STEP
 
 
-def ops_candidate(m, outer, inner):
-    """One candidate of the prefix sweep with m members."""
+def ops_candidate(m, outer, inner, setup=None):
+    """One candidate of the prefix sweep with m members (``setup``: its
+    bracket's operations, by default K1's seed from the members' rho)."""
     per_outer = m * (ops_b_of_lam(inner) + 1 + 2 + OPS_F_SECOND + 4) + 14
     final = m * (ops_b_of_lam(inner) + 1)
     repair = m * (4 + 8 + OPS_F_SHANNON + 2) + 12
-    setup = 2 * m + 20 + OPS_F_PRIME
+    setup = 2 * m + 20 + OPS_F_PRIME if setup is None else setup
     return setup + outer * per_outer + final + repair + 4
 
 
@@ -184,6 +189,33 @@ def ops_candidate_bisect(m, outer, inner):
     repair = m * (4 + 8 + OPS_F_SHANNON + 2) + 12
     setup = m + 12 + OPS_F_PRIME
     return setup + outer * per_outer + final + repair + 4
+
+
+def ops_candidate_grid(m, outer, inner, grid):
+    """One candidate of the newton sweep with m members (ocean_common.cuh,
+    GridCandidate): its bracket from the grid's bits (a compare and a min
+    or max a level), then ``ops_candidate``'s polish, final allocation and
+    repair at the newton budgets."""
+    return ops_candidate(m, outer, inner, setup=20 + 3 * grid)
+
+
+def ops_grid_pass(K, n_c, inner, grid):
+    """The newton sweep's per-round seed grid (newton_grid_seeds) over n_c
+    candidate slots: two reductions over the row, the levels' bounds and
+    exp/log, ``grid`` b(lam) a slot, and each level's prefix sums (a
+    shuffle scan, a compare and a bit per slot)."""
+    return 4 * K + 40 + grid * 6 + grid * n_c * (ops_b_of_lam(inner) + 1 + 5 * 2 + 4)
+
+
+def ops_newton_sweep(torch, counts, K):
+    """``ops_sweep`` of the newton solver at its float32 budgets at K, with
+    each round's seed grid over its candidates."""
+    from repro_torch.core.solvers import newton_iteration_budgets
+
+    outer, inner, grid = newton_iteration_budgets(torch.float32, K)
+    return (ops_sweep(counts, outer, inner,
+                      lambda m, o, i: ops_candidate_grid(m, o, i, grid))
+            + sum(ops_grid_pass(K, n, inner, grid) for n in counts))
 
 
 def bound_ms(n_bytes, n_ops, peak_flops=PEAK_F32_FLOPS):
@@ -319,7 +351,7 @@ def draws(np, rng, C, K, zero_frac=0.2, tie_eps=None):
 # ---------------------------------------------------------------------------
 # The §VI grid's K3 instance (K <= 16: half-warp teams; no radio, failure,
 # guard or bisect branch; no telemetry), as ptxas names it.
-K3_VI_INSTANCE = r"ocean_traj_kernelILi16ELb0ELb0ELb0ELb0E.*NoMetrics"
+K3_VI_INSTANCE = r"ocean_traj_kernelILi16ELb0ELb0ELb0EL[bi]0E.*NoMetrics"
 
 
 def ptxas_kernels(output):
@@ -562,8 +594,9 @@ def teacher_forced(torch, dev, cfg, res, p_idx, eta, v, radio=None, failure=None
     with one client's utility as the floor where the value is near 0."""
     from repro_torch.core.ocean import OceanState, ocean_round
     from repro_torch.core.selection import prefix_inputs, priorities
-    from repro_torch.core.solvers import PALLAS_PLAIN
+    from repro_torch.core.solvers import get_solver
     from repro_torch.kernels.ocean_p import _scal, prefix_objectives_plain
+    from repro_torch.kernels.ocean_traj import _plain_solver
 
     P, S, N, T, K = res.a.shape
     CT = S * N * T
@@ -572,7 +605,8 @@ def teacher_forced(torch, dev, cfg, res, p_idx, eta, v, radio=None, failure=None
     inc = res.budget_inc.reshape(CT, K)
     t_idx = torch.arange(T, device=dev, dtype=torch.int32).repeat(S * N)
     eta_c = eta.repeat(S * N)
-    plain_cfg = dataclasses.replace(cfg, solver=PALLAS_PLAIN, traj="scan")
+    plain_cfg = dataclasses.replace(cfg, solver=_plain_solver(get_solver(cfg.solver)),
+                                    traj="scan")
     rows = cfg.radio if radio is None else radio.map(lambda x: x.reshape(CT))
     kw = {"radio": None if radio is None else rows}
     if failure is not None:
@@ -584,7 +618,8 @@ def teacher_forced(torch, dev, cfg, res, p_idx, eta, v, radio=None, failure=None
     # near-tie margins of the plain version: best minus runner-up W
     rho = priorities(q_pre, h2)
     _, rho_sorted, n0, delta = prefix_inputs(rho, rows)
-    w = prefix_objectives_plain(_scal(n0, delta, v * eta_c, rows, rho_sorted), rho_sorted)
+    w = prefix_objectives_plain(_scal(n0, delta, v * eta_c, rows, rho_sorted), rho_sorted,
+                                n_cands=min(cfg.top_m, K) if cfg.ranking == "topm" else K)
     top2 = torch.topk(w, 2, dim=1).values
     near = (top2[:, 0] - top2[:, 1]) <= W_RTOL * top2[:, 0].abs()
 
@@ -634,7 +669,7 @@ def teacher_forced(torch, dev, cfg, res, p_idx, eta, v, radio=None, failure=None
 def phase_main(torch, np, dev, smi, k1_device_ms, T=300, K=10, seeds=64):
     from repro_torch.core.patterns import eta_schedule
     from repro_torch.kernels.ocean_p import ocean_p_prefix, ocean_p_topm
-    from repro_torch.kernels.ocean_traj import ocean_traj, ocean_traj_plain
+    from repro_torch.kernels.ocean_traj import m_star, ocean_traj, ocean_traj_plain, rounds_alone
     from repro_torch.sim import GridEngine, run_grid
 
     scen, pols, sd = _grid_args(T, K, seeds)
@@ -711,9 +746,11 @@ def ops_waterfill(n, outer, inner, grid):
 
 
 def k3_bound(torch, rho, radio=False, failure=False, solves=(), bisect=False, guard=False,
-             fallback=None):
+             fallback=None, newton=False, n_cands=None):
     """K3's bound on (C, T, K) priorities: per cell-round the sweep runs
-    K - n0 candidates (K1's Newton, or with ``bisect`` the bisect sweep);
+    K - n0 candidates, at most ``n_cands`` (the top-m clip; K1's Newton, or
+    with ``bisect`` the bisect sweep, with ``newton`` the newton sweep and
+    its seed grid);
     the sort is P log2(P)(log2(P)+1)/4 exchanges.  The streamed-radio
     instance also reads 3 floats a cell-round; the failure instance reads
     the (C, T, K) mask and (C, K) rates, writes the delivered mask and the
@@ -728,12 +765,16 @@ def k3_bound(torch, rho, radio=False, failure=False, solves=(), bisect=False, gu
 
     C, T, K = rho.shape
     per_round = K - (rho <= 1e-30).sum(-1)
+    if n_cands is not None:
+        per_round = torch.clamp(per_round, max=n_cands)
     counts = per_round.reshape(-1).tolist()
     Pp = max(32, 1 << (K - 1).bit_length())
     lg = int(math.log2(Pp))
     sort_ops = Pp * lg * (lg + 1) // 4 * 8
     if bisect:
         ops = ops_bisect_sweep(counts)
+    elif newton:
+        ops = ops_newton_sweep(torch, counts, K)
     else:
         ops = ops_sweep(counts, OUTER_ITERS, INNER_ITERS)
     ops += C * T * (sort_ops + 30 * K)
@@ -868,6 +909,270 @@ def phase_topm_path(torch, dev, smi, K=10_000, T=4, seeds=8, top_m=128):
     out = dict(gpu=smi, launches={"ocean_p_topm": ocean_p_topm.launches}, wall_s=wall,
                mean_selected=res.num_selected.float().mean().item(), K=K, T=T, cells=seeds)
     emit({"phase": "k2_topm_path", **out})
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K3 under ranking="topm", and its newton and pallas_tiled solvers
+# ---------------------------------------------------------------------------
+# the top-m instances of phase_k3_ranking, by solver; pallas_tiled's sort
+# counterpart is pallas (on finite W its non-finite mask never acts)
+RANKED_SOLVERS = ("pallas", "newton", "pallas_tiled")
+RANKED_LABELS = {"pallas": "topm", "newton": "newton+topm", "pallas_tiled": "pallas_tiled+topm"}
+RANK_FIELDS = ("a", "b", "e", "obj", "nsel")
+
+
+def _k3_ranked_inputs(torch, np, dev, C, T, K, seed):
+    """``_k3_inputs`` with the §VI per-client load at any K: the model's
+    bits cut with b_min, so that beta / b_min is what it is at b_min = 0.02.
+    With the §VI bits at K = 2048, f(b_min) ~ 2^80 b_min: no client with a
+    positive queue is ever selected, and the newton solver's W is NaN."""
+    from repro_torch.core.energy import RadioParams
+
+    cfg, h2, v, eta, inc = _k3_inputs(torch, np, dev, C, T, K, seed)
+    b_min = cfg.radio.b_min
+    radio = RadioParams(b_min=b_min, model_bits=RadioParams().model_bits * b_min / 0.02)
+    return dataclasses.replace(cfg, radio=radio), h2, v, eta, inc
+
+
+def _plain_rounds(torch, cfg, q_pre, h2, v, eta, inc, chunk=160):
+    """The plain round of ``cfg``'s solver on every (cell, round) of the
+    (C, T, K) queues ``q_pre``, ``chunk`` cell-rounds at a time: (C * T, ...)
+    a, b, objective and num_selected."""
+    from repro_torch.core.ocean import OceanState, ocean_round
+    from repro_torch.core.solvers import get_solver
+    from repro_torch.kernels.ocean_traj import _plain_solver
+
+    C, T, K = h2.shape
+    CT = C * T
+    plain_cfg = dataclasses.replace(cfg, solver=_plain_solver(get_solver(cfg.solver)),
+                                    traj="scan")
+    q, hh, ii = (x.reshape(CT, K) for x in (q_pre, h2, inc))
+    vv, ee = v.reshape(CT), eta.reshape(CT)
+    t = torch.arange(T, dtype=torch.int32, device=h2.device).repeat(C)
+    parts = []
+    for i in range(0, CT, chunk):
+        sl = slice(i, i + chunk)
+        state = OceanState(q=q[sl], t=t[sl], energy_spent=torch.zeros_like(q[sl]))
+        parts.append(ocean_round(state, hh[sl], vv[sl], ee[sl], plain_cfg, budget_inc=ii[sl])[1])
+    return {f: torch.cat([getattr(d, f) for d in parts])
+            for f in ("a", "b", "objective", "num_selected")}
+
+
+# A round whose P3 value K3 and the plain round agree on within FLAT_W_RTOL
+# (relative, floor v eta) but whose allocations differ beyond B_ATOL has a
+# flat optimum: there float32 resolves b only to a few 1e-4 (at K = 2048
+# K1 lands 2.1e-4 from the float64 optimum even at 40 x 40 Newton steps,
+# the reference's own float32 solvers 1.0e-4 to 2.4e-4, ``tools/
+# flat_rounds.py``).  Such a round is counted and held to the float64
+# optimum (the plain bisect solver, FLAT_ITERS halvings, outer and inner,
+# in plain PyTorch on the inputs' device) as the reference's own test of
+# its backends on random radios holds them to each other
+# (tests/test_solvers.py:76-101): the same selection and sum(b) within
+# FLAT_SUM_ATOL; beyond it, P3 no more than one float32 ulp short of the
+# optimum's and b within FLAT_B_ATOL of it.
+FLAT_W_RTOL = 1e-6
+FLAT_ITERS = 60
+FLAT_SUM_ATOL = 1e-5
+FLAT_B_ATOL = 10 * B_ATOL
+
+
+def _flat_witness(torch, cfg, rows, got, pl, q_pre, h2, v, eta):
+    """The float64 optimum of the rounds ``rows`` (indices into the C x T
+    cell-rounds) beside K3's ``got`` and the plain round's ``pl``: per
+    round, whether K3 selects as the optimum does, each side's max |b -
+    b64| and |sum(b) - sum(b64)|, and each side's float64 P3 shortfall
+    from the optimum in float32 ulps of the optimum's P3."""
+    from repro_torch.core.selection import ocean_p, p3_value
+
+    C, T, K = h2.shape
+    f64 = torch.float64
+    t = rows % T
+    q = q_pre.reshape(-1, K)[rows].to(f64)
+    q = torch.where(((t > 0) & (t % cfg.R == 0))[:, None], torch.zeros_like(q), q)
+    hh = h2.reshape(-1, K)[rows].to(f64)
+    vv, ee = (x.reshape(-1)[rows].to(f64) for x in (v, eta))
+    sol = ocean_p(q, hh, vv, ee, cfg.radio, solver="bisect", ranking=cfg.ranking,
+                  top_m=cfg.top_m, outer_iters=FLAT_ITERS, inner_iters=FLAT_ITERS)
+    w64 = p3_value(sol.a, sol.b, q, hh, vv, ee, cfg.radio)
+    w32 = w64.abs().float()
+    ulp = (torch.nextafter(w32, torch.full_like(w32, math.inf)) - w32).to(f64)
+    out = dict(rounds=rows.tolist(), same_a=(got.a.reshape(-1, K)[rows] == sol.a).all(1).tolist())
+    for name, a, b in (("kernel", got.a.reshape(-1, K)[rows], got.b.reshape(-1, K)[rows]),
+                       ("plain", pl["a"][rows], pl["b"][rows])):
+        b = b.to(f64)
+        out[f"{name}_b_off"] = (b - sol.b).abs().amax(1).tolist()
+        out[f"{name}_sum_off"] = (b.sum(1) - sol.b.sum(1)).abs().tolist()
+        out[f"{name}_p3_short_ulps"] = ((w64 - p3_value(a, b, q, hh, vv, ee, cfg.radio))
+                                        / ulp).tolist()
+    return out
+
+
+def _hold_to_plain(torch, cfg, got, q_pre, h2, v, eta, inc, what):
+    """Contract (b): K3's one-round outputs ``got`` ((C, T, ...)) against the
+    plain round on the same queues: selections and counts exact outside
+    near ties (margins of the plain K1 sweep over the clip's candidates),
+    the P3 value within W_RTOL x (|P3| + v eta) and b within B_ATOL there;
+    flat rounds (FLAT_W_RTOL) are counted and held to the float64 optimum
+    (``_flat_witness``)."""
+    C, T, K = h2.shape
+    pl = _plain_rounds(torch, cfg, q_pre, h2, v, eta, inc)
+    v_eta = (v * eta).reshape(-1)
+    n_cands = min(cfg.top_m, K) if cfg.ranking == "topm" else K
+    near = _near_rounds(torch, got.rho.reshape(-1, K), v_eta, cfg.radio, n_cands=n_cands)
+    flip = (got.a.reshape(-1, K) != pl["a"]).any(1) | (got.nsel.reshape(-1) != pl["num_selected"])
+    check(not bool((flip & ~near).any()),
+          f"{what}: {int((flip & ~near).sum())} rounds select differently outside near ties")
+    ok = ~near
+    obj = got.obj.reshape(-1)
+    rel = (obj - pl["objective"]).abs() / (pl["objective"].abs() + v_eta)
+    check(rel[ok].max().item() <= W_RTOL, f"{what}: P3 value off the plain round's by "
+                                          f"{rel[ok].max().item()} (relative)")
+    db = (got.b.reshape(-1, K) - pl["b"]).abs().amax(1)
+    flat = ok & (db > B_ATOL) & (rel <= FLAT_W_RTOL)
+    err_b = db[ok & ~flat].max().item()
+    check(err_b <= B_ATOL, f"{what}: max |b - b_plain| = {err_b}")
+    witness = None
+    if bool(flat.any()):
+        witness = _flat_witness(torch, cfg, flat.nonzero().reshape(-1), got, pl, q_pre, h2,
+                                v, eta)
+        check(all(witness["same_a"])
+              and max(witness["kernel_sum_off"]) <= FLAT_SUM_ATOL
+              and max(witness["kernel_p3_short_ulps"]) <= 1.0
+              and max(witness["kernel_b_off"]) <= FLAT_B_ATOL,
+              f"{what}: a flat round is off the float64 optimum: {witness}")
+    return dict(rounds=C * T, near_tie_rounds=int(near.sum()), flipped_rounds=int(flip.sum()),
+                max_abs_err_b=err_b, max_rel_err_obj=rel[ok].max().item(),
+                flat_rounds=int(flat.sum()),
+                flat_max_abs_err_b=db[flat].max().item() if witness else 0.0,
+                flat_witness=witness)
+
+
+def phase_k3_ranking(torch, np, dev, smi, T=300, K=10, seeds=64, big=(2048, 16, 40),
+                     top_m=128):
+    """K3's top-m ranking and its newton and pallas_tiled solvers.
+
+    1. The §VI grid through ``run_grid`` with solver="newton" on
+       traj="fused" (K3's newton instance; its launches counted between a
+       reset and a read), every (cell, round) replayed against the plain
+       round (the newton solver's plain PyTorch version), and K3 alone on
+       chip_kernels.py's §VI inputs beside the static instance, whose
+       digest must stay ``c27a0410``: device ms, plain ms, bound.
+    2. K = 2048, 16 cells x 40 rounds (``_k3_ranked_inputs``): the sort
+       instance's run (pallas) gives the rounds' queues.  It and the top-m
+       instances (pallas, newton, pallas_tiled, top_m 128) each run the 40
+       rounds once (counted between a reset and a read).  Then, on the sort
+       run's queues as one-round launches (``rounds_alone``): each top-m
+       instance equals the sort instance of its solver (pallas for
+       pallas_tiled) bit for bit on every round whose sort optimum fits the
+       clip (contract a; the count printed) and, at top_m = K, on every
+       round; each holds to its plain version (contract b, flat rounds to
+       the float64 optimum).  Each whole run, the sort run's too, is timed
+       the same way (``gpu_ms`` and ``device_ms``), the top-m ones with their
+       candidates cut from 2049 to 129.
+    """
+    from repro_torch.core.patterns import eta_schedule
+    from repro_torch.kernels.ocean_traj import m_star, ocean_traj, ocean_traj_plain, rounds_alone
+    from repro_torch.sim import GridEngine, run_grid
+
+    scen, pols, sd = _grid_args(T, K, seeds)
+    run_grid(scen, pols, range(2), solver="newton", traj="fused", device=dev)  # warm-up
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    res = run_grid(scen, pols, sd, solver="newton", traj="fused", device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _counts()
+    check(launches["ocean_traj_instances"] == {"newton": len(pols)},
+          f"k3_ranking: the newton grid's launches {launches}")
+    check(bool(torch.isfinite(res.b).all() and torch.isfinite(res.q).all()),
+          "k3_ranking: the newton grid's b or q is not finite")
+    P, S, N = res.a.shape[:3]
+    C = S * N
+    cfg = GridEngine(scen, pols, solver="newton", traj="fused", device=dev).cfg
+    tf = {}
+    for p_idx, pol in enumerate(pols):
+        eta = eta_schedule({"ocean-u": "uniform", "ocean-a": "ascend"}[pol], T, device=dev)
+        args = (cfg, res.h2.reshape(C, T, K).contiguous(), torch.full((C, T), V_PAPER, device=dev),
+                eta.expand(C, T).contiguous(), res.budget_inc.reshape(C, T, K).contiguous(),
+                None, None)
+        r = teacher_forced(torch, dev, cfg, res, p_idx, eta, V_PAPER,
+                           obj=_k3_replayed_obj(torch, res, p_idx, args))
+        r.pop("near")
+        tf[pol] = r
+    vi = {}
+    for name, c in (("static", dataclasses.replace(cfg, solver="pallas")), ("newton", cfg)):
+        a = (c, *_vi_k3_args(torch, np, dev, c, T=T), None, None)
+        out = ocean_traj(*a[:5])
+        vi[name] = dict(_k3_alone(torch, a), digest=k3_digest(torch, out), **dict(zip(
+            ("bound_ms", "bound_by", "ops", "bytes"),
+            k3_bound(torch, out.rho, newton=name == "newton"))))
+    check(vi["static"]["digest"].startswith("c27a0410"),
+          f"k3_ranking: the §VI static instance's digest moved: {vi['static']['digest']}")
+
+    Kb, Cb, Tb = big
+    cfg2, h2, v, eta, inc = _k3_ranked_inputs(torch, np, dev, Cb, Tb, Kb, seed=Kb)
+    runs = {"sort": cfg2, **{c_: dataclasses.replace(cfg2, solver=c_, ranking="topm",
+                                                     top_m=top_m)
+                             for c_ in RANKED_SOLVERS}}
+    labels = {"sort": "static", **RANKED_LABELS}
+    _reset_counts()
+    wholes = {c_: ocean_traj(rc, h2, v, eta, inc) for c_, rc in runs.items()}
+    torch.cuda.synchronize()
+    big_launches = _counts()
+    check(big_launches["ocean_traj_instances"] == {labels[c_]: 1 for c_ in runs},
+          f"k3_ranking: the K={Kb} launches {big_launches}")
+    s = wholes["sort"]
+    m_sort = m_star(s.nsel, s.rho)
+    base = {"pallas": s, "pallas_tiled": s,
+            "newton": rounds_alone(dataclasses.replace(cfg2, solver="newton"), s.q_pre, h2, v,
+                                   eta, inc)}
+    big_rec = {}
+    for c_, rc in runs.items():
+        row = dict(label=labels[c_],
+                   launches=big_launches["ocean_traj_instances"].get(labels[c_], 0),
+                   n_cands=min(top_m, Kb) + 1 if c_ != "sort" else Kb + 1)
+        if c_ != "sort":
+            rounds = rounds_alone(rc, s.q_pre, h2, v, eta, inc)
+            check(bool((m_star(rounds.nsel, rounds.rho) <= top_m).all()),
+                  f"k3_ranking: {c_} passed the clip")
+            fits = m_star(base[c_].nsel, base[c_].rho) <= top_m
+            diff = [f for f in RANK_FIELDS
+                    if not _same_bits(torch, getattr(rounds, f)[fits], getattr(base[c_], f)[fits])]
+            check(not diff, f"k3_ranking K={Kb}: {c_} top-m {top_m} differs from sort where "
+                            f"m* <= {top_m}: {diff}")
+            full = rounds_alone(dataclasses.replace(rc, top_m=Kb), s.q_pre, h2, v, eta, inc)
+            diff = [f for f in RANK_FIELDS
+                    if not _same_bits(torch, getattr(full, f), getattr(base[c_], f))]
+            check(not diff, f"k3_ranking K={Kb}: {c_} at top_m = K differs from sort: {diff}")
+            row.update(rounds_fitting=int(fits.sum()),
+                       saturated_rounds=int((m_star(wholes[c_].nsel, wholes[c_].rho)
+                                             == top_m).sum()),
+                       contract_b=_hold_to_plain(torch, rc, rounds, s.q_pre, h2, v, eta, inc,
+                                                 f"k3_ranking K={Kb} {c_}"))
+        fn = lambda rc=rc: ocean_traj(rc, h2, v, eta, inc)  # noqa: E731
+        dev_ms, _, seen = device_ms(torch, fn, 2)
+        row.update(ms=gpu_ms(torch, fn, 2), device_ms=dev_ms, device_records_seen=seen)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ocean_traj_plain(rc, h2[:, :10], v[:, :10], eta[:, :10], inc[:, :10])
+        torch.cuda.synchronize()
+        row.update(plain_ms=1e3 * (time.perf_counter() - t0), plain_rounds=10, **dict(zip(
+            ("bound_ms", "bound_by", "ops", "bytes"),
+            k3_bound(torch, wholes[c_].rho, newton=c_ == "newton",
+                     n_cands=top_m if c_ != "sort" else None))))
+        big_rec[c_] = row
+    out = dict(gpu=smi, vi_grid=dict(launches=launches, wall_s=wall,
+                                     rounds_cells_per_s=P * C * T / wall, teacher_forced=tf),
+               vi=vi, big=dict(K=Kb, cells=Cb, T=Tb, top_m=top_m, rounds=Cb * Tb,
+                               mean_m_star_sort=m_sort.float().mean().item(),
+                               max_m_star_sort=int(m_sort.max()), rows=big_rec),
+               max_abs_err_b=max([r["max_abs_err_b"] for r in tf.values()]
+                                 + [max(r["contract_b"]["max_abs_err_b"],
+                                        r["contract_b"]["flat_max_abs_err_b"])
+                                    for k, r in big_rec.items() if k != "sort"]))
+    emit({"phase": "k3_ranking", **out})
     return out
 
 
@@ -2177,14 +2482,16 @@ def phase_checkpoint(torch, np, dev, smi, rel_args, radio_args, T=300, K=10, see
     return out
 
 
-def _near_rounds(torch, rho, v_eta, radio):
+def _near_rounds(torch, rho, v_eta, radio, n_cands=None):
     """Rounds (rows of ``rho``, priorities with the guard's demotions) whose
-    best and runner-up prefix W of the plain K1 sweep lie within W_RTOL |W*|."""
+    best and runner-up prefix W of the plain K1 sweep (over ``n_cands``
+    candidates, default all) lie within W_RTOL |W*|."""
     from repro_torch.core.selection import prefix_inputs
     from repro_torch.kernels.ocean_p import _scal, prefix_objectives_plain
 
     _, rho_sorted, n0, delta = prefix_inputs(rho, radio)
-    w = prefix_objectives_plain(_scal(n0, delta, v_eta, radio, rho_sorted), rho_sorted)
+    w = prefix_objectives_plain(_scal(n0, delta, v_eta, radio, rho_sorted), rho_sorted,
+                                n_cands=n_cands)
     top2 = torch.topk(w, 2, dim=1).values
     return (top2[:, 0] - top2[:, 1]) <= W_RTOL * top2[:, 0].abs()
 
@@ -3124,6 +3431,7 @@ def main() -> int:
     k3_large = timed("k3_large_K", phase_k3_large, torch, np, dev, smi)
     scan = timed("k1_scan_path", phase_scan, torch, dev, smi, res, near_cells)
     topm = timed("k2_topm_path", phase_topm_path, torch, dev, smi)
+    ranking = timed("k3_ranking", phase_k3_ranking, torch, np, dev, smi)
     del res
     torch.cuda.empty_cache()
     reliability, rel_args = timed("reliability", phase_reliability, torch, np, dev, smi)
@@ -3173,7 +3481,7 @@ def main() -> int:
              launches=main_out["launches"]["ocean_traj"],
              max_abs_err=max([k3_err, reliability["max_abs_err_b"],
                               radio_grid["teacher_forced"]["max_abs_err_b"],
-                              robustness["max_abs_err_b"]]
+                              robustness["max_abs_err_b"], ranking["max_abs_err_b"]]
                              + [r["max_abs_err_b"] for r in k3_large.values()]),
              ms=main_out["k3_ms"], device_ms=main_out["k3_device_ms"],
              plain_ms=main_out["k3_plain_ms"],
@@ -3193,6 +3501,22 @@ def main() -> int:
                  # in the checkpoint phase, one timed alone
                  "static+seg": dict(launches=ckpt["segment"]["launches"],
                                     **{k: ckpt["segment"][k] for k in INSTANCE_KEYS}),
+                 # the k3_ranking phase: the §VI grid with solver="newton"
+                 # (csrc/ocean_traj_grid.cu), and the top-m instances at
+                 # K = 2048, beside the sort instance there
+                 "newton": dict(source="src/repro_torch/csrc/ocean_traj_grid.cu",
+                                launches=ranking["vi_grid"]["launches"]["ocean_traj"],
+                                **{k: ranking["vi"]["newton"][k] for k in INSTANCE_KEYS}),
+                 **{r["label"]: dict(
+                     source="src/repro_torch/csrc/ocean_traj_grid.cu" if c_ == "newton"
+                     else "src/repro_torch/csrc/ocean_traj.cu", shape="16 cells x 40 rounds x "
+                     "K = 2048, top_m 128", launches=r["launches"],
+                     **{k: r[k] for k in INSTANCE_KEYS})
+                    for c_, r in ranking["big"]["rows"].items() if c_ != "sort"},
+                 "static K=2048": dict(shape="16 cells x 40 rounds x K = 2048",
+                                       launches=ranking["big"]["rows"]["sort"]["launches"],
+                                       **{k: ranking["big"]["rows"]["sort"][k]
+                                          for k in INSTANCE_KEYS}),
              }),
         dict(name="ocean_traj_metrics", route="cuda",
              source="src/repro_torch/csrc/ocean_traj_metrics.cu",

@@ -21,6 +21,7 @@ Every array carries a leading cell axis ``C``; the client axis is last.
 """
 from __future__ import annotations
 
+import functools
 from typing import Callable, Dict, NamedTuple, Optional, Tuple, Union
 
 import torch
@@ -511,11 +512,11 @@ def _prefix_pallas_tiled(*args, **kwargs) -> PrefixSolution:
     )
 
 
-def _topm_pallas_tiled(rho, n0, delta, v_eta, radio, *, top_m, block_k):
+def _topm_pallas_tiled(rho, n0, delta, v_eta, radio, *, top_m, block_k, plain=False):
     from repro_torch.kernels.ocean_p import ocean_p_topm_fused
 
     return ocean_p_topm_fused(
-        rho, n0, delta, v_eta, radio, top_m=top_m, block_k=block_k
+        rho, n0, delta, v_eta, radio, top_m=top_m, block_k=block_k, plain=plain
     )
 
 
@@ -529,7 +530,11 @@ register_solver(
     topm=_topm_pallas_tiled,
 )
 
-# The K1 sweep's plain PyTorch version on any device, as a backend object
-# (not registered): the plain whole-trajectory path and the chip checks
-# hand it to ``ocean_round`` through ``OceanConfig.solver``.
+# The K1 sweep's and K2's plain PyTorch versions on any device, as backend
+# objects (not registered): the plain whole-trajectory path and the chip
+# checks hand them to ``ocean_round`` through ``OceanConfig.solver``.
 PALLAS_PLAIN = SolverBackend("pallas_plain", _prefix_pallas_plain, waterfill_newton)
+PALLAS_TILED_PLAIN = SolverBackend(
+    "pallas_tiled_plain", _prefix_pallas_tiled, waterfill_newton,
+    functools.partial(_topm_pallas_tiled, plain=True),
+)

@@ -1,15 +1,18 @@
 // Shared device code of the OCEAN kernels (K1 ocean_p_prefix, K2 ocean_p_topm,
 // K3 ocean_traj): the Shannon-inversion math, the safeguarded Newton
 // waterfilling of one P4 candidate, the double bisection of one P4
-// candidate (the ``bisect`` solver, K3 only), and the candidate-parallel
-// K+1-prefix sweep over either (a warp or half warp per candidate; K1, K2,
-// K3).
+// candidate (the ``bisect`` solver, K3 only), the ``newton`` solver's
+// grid-seeded candidate and masked P4 (K3 only), and the candidate-parallel
+// K+1-prefix sweep over any of them (a warp or half warp per candidate; K1,
+// K2, K3).
 //
 // The math follows the reference line for line:
 //   f, f', f''            repro/core/energy.py:128-151
 //   b_of_lam_newton       repro/core/solvers.py:265
 //   the outer Newton step repro/kernels/ocean_p.py:95-111
 //   _budget_repair        repro/core/solvers.py:335
+//   _outer_newton_polish  repro/core/solvers.py:351
+//   _prefix_newton        repro/core/solvers.py:458 (its seed grid)
 //   solve_p4 (bisection)  repro/core/bandwidth.py:53-130
 // Elementwise, each kernel computes what its plain PyTorch version does op
 // for op (no FMA contraction, exp2 rounded from double); the two differ
@@ -313,8 +316,11 @@ __device__ bool candidate_w_bisect(const Team& tm, const float* rho, int L, int 
 }
 
 // What a sweep evaluates per candidate: K1's safeguarded Newton (the
-// default), or the bisect solver's double bisection.
+// default), or the bisect solver's double bisection.  ``kNanWins``: the
+// solver's plain version picks its winner with torch.argmax (as the
+// reference's jnp.argmax), where the first NaN W wins; K1's never picks one.
 struct NewtonCandidate {
+  static constexpr bool kNanWins = false;
   template <class Team>
   __device__ bool operator()(const Team& tm, const float* rho, int L, int start, int m,
                              const SweepParams& p, float fp_min, float* b, float& w) const {
@@ -323,6 +329,7 @@ struct NewtonCandidate {
 };
 
 struct BisectCandidate {
+  static constexpr bool kNanWins = true;
   int outer, inner;
   template <class Team>
   __device__ bool operator()(const Team& tm, const float* rho, int L, int start, int m,
@@ -330,6 +337,133 @@ struct BisectCandidate {
     return candidate_w_bisect(tm, rho, L, start, m, p, fp_min, outer, inner, b, w);
   }
 };
+
+// ---------------------------------------------------------------------------
+// The ``newton`` solver's pieces (repro/core/solvers.py), shared by the masked
+// P4 (waterfill_newton) and the newton solver's prefix candidates
+// (_prefix_newton): the members of a solve are the slots i of [lo_i, hi_i)
+// for which ``in(i)`` holds.
+// ---------------------------------------------------------------------------
+struct AllSlots {
+  __device__ bool operator()(int) const { return true; }
+};
+struct Flagged {
+  const float* member;
+  __device__ bool operator()(int i) const { return member[i] > 0.f; }
+};
+
+// _outer_newton_polish: ``outer`` safeguarded Newton steps on the budget
+// residual from (lam, lo, hi), then the members' final allocation b(lam)
+// into b (0 at the other slots); returns the lane's part of its sum.
+template <class Team, class In>
+__device__ __forceinline__ float newton_polish(const Team& tm, const float* rho, int lo_i,
+                                               int hi_i, In in, float delta, float beta,
+                                               float b_min, float b_max, int outer, int inner,
+                                               float lam, float lo, float hi, float* b) {
+  for (int it = 0; it < outer; ++it) {
+    float rs = 0.f, ds = 0.f;
+    for (int i = lo_i + tm.tid; i < hi_i; i += tm.nt) {
+      if (!in(i)) continue;
+      const float bi = b_of_lam(lam, rho[i], beta, b_min, b_max, inner);
+      rs += bi;
+      if (bi > b_min && bi < b_max)
+        ds += -1.f / (jmax(rho[i], 1e-30f) * jmax(f_second(bi, beta), 1e-30f));
+    }
+    const float2 sd = tm.sum2(rs, ds);
+    const float r = sd.x - delta;
+    const bool too_big = r > 0.f;
+    lo = too_big ? lam : lo;
+    hi = too_big ? hi : lam;
+    const float lam_n = lam - r / jmin(sd.y, -1e-30f);
+    const bool ok = (lam_n >= lo) && (lam_n <= hi) && isfinite(lam_n);
+    lam = ok ? lam_n : sqrtf(jmax(lo, 1e-6f * hi) * jmax(hi, 1e-30f));
+  }
+  float sb = 0.f;
+  for (int i = lo_i + tm.tid; i < hi_i; i += tm.nt) {
+    const float bi = in(i) ? b_of_lam(lam, rho[i], beta, b_min, b_max, inner) : 0.f;
+    b[i] = bi;
+    sb += bi;
+  }
+  return sb;
+}
+
+// _budget_repair of the members' allocation b, whose team sum before it is
+// ``sb`` (0 at the other slots); WithCost: returns the team's cost sum
+// rho f(max(b, b_min)), as a candidate's W needs.
+template <bool WithCost, class Team, class In>
+__device__ __forceinline__ float budget_repair(const Team& tm, const float* rho, int lo_i,
+                                               int hi_i, In in, float sb, float delta,
+                                               float beta, float b_min, float b_max, float* b) {
+  const float s = tm.template all<Sum>(sb);
+  float hr = 0.f, sl = 0.f;
+  for (int i = lo_i + tm.tid; i < hi_i; i += tm.nt) {
+    if (!in(i)) continue;
+    hr += jmax(b_max - b[i], 0.f);
+    sl += jmax(b[i] - b_min, 0.f);
+  }
+  const float2 hs = tm.sum2(hr, sl);
+  const float residual = delta - s;
+  const float hden = jmax(hs.x, 1e-30f), sden = jmax(hs.y, 1e-30f);
+  float cs = 0.f;
+  for (int i = lo_i + tm.tid; i < hi_i; i += tm.nt) {
+    float bi = 0.f;
+    if (in(i)) {
+      bi = b[i];
+      bi = residual >= 0.f ? bi + residual * (jmax(b_max - bi, 0.f) / hden)
+                           : bi + residual * (jmax(bi - b_min, 0.f) / sden);
+      bi = jclip(bi, b_min, b_max);
+      if (WithCost) cs += rho[i] * f_shannon(jmax(bi, b_min), beta);
+    }
+    b[i] = bi;
+  }
+  return WithCost ? tm.template all<Sum>(cs) : 0.f;
+}
+
+// A candidate of the ``newton`` solver (_prefix_newton): its bracket comes
+// from the round's shared log grid (newton_grid_seeds): hi0, the least
+// level whose prefix budget residual is <= 0 (capped at the candidate's
+// lam_hi), the largest other level as the seed's low end, lam0 their
+// geometric mean; then ``outer`` x ``inner`` polish steps from lo = 0, the
+// repair and W.  Returns false for an infeasible m only: a member with
+// rho = +inf gives W = -inf or NaN as in the plain version, where a NaN
+// wins (kNanWins).
+struct GridCandidate {
+  static constexpr bool kNanWins = true;
+  const unsigned* bits;  // per candidate m, at m - 1: bit g set where level g's residual <= 0
+  const float* lam_g;    // the grid's levels
+  int grid, outer, inner;
+  template <class Team>
+  __device__ bool operator()(const Team& tm, const float* rho, int L, int start, int m,
+                             const SweepParams& p, float fp_min, float* b, float& w) const {
+    const float mf = (float)m;
+    if (!(mf <= p.kf - p.n0f) || start + m > L) return false;
+    const int lo_i = start, hi_i = start + m;
+    const float b_max = jmax(p.delta - jmax(mf - 1.f, 0.f) * p.b_min, p.b_min);
+    const float lam_hi = rho[hi_i - 1] * fp_min * 1.000001f + 1e-30f;
+    const unsigned mask = bits[m - 1];
+    float hi_seed = INFINITY, lo_seed = 0.f;
+    for (int g = 0; g < grid; ++g) {
+      if ((mask >> g) & 1u) hi_seed = jmin(hi_seed, lam_g[g]);
+      else lo_seed = jmax(lo_seed, lam_g[g]);
+    }
+    const float hi0 = jmin(isfinite(hi_seed) ? hi_seed : lam_hi, lam_hi);
+    const float lam0 = jmin(jmax(sqrtf(jmax(lo_seed, 1e-30f) * jmax(hi0, 1e-30f)), 0.f), hi0);
+    const float sb = newton_polish(tm, rho, lo_i, hi_i, AllSlots{}, p.delta, p.beta, p.b_min,
+                                   b_max, outer, inner, lam0, 0.f, hi0, b);
+    w = p.v_eta * (p.n0f + mf) -
+        p.scale * budget_repair<true>(tm, rho, lo_i, hi_i, AllSlots{}, sb, p.delta, p.beta,
+                                      p.b_min, b_max, b);
+    return true;
+  }
+};
+
+// Whether (W w2, m2) is ahead of (w, m) in the sweep's order: the larger W,
+// ties to the smaller m, and NaN never ahead; with ``nan_wins`` (kNanWins)
+// a NaN is ahead of every number, the smaller m first among NaNs.
+__device__ __forceinline__ bool ahead(float w2, float m2, float w, float m, bool nan_wins) {
+  if (nan_wins && (isnan(w2) || isnan(w))) return isnan(w2) && (!isnan(w) || m2 < m);
+  return w2 > w || (w2 == w && m2 < m);
+}
 
 // W of m = 0: nothing selected beyond S0, cost 0.
 __device__ __forceinline__ float w_of_none(const SweepParams& p, bool mask_nonfinite) {
@@ -348,14 +482,18 @@ __device__ __forceinline__ float w_of_none(const SweepParams& p, bool mask_nonfi
 // in (W descending, m ascending).  Over all teams that is the sequential
 // sweep's winner: the largest W over m = 0 and the unmasked candidates,
 // ties to the smaller m, and NaN never wins (a team's best starts at W(0)
-// and only a strictly greater W replaces it).  A masked candidate is
+// and only a strictly greater W replaces it) -- unless the Candidate's
+// kNanWins (the bisect and newton solvers, whose plain versions pick with
+// torch.argmax): then the smallest m whose W is NaN wins.  A masked candidate is
 // skipped, which a sequential sweep's early end equals because both masks
 // are monotone in m.
 //
 //   MaskNonfinite  K2's rule: a non-finite W (W(0) included) is not an
-//                  answer and counts as NEG_INF; K1 and K3 keep W as it is
+//                  answer and counts as NEG_INF; K1 keeps W as it is, K3
+//                  passes the rule at run time (``mask``: pallas_tiled)
 //   Candidate      what evaluates one candidate: NewtonCandidate (K1's
-//                  solve, the default) or BisectCandidate (prefix_sweep_bisect)
+//                  solve, the default), BisectCandidate (prefix_sweep_bisect)
+//                  or GridCandidate (the newton solver, K3)
 //   rows           shared scratch of 2 * (teams in the block) * L floats:
 //                  team u's working row at rows + 2 u L, its best row (its
 //                  winner's allocation, 0 outside it) at rows + (2 u + 1) L
@@ -368,7 +506,8 @@ __device__ void prefix_sweep_parallel(const float* rho, int L, int start, int n_
                                       const SweepParams& p, float* rows, float* scratch,
                                       float& w_out, float& m_out, int& winner,
                                       int g = -1, int nteams = 0,
-                                      const Candidate& cand = Candidate()) {
+                                      const Candidate& cand = Candidate(),
+                                      bool mask = MaskNonfinite) {
   const LaneTeam<NT> tm;
   const int team = threadIdx.x / NT, block_teams = blockDim.x / NT;
   if (g < 0) g = team;
@@ -377,15 +516,18 @@ __device__ void prefix_sweep_parallel(const float* rho, int L, int start, int n_
   float* best = b + L;
   for (int i = tm.tid; i < L; i += tm.nt) best[i] = 0.f;
   __syncwarp(tm.mask);  // the winner copy below maps slots to lanes differently
-  float best_w = w_of_none(p, MaskNonfinite);
+  float best_w = w_of_none(p, mask);
   float best_m = 0.f;
   const float fp_min = -f_prime(p.b_min, p.beta);
 
   for (int m = g + 1; m <= n_cands; m += nteams) {
     float w;
     if (!cand(tm, rho, L, start, m, p, fp_min, b, w)) continue;
-    if (MaskNonfinite && !isfinite(w)) w = kNegInf;
-    if (w > best_w) {  // team-uniform
+    if (mask && !isfinite(w)) w = kNegInf;
+    // m grows along a team's walk: a later candidate is ahead only by a
+    // larger W (or, kNanWins, as the team's first NaN)
+    const bool take = Candidate::kNanWins && isnan(w) ? !isnan(best_w) : w > best_w;
+    if (take) {  // team-uniform
       best_w = w;
       best_m = (float)m;
       for (int i = start + tm.tid; i < start + m; i += tm.nt) best[i] = b[i];
@@ -401,7 +543,7 @@ __device__ void prefix_sweep_parallel(const float* rho, int L, int start, int n_
   int bi = 0;
   for (int i = 1; i < block_teams; ++i) {
     const float w2 = scratch[i], m2 = scratch[32 + i];
-    if (w2 > bw || (w2 == bw && m2 < bm)) {
+    if (ahead(w2, m2, bw, bm, Candidate::kNanWins)) {
       bw = w2;
       bm = m2;
       bi = i;
@@ -423,6 +565,89 @@ __device__ void prefix_sweep_bisect(const float* rho, int L, int start, int n_ca
   prefix_sweep_parallel<NT, false, BisectCandidate>(rho, L, start, n_cands, p, rows, scratch,
                                                     w_out, m_out, winner, -1, 0,
                                                     BisectCandidate{outer, inner});
+}
+
+// ---------------------------------------------------------------------------
+// The ``newton`` solver's per-round seed grid (_prefix_newton, before its
+// polish), for the candidates m = 1 .. n_c of the ranked row rho[0, K)
+// (members at slots [n0, n0 + m)).  Called by every thread of the block.
+//   1. lam_hi_glob from the row's largest rho (order-free: the sort path's
+//      largest candidate bound, the top-m path's rho_hi = max(rho)),
+//      lam_lo_glob from the least positive rho among the candidates' slots
+//      and b_cap = max(delta, b_min); ``grid`` levels evenly spaced in log
+//      between them (frac[g]: torch.linspace(0, 1, grid)), into lam_g.
+//   2. b(lam_g) of every candidate slot at every level (b_max = b_cap), in
+//      passes of as many levels as the ``scr_n`` floats of ``scr`` hold,
+//      then one warp per level adds its row's prefix sums in double: the
+//      sums of these floats are exact in double, so rounding them once to
+//      float gives the plain version's cumsum (on the CPU it accumulates in
+//      double), whatever the order.
+//   3. bit g of bits[m - 1] set where level g's residual (prefix sum -
+//      delta) of candidate m is <= 0: GridCandidate reads the bracket from
+//      these bits and lam_g (a min and a max, exact in any order).
+//   red   at least 64 floats of shared scratch
+// ---------------------------------------------------------------------------
+__device__ void newton_grid_seeds(const float* rho, int K, int n0, int n_c, const SweepParams& p,
+                                  int grid, int inner, const float* frac, float* scr, int scr_n,
+                                  unsigned* bits, float* lam_g, float* red) {
+  const int tid = threadIdx.x, nt = blockDim.x, lane = tid & 31;
+  const int warp = tid >> 5, nwarps = nt >> 5;
+  float mx = -INFINITY, mn = INFINITY;
+  for (int i = tid; i < K; i += nt) {
+    mx = jmax(mx, rho[i]);
+    if (i >= n0 && i < n0 + n_c && rho[i] > 0.f) mn = jmin(mn, rho[i]);
+  }
+  mx = warp_all<Max>(mx);
+  mn = warp_all<Min>(mn);
+  if (lane == 0) {
+    red[warp] = mx;
+    red[32 + warp] = mn;
+  }
+  for (int j = tid; j < n_c; j += nt) bits[j] = 0u;
+  __syncthreads();
+  float rho_hi = red[0], rho_min = red[32];
+  for (int w = 1; w < nwarps; ++w) {
+    rho_hi = jmax(rho_hi, red[w]);
+    rho_min = jmin(rho_min, red[32 + w]);
+  }
+  const float fp_min = -f_prime(p.b_min, p.beta);
+  const float lam_hi = rho_hi * fp_min * 1.000001f + 1e-30f;
+  const float b_cap = jmax(p.delta, p.b_min);
+  float lam_lo = isfinite(rho_min) ? rho_min * jmax(-f_prime(b_cap, p.beta), 1e-30f) * 0.5f
+                                   : 1e-30f;
+  lam_lo = jmin(jmax(lam_lo, 1e-30f), lam_hi);
+  if (tid < grid) {
+    const float log_lo = logf(lam_lo), log_hi = logf(jmax(lam_hi, 1e-30f));
+    lam_g[tid] = expf(log_lo * (1.f - frac[tid]) + log_hi * frac[tid]);
+  }
+  __syncthreads();  // lam_g written, red read
+  if (n_c <= 0) return;
+  const int per_pass = max(1, min(grid, scr_n / n_c));
+  for (int g0 = 0; g0 < grid; g0 += per_pass) {
+    const int gl = min(per_pass, grid - g0);
+    for (int i = tid; i < gl * n_c; i += nt) {
+      const int g = i / n_c, j = i - g * n_c;
+      scr[i] = b_of_lam(lam_g[g0 + g], rho[n0 + j], p.beta, p.b_min, b_cap, inner);
+    }
+    __syncthreads();
+    for (int g = warp; g < gl; g += nwarps) {
+      const float* row = scr + (size_t)g * n_c;
+      double carry = 0.0;
+      for (int c = 0; c < n_c; c += 32) {
+        const int j = c + lane;
+        double x = j < n_c ? (double)row[j] : 0.0;
+#pragma unroll
+        for (int o = 1; o < 32; o <<= 1) {
+          const double y = __shfl_up_sync(0xffffffffu, x, o);
+          if (lane >= o) x += y;
+        }
+        x += carry;
+        if (j < n_c && (float)x - p.delta <= 0.f) atomicOr(bits + j, 1u << (g0 + g));
+        carry = __shfl_sync(0xffffffffu, x, 31);
+      }
+    }
+    __syncthreads();
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -489,52 +714,11 @@ __device__ void masked_waterfill(const float* rho, const float* member, int L, f
       if (rg > 0.f) lo0 = jmax(lo0, lam);
     }
     const float hi0 = jmin(isfinite(hi_seed) ? hi_seed : lam_hi, lam_hi);
-    float lam = jmin(jmax(sqrtf(jmax(lo0, 1e-30f) * jmax(hi0, 1e-30f)), 0.f), hi0);
-    float lo = lo0, hi = hi0;
-    for (int it = 0; it < outer; ++it) {
-      float rs = 0.f, ds = 0.f;
-      for (int i = tm.tid; i < L; i += tm.nt) {
-        if (!(member[i] > 0.f)) continue;
-        const float bi = b_of_lam(lam, rho[i], beta, b_min, b_max, inner);
-        rs += bi;
-        if (bi > b_min && bi < b_max)
-          ds += -1.f / (jmax(rho[i], 1e-30f) * jmax(f_second(bi, beta), 1e-30f));
-      }
-      const float2 sd = tm.sum2(rs, ds);
-      const float r = sd.x - delta;
-      const bool too_big = r > 0.f;
-      lo = too_big ? lam : lo;
-      hi = too_big ? hi : lam;
-      const float lam_n = lam - r / jmin(sd.y, -1e-30f);
-      const bool ok = (lam_n >= lo) && (lam_n <= hi) && isfinite(lam_n);
-      lam = ok ? lam_n : sqrtf(jmax(lo, 1e-6f * hi) * jmax(hi, 1e-30f));
-    }
-    float sb = 0.f;
-    for (int i = tm.tid; i < L; i += tm.nt) {
-      const float bi = member[i] > 0.f ? b_of_lam(lam, rho[i], beta, b_min, b_max, inner) : 0.f;
-      b[i] = bi;
-      sb += bi;
-    }
-    const float s = tm.template all<Sum>(sb);
-    float hr = 0.f, sl = 0.f;
-    for (int i = tm.tid; i < L; i += tm.nt) {
-      if (!(member[i] > 0.f)) continue;
-      hr += jmax(b_max - b[i], 0.f);
-      sl += jmax(b[i] - b_min, 0.f);
-    }
-    const float2 hs = tm.sum2(hr, sl);
-    const float residual = delta - s;
-    const float hden = jmax(hs.x, 1e-30f), sden = jmax(hs.y, 1e-30f);
-    for (int i = tm.tid; i < L; i += tm.nt) {
-      float bi = 0.f;
-      if (member[i] > 0.f && n > 0.f) {
-        bi = b[i];
-        bi = residual >= 0.f ? bi + residual * (jmax(b_max - bi, 0.f) / hden)
-                             : bi + residual * (jmax(bi - b_min, 0.f) / sden);
-        bi = jclip(bi, b_min, b_max);
-      }
-      b[i] = bi;
-    }
+    const float lam = jmin(jmax(sqrtf(jmax(lo0, 1e-30f) * jmax(hi0, 1e-30f)), 0.f), hi0);
+    const Flagged in{member};
+    const float sb = newton_polish(tm, rho, 0, L, in, delta, beta, b_min, b_max, outer, inner,
+                                   lam, lo0, hi0, b);
+    budget_repair<false>(tm, rho, 0, L, in, sb, delta, beta, b_min, b_max, b);
   }
   __syncthreads();
 }

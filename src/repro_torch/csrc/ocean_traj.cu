@@ -1,21 +1,18 @@
-// K3 ocean_traj: the instances without telemetry (the kernel template and
-// its description are in ocean_traj.cuh; ocean_traj_metrics.cu holds the
-// HasMetrics instances).
+// K3 ocean_traj: the instances without telemetry that run K1's Newton sweep
+// (solver "pallas", "pallas_tiled") or the bisect sweep (the kernel
+// template and its description are in ocean_traj.cuh; ocean_traj_grid.cu
+// holds the newton solver's instances, ocean_traj_metrics*.cu the
+// HasMetrics ones).
 #include "ocean_traj.cuh"
 
 // The warps a K3 block runs at K clients (the instance without failures,
 // or with them; no guard, K1's sweep).
 extern "C" int ocean_traj_warps(int K, int failure) {
-  const int P = sort_slots(K);
-  if (K <= kHalfWarpMaxK)
-    return (failure ? traj_teams<16, false, true, false, false, NoMetrics>(K, P, 0)
-                    : traj_teams<16, false, false, false, false, NoMetrics>(K, P, 0)) / 2;
-  return failure ? traj_teams<32, false, true, false, false, NoMetrics>(K, P, 0)
-                 : traj_teams<32, false, false, false, false, NoMetrics>(K, P, 0);
+  return traj_warps<kSolverK1>(K, failure != 0);
 }
 
 // One launch: every cell's T rounds (OCEAN_TRAJ_PARAMS in ocean_traj.cuh).
 extern "C" int ocean_traj_launch(OCEAN_TRAJ_PARAMS, void* stream) {
-  return launch_any(OCEAN_TRAJ_ARGS, NoMetrics{}, C, (cudaStream_t)stream, guarded != 0,
-                    bisect != 0);
+  return launch_library<NoMetrics, kSolverK1, kSolverBisect>(
+      solver, OCEAN_TRAJ_ARGS, NoMetrics{}, C, (cudaStream_t)stream, guarded != 0);
 }

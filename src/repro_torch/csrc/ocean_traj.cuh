@@ -1,8 +1,10 @@
 // K3 ocean_traj: the whole T-round OCEAN trajectory (paper Alg. 1) per cell.
 //
-// The kernel template and its launch helpers; ocean_traj.cu instantiates
-// the instances without telemetry and ocean_traj_metrics.cu those with it
-// (HasMetrics), so that nvcc builds the two halves in parallel.
+// The kernel template and its launch helpers.  Four sources instantiate
+// it, so that nvcc builds them in parallel: ocean_traj.cu (K1's and the
+// bisect sweep, no telemetry), ocean_traj_grid.cu (the newton sweep),
+// ocean_traj_metrics.cu and ocean_traj_metrics_grid.cu (the same with
+// telemetry, HasMetrics); each is one library with the same C interface.
 //
 // Replaces repro/kernels/ocean_traj.py:96 ``_traj_kernel`` (pallas_call at
 // :532).  One persistent block per cell loops over all T rounds with the
@@ -11,7 +13,10 @@
 //   2. rho = q / max(h2, 1e-30)                  (repro/core/selection.py:84)
 //   3. a stable ascending sort: bitonic on (rho, client index) pairs, K
 //      padded to a power of two P with (+inf, index >= K) sentinels
-//   4. n0, delta and K1's candidate-parallel prefix sweep (ocean_common.cuh)
+//   4. n0, delta and the candidate-parallel prefix sweep (ocean_common.cuh)
+//      over candidates m <= n_cands: K (ranking="sort"), or min(top_m, K)
+//      (ranking="topm": the sorted row's slots [n0, n0 + top_m) are the
+//      top-m extraction's, ties by client index as its first argmin)
 //   5. the S0 fix-up                             (selection.py:242-245)
 //   6. with a failure process, failure_mode      (ocean.py:339-405)
 //   7. unsort, energy (energy.py:159) and the queue update (ocean.py:500)
@@ -30,9 +35,13 @@
 //               P3 value, keeping the committed solve where the prefix did
 //               not grow; ``reallocate`` re-solves the survivors when a
 //               selected client failed and charges 0.5 e + 0.5 e2.
-//   Bisect      the round's sweep is the ``bisect`` solver's
-//               (prefix_sweep_bisect: 42 x 42 halvings a candidate) instead
-//               of K1's Newton sweep (solver="pallas").
+//   Solver      the round's sweep: K1's Newton candidate (kSolverK1:
+//               solver="pallas", and "pallas_tiled", K2's semantics, with
+//               the launch's non-finite mask), the ``bisect`` solver's
+//               (kSolverBisect, prefix_sweep_bisect: 42 x 42 halvings a
+//               candidate) or the ``newton`` solver's (kSolverGrid: a
+//               per-round log grid of b(lam) prefix sums seeds each
+//               candidate's bracket, newton_grid_seeds, then GridCandidate).
 //   HasGuard    a GuardSpec (repro/core/ocean.py:266-336, 456-519; the
 //               reference kernel's :122-123, :159-168, :230-236, :310-313):
 //               quarantine (a K-float shared row of the round's gains with
@@ -74,16 +83,20 @@
 // (C, region + 4) copy (MetricsDesc::seed) and writes them back at the
 // end (MetricsDesc::raw).  A whole launch passes null pointers: t0 = 0, a
 // zero carry, the empty region.
-// Scope: ranking="sort", solver="pallas" or "bisect" (and chaos backends
-// of either); K <= 2048 (the sort and the per-client state live in shared
-// memory).
+// The ranking's clip (n_cands), the non-finite mask and whether the
+// ranking is top-m (the topm_saturated collector) are launch arguments.
+// Scope: ranking "sort" or "topm"; solver "pallas", "bisect", "newton" or
+// "pallas_tiled" (top-m only), and chaos backends of pallas or bisect;
+// K <= 2048 (the sort and the per-client state live in shared memory).
 //
 // What bounds it on the H100: the bytes are tiny (per cell-round it reads
 // 2K + 2 floats and writes 4K floats, K bytes and 2 scalars), so the bound
 // is the operations of the sweep, and what the kernel meets is the latency
 // of the sweep's Newton chain (see ocean_p.cu), T times over per cell.
 //
-// The bisect instance and the guard's fallback bound by operations too:
+// The newton instances bound by operations as K1's do: a grid pass of
+// ``grid`` b(lam) a candidate slot, then each candidate's polish.  The
+// bisect instance and the guard's fallback bound by operations too:
 // 43 bisections of b(lam) a member, each 42 evaluations of f' through a
 // double exp2, about 16 times the Newton sweep's chain.  On rounds that
 // pass validation the guard adds a few block reductions and no sweep.
@@ -146,8 +159,11 @@ struct TrajArgs {
   int T_total;               // the whole trajectory's rounds (full_trace_ds' slots)
   float b_min, beta, scale;  // the static radio (instances without HasRadio)
   int outer, inner;          // the sweep's Newton steps
+  int n_cands;               // the sweep's candidates: K, or min(top_m, K) under top-m
+  int mask_nonfinite;        // a non-finite W counts as NEG_INF (pallas_tiled)
+  int topm;                  // ranking="topm" (topm_saturated reads n_cands)
   int mode;                  // failure mode: kPlain, kOverprovision, kReallocate
-  int wf_outer, wf_inner, wf_grid;  // the masked P4's budgets
+  int wf_outer, wf_inner, wf_grid;  // the masked P4's and the newton sweep's budgets
   int bis_outer, bis_inner;  // the bisect sweep's halvings
   const float* cap;          // (K,) energy_cap x H_k, or null: no energy test
   int *fc_out, *dm_out, *fb_out;    // (C, T) fault_count, demoted, fallback
@@ -160,6 +176,7 @@ struct TrajArgs {
 enum { kPlain = 0, kOverprovision = 1, kReallocate = 2 };
 enum { kQuarantine = 1, kFloor = 2, kFallback = 4 };
 enum { kChaosNone = 0, kChaosObjective = 1, kChaosBudget = 2 };
+enum { kSolverK1 = 0, kSolverBisect = 1, kSolverGrid = 2 };
 
 // The collectors in repro_torch/kernels/ocean_traj.py's KERNEL_COLLECTORS
 // order (the first five are per client) and the reductions in REDUCTIONS'.
@@ -210,6 +227,40 @@ struct MetricsDesc {
   float lo[kMaxEntries], width[kMaxEntries];  // histogram: lo and bin width
   float* out[kMaxEntries];     // the entry's output
 };
+
+// The descriptor of one HasMetrics launch from its host arrays (the
+// launch functions in ocean_traj_metrics*.cu): ``layout`` holds n,
+// n_client, cum, cnt, last, gsum, gn, region, stride, bins; per entry j
+// ``ent[3j..3j+2]`` the collector, the reduction and the region offset,
+// ``entf[2j..2j+1]`` the histogram's lo and bin width, ``outs[j]`` the
+// output; ``seed``/``raw`` a segment launch's (C, region + 4) region and
+// counters in and out (null for a whole launch).
+inline MetricsDesc make_desc(const int* layout, const int* ent, const float* entf,
+                             float* const* outs, float* scratch, const float* seed, float* raw) {
+  MetricsDesc md{};
+  md.n = layout[0];
+  md.n_client = layout[1];
+  md.cum = layout[2];
+  md.cnt = layout[3];
+  md.last = layout[4];
+  md.gsum = layout[5];
+  md.gn = layout[6];
+  md.region = layout[7];
+  md.stride = layout[8];
+  md.bins = layout[9];
+  md.scratch = scratch;
+  md.seed = seed;
+  md.raw = raw;
+  for (int j = 0; j < md.n; ++j) {
+    md.col[j] = ent[3 * j];
+    md.red[j] = ent[3 * j + 1];
+    md.off[j] = ent[3 * j + 2];
+    md.lo[j] = entf[2 * j];
+    md.width[j] = entf[2 * j + 1];
+    md.out[j] = outs[j];
+  }
+  return md;
+}
 
 // One entry of the descriptor as the kernel reads it every round: copied
 // to shared memory at the start, since the round's walk over the entries
@@ -298,7 +349,8 @@ __device__ __forceinline__ void metrics_reduce(const MetricsDesc& md, const Metr
 // the raw increments; ``n_act`` the committed count, ``v_eta`` V eta^t, the
 // round's b_min, and the reallocation / quarantine / demotion / fallback
 // counts of the round, which every thread adds to its copy of the running
-// counters ``ctr`` (block-uniform, in registers).
+// counters ``ctr`` (block-uniform, in registers); ``sat`` is 1 where a
+// top-m ranking admitted its whole clip (topm_saturated).
 template <bool HasFailure>
 __device__ __forceinline__ void metrics_pass(const MetricsDesc& md, const TrajArgs& args,
                                              const MetricsEntry* s_ent, float* reg,
@@ -307,7 +359,7 @@ __device__ __forceinline__ void metrics_pass(const MetricsDesc& md, const TrajAr
                                              size_t row,
                                              int n_act, float v_eta, float b_min, float ral,
                                              float n_fault, float n_dem, float fell,
-                                             float (&ctr)[4]) {
+                                             float sat, float (&ctr)[4]) {
   const int T = args.T, K = args.K, tid = threadIdx.x, nt = blockDim.x;
   const float bmin_hi = b_min * (float)(1.0 + 1e-6);
   float part[kMetricSums] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
@@ -382,7 +434,7 @@ __device__ __forceinline__ void metrics_pass(const MetricsDesc& md, const TrajAr
       case kFaultCount: v = ctr[1]; break;
       case kDemotedClients: v = ctr[2]; break;
       case kFallbackRounds: v = ctr[3]; break;
-      default: v = 0.f;  // kTopmSaturated: ranking="sort", the only one K3 runs
+      default: v = sat;  // kTopmSaturated
     }
     metrics_reduce(md, e, reg, v, c, 0, 1, T, t, tg, args.T_total);
   }
@@ -395,9 +447,10 @@ __device__ __forceinline__ float energy_of(float b, float h2, float beta, float 
   return b >= FLT_MIN ? scale * f_shannon(b, beta) / h2 : 0.f;
 }
 
-__host__ __device__ size_t traj_smem(int K, int P, int nteams, bool failure, bool guard);
+__host__ __device__ size_t traj_smem(int K, int P, int nteams, bool failure, bool guard,
+                                     bool grid);
 
-template <int NT, bool HasRadio, bool HasFailure, bool HasGuard, bool Bisect, class M>
+template <int NT, bool HasRadio, bool HasFailure, bool HasGuard, int Solver, class M>
 __global__ void __maxnreg__(NT == 32 ? kMaxRegs : 128)
     ocean_traj_kernel(const TrajArgs args, const __grid_constant__ M md) {
   constexpr bool HasMetrics = M::kOn;
@@ -422,6 +475,9 @@ __global__ void __maxnreg__(NT == 32 ? kMaxRegs : 128)
   // HasGuard: the round's sanitized gains and the cell's caps (client order).
   float* s_h2 = HasFailure ? reinterpret_cast<float*>(s_int + 4) : s_ok;  // K
   float* s_cap = s_h2 + K;                                                // K
+  // kSolverGrid: the seed grid's bits per candidate and its levels.
+  unsigned* s_bits = reinterpret_cast<unsigned*>(HasGuard ? s_cap + K : s_h2);  // K
+  float* s_lamg = reinterpret_cast<float*>(s_bits + K);                        // 16
   const int c = blockIdx.x, tid = threadIdx.x, nt = blockDim.x;
   const int lane = tid & 31;
   const int t0 = args.t0 != nullptr ? args.t0[c] : 0;  // the first global round
@@ -434,7 +490,8 @@ __global__ void __maxnreg__(NT == 32 ? kMaxRegs : 128)
   float* reg = nullptr;
   float mctr[kCounters] = {0.f, 0.f, 0.f, 0.f};  // the running counters (block-uniform)
   if constexpr (HasMetrics) {
-    const size_t base = (traj_smem(K, P, nteams, HasFailure, HasGuard) + 15) & ~(size_t)15;
+    const size_t base =
+        (traj_smem(K, P, nteams, HasFailure, HasGuard, Solver == kSolverGrid) + 15) & ~(size_t)15;
     s_ent = reinterpret_cast<MetricsEntry*>(reinterpret_cast<char*>(smem) + base);
     s_msum = reinterpret_cast<float*>(s_ent + kMaxEntries);
     reg = md.in_smem ? s_msum + 32 * kMetricSums : md.scratch + (size_t)c * md.region;
@@ -555,11 +612,20 @@ __global__ void __maxnreg__(NT == 32 ? kMaxRegs : 128)
     p.inner = args.inner;
     float w, mf;
     int winner;
-    if constexpr (Bisect) {
-      prefix_sweep_bisect<NT>(s_key, K, n0, K, p, args.bis_outer, args.bis_inner, s_rows, s_red,
-                              w, mf, winner);
+    if constexpr (Solver == kSolverBisect) {
+      prefix_sweep_bisect<NT>(s_key, K, n0, args.n_cands, p, args.bis_outer, args.bis_inner,
+                              s_rows, s_red, w, mf, winner);
+    } else if constexpr (Solver == kSolverGrid) {
+      // the seed grid uses the teams' rows as scratch before the sweep
+      newton_grid_seeds(s_key, K, n0, min(args.n_cands, K - n0), p, args.wf_grid, args.wf_inner,
+                        args.frac, s_rows, 2 * nteams * K, s_bits, s_lamg, s_red);
+      prefix_sweep_parallel<NT, false, GridCandidate>(
+          s_key, K, n0, args.n_cands, p, s_rows, s_red, w, mf, winner, -1, 0,
+          GridCandidate{s_bits, s_lamg, args.wf_grid, args.wf_outer, args.wf_inner},
+          args.mask_nonfinite != 0);
     } else {
-      prefix_sweep_parallel<NT>(s_key, K, n0, K, p, s_rows, s_red, w, mf, winner);
+      prefix_sweep_parallel<NT>(s_key, K, n0, args.n_cands, p, s_rows, s_red, w, mf, winner, -1,
+                                0, NewtonCandidate(), args.mask_nonfinite != 0);
     }
     int m_star = (int)rintf(mf);
     const float* best = s_rows + (2 * (size_t)winner + 1) * K;
@@ -586,8 +652,8 @@ __global__ void __maxnreg__(NT == 32 ? kMaxRegs : 128)
         const float s = block_sum(rs, s_red);
         if (n_sel > 0 && !(fabsf(s - 1.f) <= args.residual_tol)) bad = 1;
         if (__syncthreads_or(bad)) {
-          prefix_sweep_bisect<NT>(s_key, K, n0, K, p, args.bis_outer, args.bis_inner, s_rows,
-                                  s_red, w, mf, winner);
+          prefix_sweep_bisect<NT>(s_key, K, n0, args.n_cands, p, args.bis_outer,
+                                  args.bis_inner, s_rows, s_red, w, mf, winner);
           m_star = (int)rintf(mf);
           best = s_rows + (2 * (size_t)winner + 1) * K;
           leftover = m_star == 0 ? p.delta : 0.f;
@@ -707,10 +773,11 @@ __global__ void __maxnreg__(NT == 32 ? kMaxRegs : 128)
     }
     __syncthreads();  // this round's queue writes before the next round's reads
     if constexpr (HasMetrics) {
+      const float sat = args.topm && (float)n_act - n0f >= (float)args.n_cands ? 1.f : 0.f;
       metrics_pass<HasFailure>(md, args, s_ent, reg, s_msum, s_q, s_es, c, t, tg, row, n_act,
                                p.v_eta,
                                b_min, failed ? 1.f : 0.f, (float)n_fault, (float)n_dem,
-                               (float)fell, mctr);
+                               (float)fell, sat, mctr);
     }
   }
   for (int i = tid; i < K; i += nt) {
@@ -742,12 +809,15 @@ __global__ void __maxnreg__(NT == 32 ? kMaxRegs : 128)
 // Shared bytes with nteams teams: the sort's keys and indices, q and the
 // spent energy, each team's two rows, the argmax scratch; HasFailure adds
 // four rows (mask, rates, member flags, the masked P4's allocation), its
-// grid scratch and four ints; HasGuard two rows (gains, caps).  HasMetrics
+// grid scratch and four ints; HasGuard two rows (gains, caps); the newton
+// solver (``grid``) a row of seed bits and 16 grid levels.  HasMetrics
 // places its own after these (metrics_smem).
-__host__ __device__ size_t traj_smem(int K, int P, int nteams, bool failure, bool guard) {
+__host__ __device__ size_t traj_smem(int K, int P, int nteams, bool failure, bool guard,
+                                     bool grid) {
   size_t floats = (2 + 2 * (size_t)nteams) * K + 64;
   if (failure) floats += 4 * (size_t)K + 32 + 4;
   if (guard) floats += 2 * (size_t)K;
+  if (grid) floats += (size_t)K + 16;
   return (size_t)P * 8 + floats * sizeof(float);
 }
 
@@ -769,66 +839,111 @@ inline size_t metrics_smem(const MetricsDesc& md) {
 // (as K1: threads_for's register limit, then whole warps fewer until the
 // shared rows, with ``extra`` bytes of telemetry, fit the card's per-block
 // limit).
-template <int NT, bool HasRadio, bool HasFailure, bool HasGuard, bool Bisect, class M>
+template <int NT, bool HasRadio, bool HasFailure, bool HasGuard, int Solver, class M>
 int traj_teams(int K, int P, size_t extra) {
-  const void* fn = (const void*)ocean_traj_kernel<NT, HasRadio, HasFailure, HasGuard, Bisect, M>;
+  const void* fn = (const void*)ocean_traj_kernel<NT, HasRadio, HasFailure, HasGuard, Solver, M>;
   int nteams = threads_for(fn, NT * K, 1024) / NT;
   const size_t optin = (size_t)smem_optin();
-  while (nteams > 32 / NT && traj_smem(K, P, nteams, HasFailure, HasGuard) + extra > optin)
+  while (nteams > 32 / NT &&
+         traj_smem(K, P, nteams, HasFailure, HasGuard, Solver == kSolverGrid) + extra > optin)
     nteams -= 32 / NT;
   return nteams;
 }
 
 // Where a descriptor's region lives: shared memory if it fits beside one
 // warp of teams, else the global scratch.
-inline void place_region(NoMetrics&, int, int, int, bool, bool) {}
-inline void place_region(MetricsDesc& md, int K, int P, int NT, bool failure, bool guard) {
+inline void place_region(NoMetrics&, int, int, int, bool, bool, bool) {}
+inline void place_region(MetricsDesc& md, int K, int P, int NT, bool failure, bool guard,
+                         bool grid) {
   md.in_smem = 1;
-  md.in_smem = traj_smem(K, P, 32 / NT, failure, guard) + metrics_smem(md) <=
+  md.in_smem = traj_smem(K, P, 32 / NT, failure, guard, grid) + metrics_smem(md) <=
                (size_t)smem_optin();
 }
 
-template <int NT, bool HasRadio, bool HasFailure, bool HasGuard, bool Bisect, class M>
+template <int NT, bool HasRadio, bool HasFailure, bool HasGuard, int Solver, class M>
 int launch(const TrajArgs& args, M md, int C, cudaStream_t stream) {
-  place_region(md, args.K, args.P, NT, HasFailure, HasGuard);
+  constexpr bool grid = Solver == kSolverGrid;
+  place_region(md, args.K, args.P, NT, HasFailure, HasGuard, grid);
   const size_t extra = metrics_smem(md);
   const int nteams =
-      traj_teams<NT, HasRadio, HasFailure, HasGuard, Bisect, M>(args.K, args.P, extra);
-  const size_t smem = traj_smem(args.K, args.P, nteams, HasFailure, HasGuard) + extra;
-  const void* fn = (const void*)ocean_traj_kernel<NT, HasRadio, HasFailure, HasGuard, Bisect, M>;
+      traj_teams<NT, HasRadio, HasFailure, HasGuard, Solver, M>(args.K, args.P, extra);
+  const size_t smem = traj_smem(args.K, args.P, nteams, HasFailure, HasGuard, grid) + extra;
+  const void* fn = (const void*)ocean_traj_kernel<NT, HasRadio, HasFailure, HasGuard, Solver, M>;
   cudaError_t err = prepare(fn, smem);
   if (err != cudaSuccess) return (int)err;
-  ocean_traj_kernel<NT, HasRadio, HasFailure, HasGuard, Bisect, M>
+  ocean_traj_kernel<NT, HasRadio, HasFailure, HasGuard, Solver, M>
       <<<C, NT * nteams, smem, stream>>>(args, md);
   return (int)cudaGetLastError();
 }
 
-template <int NT, bool HasGuard, bool Bisect, class M>
+template <int NT, bool HasGuard, int Solver, class M>
 int launch_branches(const TrajArgs& args, const M& md, int C, cudaStream_t stream) {
   const bool radio = args.r_bmin != nullptr, failure = args.dlv != nullptr;
-  if (radio && failure) return launch<NT, true, true, HasGuard, Bisect>(args, md, C, stream);
-  if (radio) return launch<NT, true, false, HasGuard, Bisect>(args, md, C, stream);
-  if (failure) return launch<NT, false, true, HasGuard, Bisect>(args, md, C, stream);
-  return launch<NT, false, false, HasGuard, Bisect>(args, md, C, stream);
+  if (radio && failure) return launch<NT, true, true, HasGuard, Solver>(args, md, C, stream);
+  if (radio) return launch<NT, true, false, HasGuard, Solver>(args, md, C, stream);
+  if (failure) return launch<NT, false, true, HasGuard, Solver>(args, md, C, stream);
+  return launch<NT, false, false, HasGuard, Solver>(args, md, C, stream);
 }
 
-template <int NT, class M>
-int launch_nt(const TrajArgs& args, const M& md, int C, cudaStream_t stream, bool guard,
-              bool bisect) {
-  if (guard) {
-    return bisect ? launch_branches<NT, true, true>(args, md, C, stream)
-                  : launch_branches<NT, true, false>(args, md, C, stream);
+// Every instance of one solver: K <= kHalfWarpMaxK takes half-warp teams.
+template <int Solver, class M>
+int launch_solver(const TrajArgs& args, const M& md, int C, cudaStream_t stream, bool guard) {
+  if (args.K <= kHalfWarpMaxK) {
+    return guard ? launch_branches<16, true, Solver>(args, md, C, stream)
+                 : launch_branches<16, false, Solver>(args, md, C, stream);
   }
-  return bisect ? launch_branches<NT, false, true>(args, md, C, stream)
-                : launch_branches<NT, false, false>(args, md, C, stream);
+  return guard ? launch_branches<32, true, Solver>(args, md, C, stream)
+               : launch_branches<32, false, Solver>(args, md, C, stream);
 }
 
-// Every instance of one launch: K <= kHalfWarpMaxK takes half-warp teams.
-template <class M>
-int launch_any(const TrajArgs& args, const M& md, int C, cudaStream_t stream, bool guard,
-               bool bisect) {
-  return args.K <= kHalfWarpMaxK ? launch_nt<16>(args, md, C, stream, guard, bisect)
-                                 : launch_nt<32>(args, md, C, stream, guard, bisect);
+// One library's launch: each source builds the instances of some solvers
+// (``Solvers``) and refuses the others.
+template <class M, int... Solvers>
+int launch_library(int solver, const TrajArgs& args, const M& md, int C, cudaStream_t stream,
+                   bool guard) {
+  int err = (int)cudaErrorInvalidValue;
+  (void)((solver == Solvers && ((err = launch_solver<Solvers>(args, md, C, stream, guard)), true))
+         || ...);
+  return err;
+}
+
+// The teams a block of one instance family (no radio) runs at K clients
+// with ``extra`` bytes of telemetry.
+template <int Solver, class M>
+int teams_of(int K, bool failure, bool guard, size_t extra) {
+  const int P = sort_slots(K);
+  if (K <= kHalfWarpMaxK) {
+    return failure ? (guard ? traj_teams<16, false, true, true, Solver, M>(K, P, extra)
+                            : traj_teams<16, false, true, false, Solver, M>(K, P, extra))
+                   : (guard ? traj_teams<16, false, false, true, Solver, M>(K, P, extra)
+                            : traj_teams<16, false, false, false, Solver, M>(K, P, extra));
+  }
+  return failure ? (guard ? traj_teams<32, false, true, true, Solver, M>(K, P, extra)
+                          : traj_teams<32, false, true, false, Solver, M>(K, P, extra))
+                 : (guard ? traj_teams<32, false, false, true, Solver, M>(K, P, extra)
+                          : traj_teams<32, false, false, false, Solver, M>(K, P, extra));
+}
+
+// The warps a block of solver Solver runs at K clients (no radio, no
+// guard; the instance without failures or with them).
+template <int Solver>
+int traj_warps(int K, bool failure) {
+  const int teams = teams_of<Solver, NoMetrics>(K, failure, false, 0);
+  return K <= kHalfWarpMaxK ? teams / 2 : teams;
+}
+
+// The warps a HasMetrics block of solver Solver runs at K clients for a
+// region of ``region`` floats (no radio), and in *in_smem whether the
+// region is in shared memory.
+template <int Solver>
+int traj_metrics_warps(int K, bool failure, bool guard, int region, int* in_smem) {
+  MetricsDesc md{};
+  md.region = region;
+  place_region(md, K, sort_slots(K), K <= kHalfWarpMaxK ? 16 : 32, failure, guard,
+               Solver == kSolverGrid);
+  *in_smem = md.in_smem;
+  const int teams = teams_of<Solver, MetricsDesc>(K, failure, guard, metrics_smem(md));
+  return K <= kHalfWarpMaxK ? teams / 2 : teams;
 }
 
 }  // namespace
@@ -839,9 +954,13 @@ int launch_any(const TrajArgs& args, const M& md, int C, cudaStream_t stream, bo
 // the static radio of b_min/beta/scale); dlv (C, T, K) and rate (C, K)
 // select the failure instance (null: none), which also writes dlv_out
 // (C, T, K) and ral_out (C, T) and applies ``mode`` with the masked P4
-// budgets wf_outer/wf_inner/wf_grid over the grid fractions ``frac``.
-// ``bisect`` selects the bisect sweep (bis_outer x bis_inner halvings);
-// ``guarded`` the HasGuard instance, which applies the ``guard`` bits,
+// budgets wf_outer/wf_inner/wf_grid over the grid fractions ``frac``
+// (also the newton sweep's budgets).  ``solver`` selects the sweep
+// (kSolverK1, kSolverBisect with bis_outer x bis_inner halvings, or
+// kSolverGrid; each library builds the instances of some of them and
+// refuses the others); ``n_cands`` clips it (top-m), ``mask_nonfinite``
+// masks non-finite W (pallas_tiled), ``topm`` marks a top-m ranking.
+// ``guarded`` selects the HasGuard instance, which applies the ``guard`` bits,
 // ``gain_floor``, the (K,) ``cap`` row (null: no energy test),
 // ``residual_tol`` and the ``chaos`` corruption, and writes fc_out, dm_out
 // and fb_out (C, T).  q0/es0 (C, K) and t0 (C,) make the launch a segment
@@ -851,18 +970,19 @@ int launch_any(const TrajArgs& args, const M& md, int C, cudaStream_t stream, bo
   const float *h2, const float *v, const float *eta, const float *inc, uint8_t *a, float *b,  \
       float *e, float *q_pre, float *rho, float *obj, int *nsel, float *q_final,               \
       float *es_final, int C, int T, int K, int R, float b_min, float beta, float scale,       \
-      int outer, int inner, const float *r_bmin, const float *r_beta, const float *r_scale,    \
-      const float *dlv, const float *rate, uint8_t *dlv_out, int *ral_out, int mode,           \
-      int wf_outer, int wf_inner, int wf_grid, const float *frac, int bisect, int bis_outer,   \
-      int bis_inner, int guarded, const float *cap, int *fc_out, int *dm_out, int *fb_out,     \
-      int guard, float gain_floor, float residual_tol, int chaos, float chaos_scale,          \
-      const float *q0, const float *es0, const int *t0, int T_total
+      int outer, int inner, int n_cands, int mask_nonfinite, int topm, const float *r_bmin,    \
+      const float *r_beta, const float *r_scale, const float *dlv, const float *rate,          \
+      uint8_t *dlv_out, int *ral_out, int mode, int wf_outer, int wf_inner, int wf_grid,       \
+      const float *frac, int solver, int bis_outer, int bis_inner, int guarded,                \
+      const float *cap, int *fc_out, int *dm_out, int *fb_out, int guard, float gain_floor,    \
+      float residual_tol, int chaos, float chaos_scale, const float *q0, const float *es0,     \
+      const int *t0, int T_total
 
 #define OCEAN_TRAJ_ARGS                                                                       \
   TrajArgs {                                                                                  \
     h2, v, eta, inc, r_bmin, r_beta, r_scale, dlv, rate, frac, q0, es0, t0, a, b, e, q_pre,  \
         rho, obj, nsel, q_final, es_final, dlv_out, ral_out, T, K, sort_slots(K), R, T_total,  \
-        b_min, beta, scale,                                                                    \
-        outer, inner, mode, wf_outer, wf_inner, wf_grid, bis_outer, bis_inner, cap, fc_out,    \
-        dm_out, fb_out, guard, gain_floor, residual_tol, chaos, chaos_scale                    \
+        b_min, beta, scale, outer, inner, n_cands, mask_nonfinite, topm, mode, wf_outer,       \
+        wf_inner, wf_grid, bis_outer, bis_inner, cap, fc_out, dm_out, fb_out, guard,           \
+        gain_floor, residual_tol, chaos, chaos_scale                                           \
   }

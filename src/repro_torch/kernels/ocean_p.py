@@ -453,12 +453,14 @@ def ocean_p_topm_fused(
     block_k: int = 128,
     outer_iters: int = OUTER_ITERS,
     inner_iters: int = INNER_ITERS,
+    plain: bool = False,
 ):
     """Backend contract of ``solver="pallas_tiled"`` on client-order rho.
 
     Pads the client axis to a ``block_k`` multiple with +inf sentinels
     (the reference's padding; the kernel itself does not tile by it) and
     returns ``(m_star, w_star, b_pos, sel_pos)`` in client order.
+    ``plain=True`` runs the plain version on any device.
     """
     C, K = rho.shape
     dtype = rho.dtype
@@ -475,9 +477,8 @@ def ocean_p_topm_fused(
     )
     work = torch.nn.functional.pad(work, (0, K_pad - K), value=torch.inf).contiguous()
     scal = _scal(n0, delta, v_eta, radio, rho)
-    b, wm = ocean_p_topm(
-        scal, work, K=K, top_m=top_m, outer=outer_iters, inner=inner_iters
-    )
+    fn = ocean_p_topm_plain if plain else ocean_p_topm
+    b, wm = fn(scal, work, K=K, top_m=top_m, outer=outer_iters, inner=inner_iters)
     b_pos = b[:, :K].to(dtype)
     m_star = torch.round(wm[:, 1]).to(torch.int32)
     return m_star, wm[:, 0].to(dtype), b_pos, b_pos > 0

@@ -2,16 +2,18 @@
 
 K3 replaces ``repro/kernels/ocean_traj.py::_traj_kernel`` (:96,
 ``pallas_call`` at :532).  The CUDA source is ``csrc/ocean_traj.cuh``
-(instantiated by ``ocean_traj.cu``, and with telemetry by
-``ocean_traj_metrics.cu``): one
+(instantiated by ``ocean_traj.cu`` and, for the ``newton`` solver,
+``ocean_traj_grid.cu``, and with telemetry by ``ocean_traj_metrics.cu`` and
+``ocean_traj_metrics_grid.cu``): one
 persistent block per cell runs all T rounds of Alg. 1 with the queues and
 the spent energy resident in shared memory, each round's prefix
 candidates side by side (a warp, or at K <= 16 a half warp, per
 candidate: K1's sweep); its header states what bounds it on the H100 and
 what the design does about it.  Compile-time branches stream per-round
 radio physics (``radio``) and per-client delivery failures (``failure``,
-with ``cfg.failure_mode``), run the ``bisect`` solver's sweep instead of
-K1's, and guard the round (``cfg.guard``, a ``repro_torch.guard.GuardSpec``:
+with ``cfg.failure_mode``), run the ``bisect`` solver's or the ``newton``
+solver's sweep (a per-round seed grid, then each candidate's polish)
+instead of K1's, and guard the round (``cfg.guard``, a ``repro_torch.guard.GuardSpec``:
 quarantine, energy admission, the bisect fallback).  A chaos backend
 (``repro_torch.guard.chaos``) of ``pallas`` or ``bisect`` runs on the
 guarded instance, which applies its corruption inside the round.  With
@@ -27,16 +29,25 @@ round, and the telemetry region goes in and comes back out raw.
   launches in ``ocean_traj.launches``, raising on CUDA errors) and runs
   the plain version for CPU tensors.
 * ``ocean_traj_plain`` — the plain PyTorch version: the port's scan loop
-  through ``ocean_round`` with the plain K1 sweep (or ``bisect``), and
+  through ``ocean_round`` with the plain K1 sweep (or ``bisect``,
+  ``newton``, K2's plain version for ``pallas_tiled``), and
   ``metrics_round`` after each round.
 * ``metrics_replay`` — the telemetry of a finished trajectory, replayed
   from its per-round outputs through ``metrics_round``: the plain version
   of the ``HasMetrics`` branch, independent of near ties.
+* ``rounds_alone`` — every round of given queues teacher-forced as a
+  one-round segment, all in one launch; ``m_star`` — each round's m*.
 * ``ocean_trajectory_fused`` — the ``traj="fused"`` backend of
   ``repro_torch.core.ocean.simulate``.
 
-Scope: ``ranking="sort"``, ``solver`` ``pallas`` or ``bisect`` (or a chaos
-backend of either), K <= 2048 (K3's shared-memory sort).  Anything else
+Scope: ``ranking`` ``sort`` or ``topm``; ``solver`` ``pallas``, ``bisect``,
+``newton`` or ``pallas_tiled`` (top-m only), or a chaos backend of
+``pallas`` or ``bisect``; K <= 2048 (K3's shared-memory sort).  Under
+``ranking="topm"`` the round's sweep is clipped to ``min(top_m, K)``
+candidates, a launch argument: K3's sorted row holds at those slots what
+the top-m extraction ranks, ties by client index.  ``pallas_tiled`` is
+K2's semantics in the round: K1's candidates on that clip with a
+non-finite W counted as NEG_INF, another launch argument.  Anything else
 raises ``NotImplementedError``, as does ``stream_bf16``.  Like the
 reference's kernel, K3 caps a guard's energy at ``energy_cap x cfg.budgets()``.
 """
@@ -51,6 +62,7 @@ import torch
 from repro_torch.kernels.ocean_p import (
     INNER_ITERS,
     OUTER_ITERS,
+    _RHO_ZERO_TOL,
     _check_f32,
     _launch_target,
     _ptr,
@@ -58,12 +70,16 @@ from repro_torch.kernels.ocean_p import (
 )
 
 MAX_CLIENTS = 2048
-FUSED_SOLVERS = ("pallas", "bisect")
+FUSED_SOLVERS = ("pallas", "bisect", "newton", "pallas_tiled")
+# the bases of the chaos backends K3 runs
+CHAOS_BASES = ("pallas", "bisect")
 # The bisect sweep's outer and inner halvings: ``ocean_p``'s defaults.
 BISECT_ITERS = 42
-# The guard's bits and the chaos kinds, as csrc/ocean_traj.cu numbers them.
+# The guard's bits, the chaos kinds and the sweeps (K1's Newton, bisect,
+# the newton solver's grid-seeded one), as csrc/ocean_traj.cuh numbers them.
 _QUARANTINE, _FLOOR, _FALLBACK = 1, 2, 4
 _CHAOS = {None: 0, "objective": 1, "budget": 2}
+_SOLVER_CODE = {"pallas": 0, "pallas_tiled": 0, "bisect": 1, "newton": 2}
 
 
 class TrajOut(NamedTuple):
@@ -97,18 +113,23 @@ def _base_solver(backend) -> str:
 def check_fused_scope(cfg) -> None:
     """Raise for configurations K3 does not run yet.  Within them every
     instance fits a block's shared memory: at K = 2048 a guarded failure
-    instance needs 98,704 bytes with one warp of teams, and the launch
-    takes as many teams as fit (``csrc/ocean_traj.cu::traj_smem``)."""
+    newton instance needs 106,960 bytes with one warp of teams, and the
+    launch takes as many teams as fit (``csrc/ocean_traj.cuh::traj_smem``).
+    ``pallas_tiled`` under ``ranking="sort"`` raises the scan path's
+    ``ValueError``."""
     from repro_torch.core.ocean import not_ported
     from repro_torch.core.solvers import get_solver
 
     backend = get_solver(cfg.solver)
-    if cfg.ranking != "sort" or _base_solver(backend) not in FUSED_SOLVERS:
+    base = _base_solver(backend)
+    if base not in (FUSED_SOLVERS if backend.chaos is None else CHAOS_BASES):
         raise not_ported(
-            f"traj='fused' with ranking={cfg.ranking!r} and solver={backend.name!r} "
-            f"(the fused kernel runs ranking='sort' with solver 'pallas' or "
-            f"'bisect', or a chaos backend of either)"
+            f"traj='fused' with solver={backend.name!r} (the fused kernel runs the "
+            f"solvers {', '.join(FUSED_SOLVERS)} and chaos backends of "
+            f"{' or '.join(CHAOS_BASES)})"
         )
+    if base == "pallas_tiled" and cfg.ranking != "topm":
+        get_solver("pallas_tiled").prefixes()  # raises the sort-free solver's ValueError
     if cfg.num_clients > MAX_CLIENTS:
         raise not_ported(
             f"traj='fused' at K={cfg.num_clients} (the fused kernel's "
@@ -116,9 +137,17 @@ def check_fused_scope(cfg) -> None:
         )
 
 
+def _library(base: str, metrics: bool) -> str:
+    """The K3 library whose instances run solver ``base``: the newton
+    solver's are built apart (``csrc/ocean_traj_grid.cu``)."""
+    name = "ocean_traj_metrics" if metrics else "ocean_traj"
+    return name + "_grid" if base == "newton" else name
+
+
 def _wf_budgets(K: int):
-    """The masked P4's (outer, inner, grid) and grid fractions at K clients:
-    ``waterfill_newton``'s float32 budgets and ``torch.linspace``."""
+    """The masked P4's and the newton sweep's (outer, inner, grid) and grid
+    fractions at K clients: ``newton_iteration_budgets``' float32 budgets
+    and ``torch.linspace``."""
     from repro_torch.core.solvers import newton_iteration_budgets
 
     outer, inner, grid = newton_iteration_budgets(torch.float32, K)
@@ -127,15 +156,17 @@ def _wf_budgets(K: int):
 
 def _plain_solver(backend):
     """The backend K3's plain version runs: the plain K1 sweep for
-    ``pallas``, ``bisect`` as it is, and a chaos backend's corruption on
-    its base's plain solve."""
-    from repro_torch.core.solvers import PALLAS_PLAIN
+    ``pallas``, K2's plain version for ``pallas_tiled``, ``bisect`` and
+    ``newton`` as they are, and a chaos backend's corruption on its base's
+    plain solve."""
+    from repro_torch.core.solvers import PALLAS_PLAIN, PALLAS_TILED_PLAIN
     from repro_torch.guard.chaos import chaos_backend
 
-    if _base_solver(backend) == "bisect":
+    base = _base_solver(backend)
+    if base in ("bisect", "newton"):
         return backend
     if backend.chaos is None:
-        return PALLAS_PLAIN
+        return PALLAS_TILED_PLAIN if base == "pallas_tiled" else PALLAS_PLAIN
     _, kind, scale = backend.chaos
     return chaos_backend(PALLAS_PLAIN, backend.name, kind=kind, scale=scale)
 
@@ -199,6 +230,38 @@ def ocean_traj_plain(cfg, h2, v, eta, inc, radio=None, failure=None, *, init_sta
     if raw_metrics:
         return out._replace(mstate=mstate, traces=stack_traces(traces))
     return out._replace(metrics=finalize_metrics(spec, cfg, mstate, stack_traces(traces)))
+
+
+def m_star(nsel: torch.Tensor, rho: torch.Tensor) -> torch.Tensor:
+    """m* of every round: the selected count ``nsel`` less the S0 clients
+    (rho <= 1e-30) of the priorities ``rho`` (last axis K)."""
+    return nsel - (rho <= _RHO_ZERO_TOL).sum(-1).to(nsel.dtype)
+
+
+def rounds_alone(cfg, q_pre, h2, v, eta, inc, failure=None) -> TrajOut:
+    """Every (cell, round) of the (C, T, K) queues ``q_pre`` teacher-forced:
+    one ``ocean_traj`` launch of C x T one-round segments, each at its
+    round's index (``failure`` a ``TracedFailure`` of (C, T, K) masks and
+    (C, K) rates).  The per-round outputs come back as (C, T, ...),
+    ``q_final`` and ``es_final`` as each round's (C, T, K) state after it."""
+    from repro_torch.core.ocean import OceanState
+
+    C, T, K = h2.shape
+    CT = C * T
+    state = OceanState(q=q_pre.reshape(CT, K).contiguous(),
+                       t=torch.arange(T, dtype=torch.int32, device=h2.device).repeat(C),
+                       energy_spent=torch.zeros((CT, K), device=h2.device))
+    if failure is not None:
+        failure = failure._replace(
+            delivered=failure.delivered.reshape(CT, 1, K).contiguous(),
+            rate=failure.rate[:, None, :].expand(C, T, K).reshape(CT, K).contiguous())
+    out = ocean_traj(cfg, h2.reshape(CT, 1, K), v.reshape(CT, 1), eta.reshape(CT, 1),
+                     inc.reshape(CT, 1, K), failure=failure, init_state=state)
+    per_round = ("a", "b", "e", "q_pre", "rho", "obj", "nsel", "dlv", "ral", "fc", "dm", "fb")
+    return out._replace(**{f: getattr(out, f).reshape((C, T) + getattr(out, f).shape[2:])
+                           for f in per_round if getattr(out, f) is not None},
+                        q_final=out.q_final.reshape(C, T, K),
+                        es_final=out.es_final.reshape(C, T, K))
 
 
 def metrics_replay(cfg, out: TrajOut, v, eta, inc, radio=None) -> Dict[str, torch.Tensor]:
@@ -600,15 +663,16 @@ def ocean_traj(cfg, h2, v, eta, inc, radio=None, failure=None, *,
     from repro_torch.core.solvers import get_solver
 
     raw_metrics = raw_metrics and spec is not None
-    lib = _build.load("ocean_traj" if spec is None else "ocean_traj_metrics")
+    backend = get_solver(cfg.solver)
+    base = _base_solver(backend)
+    lib = _build.load(_library(base, spec is not None))
     fn = lib.ocean_traj_launch if spec is None else lib.ocean_traj_metrics_launch
     fn.restype = ctypes.c_int
     dev = h2.device
     f32 = dict(dtype=torch.float32, device=dev)
     guard = cfg.guard
-    backend = get_solver(cfg.solver)
-    bisect = _base_solver(backend) == "bisect"
     chaos = backend.chaos
+    topm = cfg.ranking == "topm"
     # a chaos backend without a guard runs on the guarded instance with
     # every defence off: the unguarded round's bits, corrupted
     guarded = guard is not None or chaos is not None
@@ -670,12 +734,14 @@ def ocean_traj(cfg, h2, v, eta, inc, radio=None, failure=None, *,
         ctypes.c_int(C), ctypes.c_int(T), ctypes.c_int(K), ctypes.c_int(cfg.R),
         ctypes.c_float(rad.b_min), ctypes.c_float(rad.beta),
         ctypes.c_float(rad.energy_scale), ctypes.c_int(OUTER_ITERS),
-        ctypes.c_int(INNER_ITERS), *(_ptr(x) for x in r_ptrs),
+        ctypes.c_int(INNER_ITERS), ctypes.c_int(min(cfg.top_m, K) if topm else K),
+        ctypes.c_int(int(base == "pallas_tiled")), ctypes.c_int(int(topm)),
+        *(_ptr(x) for x in r_ptrs),
         _ptr(None if failure is None else failure.delivered),
         _ptr(None if failure is None else failure.rate),
         _ptr(out.dlv), _ptr(out.ral), ctypes.c_int(FAILURE_MODES.index(cfg.failure_mode)),
         ctypes.c_int(wf_outer), ctypes.c_int(wf_inner), ctypes.c_int(wf_grid), _ptr(frac),
-        ctypes.c_int(int(bisect)), ctypes.c_int(BISECT_ITERS), ctypes.c_int(BISECT_ITERS),
+        ctypes.c_int(_SOLVER_CODE[base]), ctypes.c_int(BISECT_ITERS), ctypes.c_int(BISECT_ITERS),
         ctypes.c_int(int(guarded)), _ptr(cap), *(_ptr(x) for x in gout), ctypes.c_int(bits),
         ctypes.c_float(floor), ctypes.c_float(tol), ctypes.c_int(_CHAOS[kind]),
         ctypes.c_float(scale), _ptr(q0), _ptr(es0), _ptr(t0), ctypes.c_int(cfg.num_rounds),
@@ -688,9 +754,10 @@ def ocean_traj(cfg, h2, v, eta, inc, radio=None, failure=None, *,
     elif spec is not None:  # the means divide what the kernel wrote
         out = out._replace(metrics=_finalize_launch(cfg, ml.out))
     ocean_traj.launches += 1
-    parts = (("radio", radio is not None), ("bisect", bisect), ("guard", guard is not None),
-             ("chaos", chaos is not None), ("failure", failure is not None),
-             ("metrics", spec is not None))
+    parts = (("radio", radio is not None), ("bisect", base == "bisect"),
+             ("newton", base == "newton"), ("pallas_tiled", base == "pallas_tiled"),
+             ("topm", topm), ("guard", guard is not None), ("chaos", chaos is not None),
+             ("failure", failure is not None), ("metrics", spec is not None))
     inst = "+".join(n for n, on in parts if on) or "static"
     if seg:
         inst += "+seg"
@@ -702,9 +769,10 @@ def ocean_traj(cfg, h2, v, eta, inc, radio=None, failure=None, *,
 
 ocean_traj.launches = 0
 # launches by instance: "static", or the "+"-joined branches it ran of
-# "radio", "bisect", "guard", "chaos", "failure" and "metrics", then "+seg"
-# for a segment launch (and "/<mode>" with failures), e.g. "bisect+guard",
-# "static+seg" or "radio+failure+metrics+seg/plain"
+# "radio", "bisect", "newton", "pallas_tiled", "topm" (the ranking), "guard",
+# "chaos", "failure" and "metrics", then "+seg" for a segment launch (and
+# "/<mode>" with failures), e.g. "bisect+guard", "newton+topm",
+# "pallas_tiled+topm", "static+seg" or "radio+failure+metrics+seg/plain"
 ocean_traj.instances = {}
 
 

@@ -422,6 +422,7 @@ def _replay_rounds(cfg, out, h2, v, eta, inc, radio=None, failure=None):
                          dataclasses.replace(cfg, solver=plain, traj="scan"),
                          budget_inc=inc.reshape(CT, K), **kw)
     assert torch.equal(dec.a, out.a.reshape(CT, K))
+    assert torch.equal(dec.num_selected, out.nsel.reshape(CT))
     torch.testing.assert_close(out.b.reshape(CT, K), dec.b, atol=B_ATOL, rtol=0)
     torch.testing.assert_close(out.e.reshape(CT, K), dec.e, atol=1e-6, rtol=1e-4)
     floor = (v * eta).reshape(CT)
@@ -1287,3 +1288,160 @@ def test_k3_segments_with_the_guard(dev, metrics, solver):
                             metrics=_metrics_spec() if metrics else None)
     whole = _k3_segmented(g, h2, v, eta, inc, every=6)
     assert int(whole.fc.sum()) > 0 and int(whole.dm.sum()) > 0
+
+
+# ---------------------------------------------------------------------------
+# K3 under ranking="topm", and its newton and pallas_tiled solvers
+# ---------------------------------------------------------------------------
+# (solver, ranking) of K3's top-m and newton / pallas_tiled instances;
+# pallas_tiled runs only under top-m
+RANKED = [("newton", "sort"), ("newton", "topm"), ("pallas", "topm"), ("bisect", "topm"),
+          ("pallas_tiled", "topm")]
+RANKED_SHAPES = [(10, 8, 30), (33, 4, 12), (2048, 2, 4)]
+
+
+def _ranked_inputs(dev, seed, C, T, K):
+    """chip_smoke.py's ``_k3_ranked_inputs``: ``_k3_inputs`` with the §VI
+    per-client load at any K."""
+    import importlib.util
+    import pathlib
+    import sys
+
+    mod = sys.modules.get("chip_smoke")
+    if mod is None:
+        spec = importlib.util.spec_from_file_location(
+            "chip_smoke", pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py")
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        sys.modules["chip_smoke"] = mod
+    return mod._k3_ranked_inputs(torch, np, dev, C, T, K, seed)
+
+
+def _top_m(K):
+    """A clip that some rounds' optimum passes: the reference's 128 at large K."""
+    return 128 if K >= 256 else max(2, K // 3)
+
+
+def _label(solver, ranking, extra=()):
+    parts = [solver] if solver in ("bisect", "newton", "pallas_tiled") else []
+    parts += ["topm"] if ranking == "topm" else []
+    return "+".join(parts + list(extra)) or "static"
+
+
+ROUND_FIELDS = ("a", "b", "e", "obj", "nsel")
+
+
+@pytest.mark.parametrize("K,C,T", RANKED_SHAPES)
+@pytest.mark.parametrize("solver", ["pallas", "newton", "bisect", "pallas_tiled"])
+def test_k3_topm_equals_sort_where_the_optimum_fits(dev, solver, K, C, T):
+    """Contract (a): per round (teacher-forced through K3 on the sort run's
+    queues), the top-m instance equals the sort instance of the same solver
+    bit for bit wherever m* <= top_m (pallas_tiled beside pallas: on finite
+    W the non-finite mask never acts); at top_m = K whole runs agree bit
+    for bit.  The one-round segments also give the sort run's own rows."""
+    import dataclasses
+
+    cfg, h2, v, eta, inc = _ranked_inputs(dev, 41 + K, C, T, K)
+    sort_cfg = dataclasses.replace(cfg, solver="pallas" if solver == "pallas_tiled" else solver)
+    s = tt.ocean_traj(sort_cfg, h2, v, eta, inc)
+    whole = tt.ocean_traj(dataclasses.replace(cfg, solver=solver, ranking="topm", top_m=K),
+                          h2, v, eta, inc)
+    for f in ("a", "b", "e", "q_pre", "rho", "obj", "nsel", "q_final", "es_final"):
+        assert torch.equal(_bits(getattr(s, f)), _bits(getattr(whole, f))), f
+    top_m = _top_m(K)
+    ts = tt.rounds_alone(sort_cfg, s.q_pre, h2, v, eta, inc)
+    tm = tt.rounds_alone(dataclasses.replace(cfg, solver=solver, ranking="topm", top_m=top_m),
+                         s.q_pre, h2, v, eta, inc)
+    torch.cuda.synchronize()
+    for f in ROUND_FIELDS:
+        assert torch.equal(_bits(getattr(ts, f)), _bits(getattr(s, f))), f
+    fits = (tt.m_star(ts.nsel, ts.rho) <= top_m).reshape(-1)
+    assert bool(fits.any())
+    for f in ROUND_FIELDS:
+        x, y = getattr(ts, f).reshape(C * T, -1), getattr(tm, f).reshape(C * T, -1)
+        assert torch.equal(_bits(x[fits]), _bits(y[fits])), f
+    assert bool((tt.m_star(tm.nsel, tm.rho) <= top_m).all())
+
+
+@pytest.mark.parametrize("K,C,T", RANKED_SHAPES)
+@pytest.mark.parametrize("solver,ranking", RANKED)
+def test_k3_ranked_instances_match_plain(dev, solver, ranking, K, C, T):
+    """Contract (b): each new instance against its plain version, every
+    round teacher-forced (a, nsel and so m* exact, b within 2e-4, the P3
+    value within 2e-4 relative), and whole trajectories; counted under its
+    own label."""
+    import dataclasses
+
+    cfg, h2, v, eta, inc = _ranked_inputs(dev, 43 + K, C, T, K)
+    cfg = dataclasses.replace(cfg, solver=solver, ranking=ranking, top_m=_top_m(K))
+    label = _label(solver, ranking)
+    before = tt.ocean_traj.instances.get(label, 0)
+    out = tt.ocean_traj(cfg, h2, v, eta, inc)
+    plain = tt.ocean_traj_plain(cfg, h2, v, eta, inc)
+    torch.cuda.synchronize()
+    assert tt.ocean_traj.instances[label] == before + 1
+    _assert_k3_close(out, plain)
+    _replay_rounds(cfg, out, h2, v, eta, inc)
+    if ranking == "topm":
+        assert bool((tt.m_star(out.nsel, out.rho) <= cfg.top_m).all())
+
+
+@pytest.mark.parametrize("ranking", ["sort", "topm"])
+def test_k3_newton_nan_objective_rounds_match_plain(dev, ranking):
+    """``_k3_inputs`` at K = 2048 keeps the §VI model bits, so f(b_min) ~
+    2^80 b_min: after the first round every candidate's W is NaN (m* = 1,
+    b not finite).  The first NaN W wins the newton sweep, as the plain
+    version's argmax takes it: a, nsel and m* exactly the plain version's,
+    b, W and the queues equal to it with NaN compared as NaN."""
+    import dataclasses
+
+    C, T, K = 2, 4, 2048
+    cfg, h2, v, eta, inc = _k3_inputs(dev, 43 + K, C, T, K)
+    cfg = dataclasses.replace(cfg, solver="newton", ranking=ranking, top_m=_top_m(K))
+    out = tt.ocean_traj(cfg, h2, v, eta, inc)
+    plain = tt.ocean_traj_plain(cfg, h2, v, eta, inc)
+    torch.cuda.synchronize()
+    assert bool(torch.isnan(plain.obj[:, 1:]).all())
+    assert torch.equal(out.a, plain.a) and torch.equal(out.nsel, plain.nsel)
+    assert torch.equal(tt.m_star(out.nsel, out.rho), tt.m_star(plain.nsel, plain.rho))
+    torch.testing.assert_close(out.b, plain.b, atol=B_ATOL, rtol=0, equal_nan=True)
+    torch.testing.assert_close(out.obj, plain.obj, atol=0, rtol=W_RTOL, equal_nan=True)
+    torch.testing.assert_close(out.q_final, plain.q_final, atol=1e-6, rtol=1e-5,
+                               equal_nan=True)
+
+
+@pytest.mark.parametrize("solver,ranking", [("newton", "sort"), ("newton", "topm"),
+                                            ("pallas_tiled", "topm")])
+def test_k3_ranked_instances_compose_with_every_branch(dev, solver, ranking):
+    """The new sweeps inside each other branch: every failure mode, the
+    streamed radio, the guard on faulty gains, the telemetry (its decisions
+    the metrics-off launch's bits, top-m saturation read in the kernel) and
+    segment launches (bit for bit the whole launch)."""
+    import dataclasses
+
+    from repro_torch.guard import GuardSpec
+
+    C, T, K = 8, 20, 10
+    cfg, h2, v, eta, inc = _k3_inputs(dev, 45, C, T, K)
+    cfg = dataclasses.replace(cfg, solver=solver, ranking=ranking, top_m=_top_m(K))
+    for mode in ("plain", "overprovision", "reallocate"):
+        f_cfg = dataclasses.replace(cfg, failure_mode=mode)
+        failure = _k3_failure(dev, 45, C, T, K, p=0.6)
+        out = tt.ocean_traj(f_cfg, h2, v, eta, inc, failure=failure)
+        _replay_rounds(f_cfg, out, h2, v, eta, inc, failure=failure)
+    radio = _k3_radio(dev, 45, C, T, cfg)
+    _replay_rounds(cfg, tt.ocean_traj(cfg, h2, v, eta, inc, radio=radio), h2, v, eta, inc,
+                   radio=radio)
+    g_cfg, gh2, gv, geta, ginc, reps = _k3_faulty(dev, 46, C, T, K)
+    g_cfg = dataclasses.replace(g_cfg, solver=solver, ranking=ranking, top_m=_top_m(K),
+                                guard=GuardSpec(energy_cap=1.0, gain_floor=1e-9))
+    out = tt.ocean_traj(g_cfg, gh2, gv, geta, ginc)
+    _assert_guard_counts(out, reps, T)
+    _replay_rounds(g_cfg, out, gh2, gv, geta, ginc)
+    m_cfg = dataclasses.replace(cfg, metrics=_metrics_spec())
+    out = _metrics_run(m_cfg, h2, v, eta, inc, label=_label(solver, ranking, ("metrics",)))
+    sat = ((tt.m_star(out.nsel, out.rho) >= cfg.top_m).float() if ranking == "topm"
+           else torch.zeros_like(out.obj))
+    assert torch.equal(out.metrics["topm_saturated/full_trace"], sat)
+    _k3_segmented(cfg, h2, v, eta, inc, every=7)
+    _k3_segmented(m_cfg, h2, v, eta, inc, every=7)

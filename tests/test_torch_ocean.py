@@ -163,9 +163,11 @@ def test_schedules_match_reference():
 
 
 def test_fused_scope_and_config_validation():
-    cfg = TConfig(num_clients=K, num_rounds=T, radio=TRadio(), solver="newton")
+    # the fused kernel runs newton, but not past its shared-memory sort
+    cfg = TConfig(num_clients=2049, num_rounds=T, radio=TRadio(b_min=1e-4), solver="newton")
     with pytest.raises(NotImplementedError, match="fused"):
-        simulate(cfg, torch.tensor(_h2()), eta_schedule("uniform", T), V, traj="fused", device="cpu")
+        simulate(cfg, torch.full((1, T, 2049), 2.5e-4), eta_schedule("uniform", T), V,
+                 traj="fused", device="cpu")
     with pytest.raises(ValueError, match="frame_len"):
         TConfig(num_clients=K, num_rounds=T, radio=TRadio(), frame_len=0)
     with pytest.raises(ValueError, match="sort-free"):
