@@ -23,7 +23,9 @@ HasMetrics instance with the telemetry overhead spec of
 benchmarks/traj_bench.py:304 there (each where the checkout has it; that
 reading also carries the digest of its decision outputs alone), and a
 segment launch of rounds 128-192 from round 128's carry (``k3_seg``, where
-the checkout has checkpoint/resume); the §VI instance's reading also
+the checkout has checkpoint/resume), and its wide instance on traj_bench's
+K-scaling cell, 8 cells x 8 rounds x K = 10^4, top_m 128 (``k3_wide``, where
+the checkout has it); the §VI instance's reading also
 carries ptxas's registers and spills (``ptxas``); K5: the long cache; K6: one 4096-channel block of jamba's mixer
 over 8192 steps; K7: the rwkv6 prefill layer, 8 x 8192 x 32 heads of 64,
 and at B = 4, 128 (b, h) chains, fewer than the card's 132 SMs) and is
@@ -199,6 +201,15 @@ def main() -> int:
         rec["k3_K100"]["bound_ms"], rec["k3_K100"]["bound_by"] = cs.k3_bound(
             torch, ocean_traj(*k3_large).rho)[:2]
     del h2c, inc, k3_large
+    from repro_torch.kernels import ocean_traj as k3mod
+
+    if hasattr(k3mod, "MAX_WIDE_TOP_M"):  # a checkout with K3's wide instances
+        wide = cs._kscale_inputs(torch, np, dev, 8, 8, 10_000, seed=10_000)
+        timed("k3_wide", lambda: ocean_traj(*wide), 5)
+        if "k3_wide" in rec:
+            rec["k3_wide"]["bound_ms"], rec["k3_wide"]["bound_by"] = cs.k3_bound(
+                torch, ocean_traj(*wide).rho, n_cands=128, wide=True)[:2]
+        del wide
 
     qd, kc, vc, vl = cs._k5_inputs(torch, dev, 4, 8192, 32, 16, 128, 8000)
     timed("k5", lambda: decode_attention(qd, kc, vc, vl, logit_cap=50.0), 50)

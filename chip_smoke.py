@@ -15,7 +15,13 @@ just after.  Then K3's ranking and solver branches (phase ``k3_ranking``):
 the §VI grid with solver="newton", and K = 2048 under ranking="topm"
 (top_m 128) with pallas, newton and pallas_tiled, each bit for bit the
 sort instance on the rounds whose optimum fits and held to its plain
-version round by round.
+version round by round.  Then K3's wide instances (phase ``k3_wide``,
+``csrc/ocean_traj_wide.cu``): bit for bit the shared-memory top-m instance
+at K = 100 and 2048; traj_bench's K-scaling cell (K = 10^4, 8 cells x 8
+rounds, pallas_tiled, top_m 128) through ``run_grid`` on traj="fused"
+(one wide launch) beside traj="scan" (K2 every round) and against the
+plain version, the same shape for pallas, newton and bisect; K = 10^5 with
+``stream_bf16`` through ``simulate``, its bf16 rows the float32 rows cast.
 
 Then the LM serving path at gemma2-27b's full width and depth (46 layers,
 27.2e9 random bf16 parameters from a seed): K4 and K5 against their plain
@@ -746,12 +752,16 @@ def ops_waterfill(n, outer, inner, grid):
 
 
 def k3_bound(torch, rho, radio=False, failure=False, solves=(), bisect=False, guard=False,
-             fallback=None, newton=False, n_cands=None):
+             fallback=None, newton=False, n_cands=None, wide=False, row_bytes=4):
     """K3's bound on (C, T, K) priorities: per cell-round the sweep runs
     K - n0 candidates, at most ``n_cands`` (the top-m clip; K1's Newton, or
     with ``bisect`` the bisect sweep, with ``newton`` the newton sweep and
     its seed grid);
-    the sort is P log2(P)(log2(P)+1)/4 exchanges.  The streamed-radio
+    the sort is P log2(P)(log2(P)+1)/4 exchanges; the ``wide`` instances
+    (csrc/ocean_traj_wide.cu) sort only the clip's list, n_cands padded to a
+    power of two (its keys and appends are in the ~30 K operations a round
+    every instance counts).  The b, e, q_pre and rho rows take
+    ``row_bytes`` a value (2 under stream_bf16).  The streamed-radio
     instance also reads 3 floats a cell-round; the failure instance reads
     the (C, T, K) mask and (C, K) rates, writes the delivered mask and the
     reallocation flags, and runs one masked P4 for each member count in
@@ -769,6 +779,8 @@ def k3_bound(torch, rho, radio=False, failure=False, solves=(), bisect=False, gu
         per_round = torch.clamp(per_round, max=n_cands)
     counts = per_round.reshape(-1).tolist()
     Pp = max(32, 1 << (K - 1).bit_length())
+    if wide:
+        Pp = 1 << (min(n_cands, K) - 1).bit_length()
     lg = int(math.log2(Pp))
     sort_ops = Pp * lg * (lg + 1) // 4 * 8
     if bisect:
@@ -778,7 +790,7 @@ def k3_bound(torch, rho, radio=False, failure=False, solves=(), bisect=False, gu
     else:
         ops = ops_sweep(counts, OUTER_ITERS, INNER_ITERS)
     ops += C * T * (sort_ops + 30 * K)
-    n_bytes = C * T * K * (4 * 2 + 4 * 4 + 1) + C * T * 4 * 4 + C * K * 4 * 2
+    n_bytes = C * T * K * (4 * 2 + row_bytes * 4 + 1) + C * T * 4 * 4 + C * K * 4 * 2
     if guard:
         n_bytes += K * 4 + C * T * 3 * 4
         ops += C * T * 20 * K
@@ -1008,13 +1020,19 @@ def _flat_witness(torch, cfg, rows, got, pl, q_pre, h2, v, eta):
     return out
 
 
-def _hold_to_plain(torch, cfg, got, q_pre, h2, v, eta, inc, what):
+def _nan_as_nan(torch, x, y, d):
+    """The difference ``d`` of x and y with a NaN beside a NaN counted as 0."""
+    return torch.where(x.isnan() & y.isnan(), torch.zeros_like(d), d)
+
+
+def _hold_to_plain(torch, cfg, got, q_pre, h2, v, eta, inc, what, same_selection=False):
     """Contract (b): K3's one-round outputs ``got`` ((C, T, ...)) against the
     plain round on the same queues: selections and counts exact outside
     near ties (margins of the plain K1 sweep over the clip's candidates),
-    the P3 value within W_RTOL x (|P3| + v eta) and b within B_ATOL there;
+    the P3 value within W_RTOL x (|P3| + v eta) and b within B_ATOL there
+    (``same_selection``: also on the near-tie rounds that select alike);
     flat rounds (FLAT_W_RTOL) are counted and held to the float64 optimum
-    (``_flat_witness``)."""
+    (``_flat_witness``).  A NaN (W, or b) beside a NaN counts as equal."""
     C, T, K = h2.shape
     pl = _plain_rounds(torch, cfg, q_pre, h2, v, eta, inc)
     v_eta = (v * eta).reshape(-1)
@@ -1023,12 +1041,14 @@ def _hold_to_plain(torch, cfg, got, q_pre, h2, v, eta, inc, what):
     flip = (got.a.reshape(-1, K) != pl["a"]).any(1) | (got.nsel.reshape(-1) != pl["num_selected"])
     check(not bool((flip & ~near).any()),
           f"{what}: {int((flip & ~near).sum())} rounds select differently outside near ties")
-    ok = ~near
+    ok = ~flip if same_selection else ~near
     obj = got.obj.reshape(-1)
-    rel = (obj - pl["objective"]).abs() / (pl["objective"].abs() + v_eta)
+    rel = _nan_as_nan(torch, obj, pl["objective"],
+                      (obj - pl["objective"]).abs() / (pl["objective"].abs() + v_eta))
     check(rel[ok].max().item() <= W_RTOL, f"{what}: P3 value off the plain round's by "
                                           f"{rel[ok].max().item()} (relative)")
-    db = (got.b.reshape(-1, K) - pl["b"]).abs().amax(1)
+    b = got.b.reshape(-1, K)
+    db = _nan_as_nan(torch, b, pl["b"], (b - pl["b"]).abs()).amax(1)
     flat = ok & (db > B_ATOL) & (rel <= FLAT_W_RTOL)
     err_b = db[ok & ~flat].max().item()
     check(err_b <= B_ATOL, f"{what}: max |b - b_plain| = {err_b}")
@@ -1042,7 +1062,8 @@ def _hold_to_plain(torch, cfg, got, q_pre, h2, v, eta, inc, what):
               and max(witness["kernel_b_off"]) <= FLAT_B_ATOL,
               f"{what}: a flat round is off the float64 optimum: {witness}")
     return dict(rounds=C * T, near_tie_rounds=int(near.sum()), flipped_rounds=int(flip.sum()),
-                max_abs_err_b=err_b, max_rel_err_obj=rel[ok].max().item(),
+                rounds_held=int(ok.sum()), max_abs_err_b=err_b,
+                max_rel_err_obj=rel[ok].max().item(),
                 flat_rounds=int(flat.sum()),
                 flat_max_abs_err_b=db[flat].max().item() if witness else 0.0,
                 flat_witness=witness)
@@ -1173,6 +1194,334 @@ def phase_k3_ranking(torch, np, dev, smi, T=300, K=10, seeds=64, big=(2048, 16, 
                                         r["contract_b"]["flat_max_abs_err_b"])
                                     for k, r in big_rec.items() if k != "sort"]))
     emit({"phase": "k3_ranking", **out})
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K3's wide instances (ranking="topm" past K = 2048) and stream_bf16
+# ---------------------------------------------------------------------------
+WIDE_SOLVERS = ("pallas", "newton", "pallas_tiled", "bisect")
+WIDE_FIELDS = ("a", "b", "e", "q_pre", "rho", "obj", "nsel", "q_final", "es_final")
+WIDE_LABELS = {"pallas": "topm+wide", "newton": "newton+topm+wide",
+               "pallas_tiled": "pallas_tiled+topm+wide", "bisect": "bisect+topm+wide"}
+KSCALE_TOP_M = 128
+
+
+def _kscale_inputs(torch, np, dev, C, T, K, seed):
+    """benchmarks/traj_bench.py's K-scaling cell (``_kscale_cfg``, :118-129)
+    with C cells: b_min = 0.1 / K, pallas_tiled under top-m 128, one frame,
+    V = 1e-5, the uniform eta schedule, the per-round share of the 0.15 J
+    budget; gains exponential x 2.5e-4 from a numpy seed."""
+    from repro_torch.core.energy import RadioParams
+    from repro_torch.core.ocean import OceanConfig
+    from repro_torch.core.patterns import eta_schedule
+
+    cfg = OceanConfig(num_clients=K, num_rounds=T, radio=RadioParams(b_min=0.1 / K),
+                      solver="pallas_tiled", ranking="topm", top_m=KSCALE_TOP_M, traj="fused")
+    h2 = torch.tensor(
+        np.random.default_rng(seed).exponential(size=(C, T, K)).astype(np.float32) * 2.5e-4,
+        device=dev)
+    eta = eta_schedule("uniform", T, device=dev).expand(C, T).contiguous()
+    inc = (cfg.budgets(device=dev) / T)[None, None, :].expand(C, T, K).contiguous()
+    return cfg, h2, torch.full((C, T), V_PAPER, device=dev), eta, inc
+
+
+def _modulated_radio(torch, np, dev, cfg, C, T, seed):
+    """(C, T) radio leaves: every round's bandwidth a seeded share in
+    [0.5, 1] of the static radio's (chip_kernels.py's k3_radio)."""
+    from repro_torch.env.radio import traced_radio
+
+    share = torch.tensor(np.random.default_rng(seed).uniform(0.5, 1.0, (C, T)),
+                         dtype=torch.float32, device=dev)
+    radio = traced_radio(cfg.radio, T).map(lambda x: x.to(dev).expand(C, T).contiguous())
+    bw = radio.bandwidth_hz * share
+    return radio._replace(bandwidth_hz=bw, beta=radio.model_bits / (radio.deadline_s * bw),
+                          energy_scale=radio.deadline_s * radio.noise_w * bw)
+
+
+def _wide_vs_plain(torch, cfg, out, h2, v, eta, inc, what):
+    """A wide launch's outputs ``out`` against ``ocean_traj_plain``: every
+    round on the launch's own queues through ``rounds_alone`` (bit for bit
+    the whole launch's rows) and ``_hold_to_plain`` (b within B_ATOL and P3
+    within W_RTOL on every round that selects alike, near ties included:
+    with thousands of S0 clients their utility makes W_RTOL |W*| exceed a
+    candidate's margin; flat rounds to the float64 optimum), and the whole
+    trajectory: a cell may
+    select unlike the plain version only where one of its rounds is a near
+    tie, and the other cells' final queues lie within Q_ATOL + Q_RTOL |q|.
+    b over the whole trajectory is read, not held: the two runs' queues
+    part in their last bits, which on a flat round moves b by more than
+    the round's own tolerance (``tests/test_torch_kernels_cuda.py``,
+    ``_replay_rounds``); the worst round's P3 values are read beside it.
+    Returns the readings and the plain version's wall ms."""
+    from repro_torch.kernels.ocean_traj import ocean_traj_plain, rounds_alone
+
+    C, T, K = h2.shape
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plain = ocean_traj_plain(cfg, h2, v, eta, inc)
+    torch.cuda.synchronize()
+    plain_ms = 1e3 * (time.perf_counter() - t0)
+    rounds = rounds_alone(cfg, out.q_pre, h2, v, eta, inc)
+    diff = [f for f in RANK_FIELDS if not _same_bits(torch, getattr(rounds, f), getattr(out, f))]
+    check(not diff, f"{what}: one-round launches differ from the whole launch: {diff}")
+    rec = _hold_to_plain(torch, cfg, rounds, out.q_pre, h2, v, eta, inc, what,
+                         same_selection=True)
+    near = _near_rounds(torch, out.rho.reshape(-1, K), (v * eta).reshape(-1), cfg.radio,
+                        n_cands=min(cfg.top_m, K)).reshape(C, T).any(1)
+    same = (out.a == plain.a).flatten(1).all(1) & (out.nsel == plain.nsel).all(1)
+    check(bool((same | near).all()),
+          f"{what}: {int((~same & ~near).sum())} cells select unlike the plain version "
+          f"without a near tie")
+    dq = _nan_as_nan(torch, out.q_final, plain.q_final, (out.q_final - plain.q_final).abs())
+    over = (dq - Q_ATOL - Q_RTOL * plain.q_final.abs())[same].max().item()
+    check(over <= 0, f"{what}: final queues differ by {dq[same].max().item()}")
+    db = _nan_as_nan(torch, out.b, plain.b, (out.b - plain.b).abs()).amax(-1).reshape(-1)
+    db = torch.where(same[:, None].expand(C, T).reshape(-1), db, torch.zeros_like(db))
+    worst = int(db.argmax())
+    o_k, o_p = out.obj.reshape(-1)[worst].item(), plain.obj.reshape(-1)[worst].item()
+    rec.update(cells=C, cells_identical_decisions=int(same.sum()),
+               whole_max_abs_err_b=db[worst].item(),
+               whole_worst_round=dict(round=worst, obj=o_k, obj_plain=o_p,
+                                      rel_obj=abs(o_k - o_p) / max(abs(o_p), 1e-30)),
+               whole_max_abs_err_q_final=dq[same].max().item(), plain_ms=plain_ms,
+               plain_rounds=T, nan_w_rounds=int(out.obj.isnan().sum()),
+               mean_selected=out.nsel.float().mean().item())
+    return rec
+
+
+def _wide_row(torch, cfg, args, out, label, launches, launch=None, **bound_kw):
+    """A wide instance's reading for the kernels line: device ms, ms back to
+    back (``launch``: more keywords of the launch), its launches on the
+    phase's path, its bound."""
+    from repro_torch.kernels.ocean_traj import ocean_traj
+
+    h2, v, eta, inc = args
+    launch = launch or {}
+    fn = lambda: ocean_traj(cfg, h2, v, eta, inc, **launch)  # noqa: E731
+    dev_ms, _, seen = device_ms(torch, fn, 3)
+    row = dict(label=label, launches=launches, ms=gpu_ms(torch, fn, 3), device_ms=dev_ms,
+               device_records_seen=seen)
+    row.update(zip(("bound_ms", "bound_by", "ops", "bytes"),
+                   k3_bound(torch, out.rho.float(), n_cands=min(cfg.top_m, h2.shape[-1]),
+                            wide=True, **bound_kw)))
+    return row
+
+
+def phase_k3_wide(torch, np, dev, smi, equal=((100, 4, 40), (2048, 4, 40)), big=(10_000, 8, 8),
+                  huge=(100_000, 1, 2), top_m=KSCALE_TOP_M):
+    """K3's wide instances (csrc/ocean_traj_wide.cu) and stream_bf16.
+
+    1. At K = 100 and 2048, 4 cells x 40 rounds (``_k3_ranked_inputs``, top_m
+       128): the wide instance, forced, equals the shared-memory top-m
+       instance bit for bit on every output for pallas, newton,
+       pallas_tiled and bisect, and with a streamed radio.
+    2. K = 10^4, 8 cells x 8 rounds, traj_bench's K-scaling cell
+       (``_kscale_inputs``): ``run_grid(traj="fused")`` (one wide launch,
+       counted between a reset and a read) beside ``traj="scan"`` (K2 every
+       round); every round of the scan grid's queues through the wide
+       instance against the scan grid's decisions; the wide instance
+       against ``ocean_traj_plain``, whole and per round.  The same shape
+       on ``_k3_ranked_inputs`` with the §VI grid's per-round budget share
+       (finite optima, the clip binding) for pallas, newton and bisect (and
+       pallas_tiled), each against its plain version only.
+    3. K = 10^5, one cell, T = 2, stream_bf16 through ``simulate`` (counted):
+       bf16 rows equal to the float32 launch's rows cast, every other
+       output its bits; the float32 launch against its plain version; the
+       bf16 casts on the §VI instance too.
+    4. Each wide row's device ms, ms, launches, bound and plain ms, and the
+       K = 10^4 grid's rounds·cells/s on fused against the scan path.
+    """
+    from repro_torch.core.energy import RadioParams
+    from repro_torch.core.ocean import simulate
+    from repro_torch.core.patterns import eta_schedule
+    from repro_torch.core.scenario import Scenario
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.ocean_traj import BF16_ROWS, m_star, ocean_traj, rounds_alone
+    from repro_torch.sim import GridEngine, run_grid
+
+    lib = _build.load("ocean_traj_wide")
+    lib.ocean_traj_wide_warps.restype = ctypes.c_int
+    t_phase = time.perf_counter()
+
+    # 1. the wide instance is the shared-memory top-m instance, bit for bit
+    same = {}
+    for K, C, T in equal:
+        cfg, h2, v, eta, inc = _k3_ranked_inputs(torch, np, dev, C, T, K, seed=K + 7)
+        radio = _modulated_radio(torch, np, dev, cfg, C, T, seed=K + 7)
+        for solver in WIDE_SOLVERS + ("radio",):
+            rc = dataclasses.replace(cfg, solver="pallas" if solver == "radio" else solver,
+                                     ranking="topm", top_m=top_m)
+            kw = dict(radio=radio) if solver == "radio" else {}
+            shared = ocean_traj(rc, h2, v, eta, inc, **kw)
+            wide = ocean_traj(rc, h2, v, eta, inc, _force_wide=True, **kw)
+            diff = [f for f in WIDE_FIELDS
+                    if not _same_bits(torch, getattr(shared, f), getattr(wide, f))]
+            check(not diff, f"k3_wide K={K} {solver}: the wide instance differs from the "
+                            f"shared-memory top-m instance in {diff}")
+            ms_ = m_star(wide.nsel, wide.rho)
+            same[f"K={K} {solver}"] = dict(rounds=C * T, saturated_rounds=int((ms_ == top_m).sum()),
+                                           mean_m_star=ms_.float().mean().item())
+
+    # 2. K = 10^4: the grid on both paths, then the wide instance vs plain
+    Kb, Cb, Tb = big
+    scen = [Scenario(name="kscale", num_clients=Kb, num_rounds=Tb,
+                     radio=RadioParams(b_min=0.1 / Kb))]
+    gkw = dict(solver="pallas_tiled", ranking="topm", top_m=top_m, device=dev)
+    grids, walls, glaunch = {}, {}, {}
+    for traj in ("fused", "scan"):
+        run_grid(scen, ["ocean-u"], range(2), traj=traj, **gkw)  # warm-up
+        torch.cuda.synchronize()
+        _reset_counts()
+        t0 = time.perf_counter()
+        grids[traj] = run_grid(scen, ["ocean-u"], range(Cb), traj=traj, **gkw)
+        torch.cuda.synchronize()
+        walls[traj] = time.perf_counter() - t0
+        glaunch[traj] = _counts()
+    check(glaunch["fused"]["ocean_traj_instances"] == {"pallas_tiled+topm+wide": 1}
+          and glaunch["fused"]["ocean_p_topm"] == 0,
+          f"k3_wide: the fused K={Kb} grid's launches {glaunch['fused']}")
+    check(glaunch["scan"]["ocean_p_topm"] == Tb and glaunch["scan"]["ocean_traj"] == 0,
+          f"k3_wide: the scan K={Kb} grid's launches {glaunch['scan']}")
+    gf, gs = grids["fused"], grids["scan"]
+    gcfg = GridEngine(scen, ["ocean-u"], traj="fused", **gkw).cfg
+    h2g = gs.h2.reshape(Cb, Tb, Kb).contiguous()
+    incg = gs.budget_inc.reshape(Cb, Tb, Kb).contiguous()
+    vg = torch.full((Cb, Tb), V_PAPER, device=dev)
+    etag = eta_schedule("uniform", Tb, device=dev).expand(Cb, Tb).contiguous()
+    check(torch.equal(gf.h2, gs.h2), "k3_wide: the two grids drew other gains")
+    # every round of the scan grid's queues through the wide instance
+    q_s = gs.q[0].reshape(Cb, Tb, Kb).contiguous()
+    tf = rounds_alone(gcfg, q_s, h2g, vg, etag, incg)
+    near = _near_rounds(torch, tf.rho.reshape(-1, Kb), (vg * etag).reshape(-1), gcfg.radio,
+                        n_cands=top_m)
+    a_s, b_s = gs.a[0].reshape(-1, Kb), gs.b[0].reshape(-1, Kb)
+    n_s = gs.num_selected[0].reshape(-1)
+    flip = (tf.a.reshape(-1, Kb) != a_s).any(1) | (tf.nsel.reshape(-1) != n_s)
+    check(not bool((flip & ~near).any()),
+          f"k3_wide: {int((flip & ~near).sum())} rounds select unlike the K2 scan grid")
+    db = (tf.b.reshape(-1, Kb) - b_s).abs().amax(1)
+    err_scan = db[~near].max().item()
+    check(err_scan <= B_ATOL, f"k3_wide: max |b - b_scan| = {err_scan}")
+    bits_same = int(((tf.a.reshape(-1, Kb) == a_s).all(1) & (db == 0)
+                     & (tf.nsel.reshape(-1) == n_s)).sum())
+    same_cells = (gf.a == gs.a).flatten(3).all(-1).reshape(-1)
+    vs_scan = dict(rounds=Cb * Tb, near_tie_rounds=int(near.sum()), flipped_rounds=int(flip.sum()),
+                   max_abs_err_b=err_scan, rounds_bit_for_bit=bits_same,
+                   cells_identical_decisions=int(same_cells.sum()), cells=Cb,
+                   fused_wall_s=walls["fused"], scan_wall_s=walls["scan"],
+                   fused_rounds_cells_per_s=Cb * Tb / walls["fused"],
+                   scan_rounds_cells_per_s=Cb * Tb / walls["scan"], launches=glaunch)
+
+    rows, held = {}, {}
+    kscale = _kscale_inputs(torch, np, dev, Cb, Tb, Kb, seed=Kb)
+    # the §VI per-client load with the §VI grid's per-round budget share
+    # (H / 300): at H / T = 0.019 J a round (T = 8) the queues drain, 99.8 %
+    # of the clients sit in S0 and 56 of 64 rounds are near ties (H100)
+    ranked = _k3_ranked_inputs(torch, np, dev, Cb, Tb, Kb, seed=Kb)
+    ranked = ranked[:4] + (torch.full_like(ranked[1], 0.15 / 300),)
+    for solver in WIDE_SOLVERS:
+        cfg, h2, v, eta, inc = kscale if solver == "pallas_tiled" else ranked
+        cfg = dataclasses.replace(cfg, solver=solver, ranking="topm", top_m=top_m)
+        what = f"k3_wide K={Kb} {solver}"
+        _reset_counts()
+        out = ocean_traj(cfg, h2, v, eta, inc)
+        torch.cuda.synchronize()
+        launches = _counts()["ocean_traj_instances"].get(WIDE_LABELS[solver], 0)
+        rec = _wide_vs_plain(torch, cfg, out, h2, v, eta, inc, what)
+        ms_ = m_star(out.nsel, out.rho)
+        rec.update(mean_m_star=ms_.float().mean().item(),
+                   saturated_rounds=int((ms_ == top_m).sum()),
+                   inputs="_kscale_inputs" if solver == "pallas_tiled" else "_k3_ranked_inputs")
+        held[solver] = rec
+        rows[WIDE_LABELS[solver]] = dict(
+            _wide_row(torch, cfg, (h2, v, eta, inc), out, WIDE_LABELS[solver],
+                      launches=glaunch["fused"]["ocean_traj_instances"].get(
+                          WIDE_LABELS[solver], 0) if solver == "pallas_tiled" else launches,
+                      newton=solver == "newton", bisect=solver == "bisect"),
+            shape=f"{Cb} cells x {Tb} rounds x K = {Kb}, top_m {top_m}",
+            warps=lib.ocean_traj_wide_warps(top_m, {"pallas": 0, "pallas_tiled": 0, "bisect": 1,
+                                                    "newton": 2}[solver]),
+            plain_ms=rec["plain_ms"], plain_rounds=Tb)
+        del out
+    # traj_bench's radio selects nobody past S0 at this K: pallas_tiled on
+    # the finite optima of _k3_ranked_inputs too (a comparison launch)
+    cfg = dataclasses.replace(ranked[0], solver="pallas_tiled", ranking="topm", top_m=top_m)
+    out = ocean_traj(cfg, *ranked[1:])
+    held["pallas_tiled ranked"] = _wide_vs_plain(torch, cfg, out, *ranked[1:],
+                                                 f"k3_wide K={Kb} pallas_tiled ranked")
+    held["pallas_tiled ranked"]["mean_m_star"] = m_star(out.nsel, out.rho).float().mean().item()
+    del out
+
+    # 3. K = 10^5, stream_bf16 through simulate; the bf16 casts on the §VI instance
+    Kh, Ch, Th = huge
+    cfg, h2, v, eta, inc = _kscale_inputs(torch, np, dev, Ch, Th, Kh, seed=Kh)
+    simulate(cfg, h2, eta, V_PAPER, budget_seq=inc, traj="fused", stream_bf16=True, device=dev)
+    torch.cuda.synchronize()
+    _reset_counts()
+    st16, d16 = simulate(cfg, h2, eta, V_PAPER, budget_seq=inc, traj="fused", stream_bf16=True,
+                         device=dev)
+    torch.cuda.synchronize()
+    bf_launch = _counts()
+    check(bf_launch["ocean_traj_instances"] == {"pallas_tiled+topm+wide+bf16": 1},
+          f"k3_wide: the K={Kh} bf16 run's launches {bf_launch}")
+    f32 = ocean_traj(cfg, h2, v, eta, inc)
+    rec_h = _wide_vs_plain(torch, cfg, f32, h2, v, eta, inc, f"k3_wide K={Kh}")
+    bf = ocean_traj(cfg, h2, v, eta, inc, stream_bf16=True)
+    torch.cuda.synchronize()
+
+    def bf16_bits(f32_out, bf_out, what):
+        for f in BF16_ROWS:
+            check(getattr(bf_out, f).dtype == torch.bfloat16
+                  and _same_bits(torch, getattr(bf_out, f), getattr(f32_out, f).to(torch.bfloat16)),
+                  f"{what}: the bf16 {f} row is not the float32 row cast")
+        for f in ("a", "obj", "nsel", "q_final", "es_final"):
+            check(_same_bits(torch, getattr(bf_out, f), getattr(f32_out, f)),
+                  f"{what}: bf16 changed {f}")
+
+    bf16_bits(f32, bf, f"k3_wide K={Kh}")
+    for f, g in (("a", "a"), ("b", "b"), ("e", "e"), ("q_pre", "q"), ("rho", "rho"),
+                 ("obj", "objective"), ("nsel", "num_selected")):
+        check(_same_bits(torch, getattr(bf, f), getattr(d16, g)),
+              f"k3_wide K={Kh}: simulate's bf16 {g} differs from the launch's")
+    check(_same_bits(torch, st16.q, bf.q_final), f"k3_wide K={Kh}: simulate's final queues")
+    rec_h.update(mean_m_star=m_star(f32.nsel, f32.rho).float().mean().item())
+    held["pallas_tiled K=1e5"] = rec_h
+    big_args = (h2, v, eta, inc)
+    f32_row = _wide_row(torch, cfg, big_args, f32, "pallas_tiled+topm+wide", 0)
+    rows["pallas_tiled+topm+wide+bf16"] = dict(
+        _wide_row(torch, cfg, big_args, f32, "pallas_tiled+topm+wide+bf16",
+                  bf_launch["ocean_traj_instances"].get("pallas_tiled+topm+wide+bf16", 0),
+                  launch={"stream_bf16": True}, row_bytes=2),
+        shape=f"{Ch} cell x {Th} rounds x K = {Kh}, top_m {top_m}",
+        float32_ms=f32_row["ms"], float32_device_ms=f32_row["device_ms"],
+        float32_bound_ms=f32_row["bound_ms"], plain_ms=rec_h["plain_ms"], plain_rounds=Th)
+    del f32, bf, d16, st16
+    vi_cfg = GridEngine(*_grid_args(300, 10, 64)[:2], solver="pallas", traj="fused",
+                        device=dev).cfg
+    vi_args = _vi_k3_args(torch, np, dev, vi_cfg)
+    vi32 = ocean_traj(vi_cfg, *vi_args)
+    vi16 = ocean_traj(vi_cfg, *vi_args, stream_bf16=True)
+    bf16_bits(vi32, vi16, "k3_wide §VI")
+    vi_digest = k3_digest(torch, vi32)
+    check(vi_digest.startswith("c27a0410"), f"k3_wide: the §VI digest moved: {vi_digest}")
+    vi_fn = lambda kw: (lambda: ocean_traj(vi_cfg, *vi_args, **kw))  # noqa: E731
+    vi = {}
+    for name, kw, rb in (("float32", {}, 4), ("bf16", {"stream_bf16": True}, 2)):
+        dev_ms, _, seen = device_ms(torch, vi_fn(kw), 3)
+        vi[name] = dict(device_ms=dev_ms, device_records_seen=seen,
+                        ms=gpu_ms(torch, vi_fn(kw), 3), **dict(zip(
+                            ("bound_ms", "bound_by"), k3_bound(torch, vi32.rho,
+                                                               row_bytes=rb)[:2])))
+    del vi32, vi16, vi_args
+
+    out = dict(gpu=smi, bitwise_vs_shared=same, vs_scan_grid=vs_scan, held_to_plain=held,
+               rows=rows, vi_bf16=dict(digest=vi_digest, **vi),
+               max_abs_err_b=max([r["max_abs_err_b"] for r in held.values()]
+                                 + [r["flat_max_abs_err_b"] for r in held.values()]
+                                 + [err_scan]),
+               phase_s=time.perf_counter() - t_phase)
+    emit({"phase": "k3_wide", **out})
     return out
 
 
@@ -3432,6 +3781,7 @@ def main() -> int:
     scan = timed("k1_scan_path", phase_scan, torch, dev, smi, res, near_cells)
     topm = timed("k2_topm_path", phase_topm_path, torch, dev, smi)
     ranking = timed("k3_ranking", phase_k3_ranking, torch, np, dev, smi)
+    wide = timed("k3_wide", phase_k3_wide, torch, np, dev, smi)
     del res
     torch.cuda.empty_cache()
     reliability, rel_args = timed("reliability", phase_reliability, torch, np, dev, smi)
@@ -3518,6 +3868,21 @@ def main() -> int:
                                        **{k: ranking["big"]["rows"]["sort"][k]
                                           for k in INSTANCE_KEYS}),
              }),
+        # K3's wide instances: the K = 10^4 grid's launch (traj_bench's
+        # K-scaling cell) and the K = 10^5 stream_bf16 run through simulate
+        dict(name="ocean_traj_wide", route="cuda",
+             source="src/repro_torch/csrc/ocean_traj_wide.cu",
+             replaces="src/repro/kernels/ocean_traj.py:96",
+             launches=sum(r["launches"] for r in wide["rows"].values()),
+             max_abs_err=wide["max_abs_err_b"],
+             **{k: wide["rows"]["pallas_tiled+topm+wide"][k]
+                for k in ("shape", "ms", "device_ms", "plain_ms", "plain_rounds", "bound_ms",
+                          "bound_by")},
+             library_ms=None,
+             instances={label: {k: r[k] for k in ("shape", "launches", "ms", "device_ms",
+                                                  "plain_ms", "plain_rounds", "bound_ms",
+                                                  "bound_by")}
+                        for label, r in wide["rows"].items()}),
         dict(name="ocean_traj_metrics", route="cuda",
              source="src/repro_torch/csrc/ocean_traj_metrics.cu",
              replaces="src/repro/kernels/ocean_traj.py:96",

@@ -22,8 +22,8 @@ and a ``MetricsSpec`` (``repro_torch.obs``: per-round telemetry).  With a
 ``CheckpointSpec`` (``repro_torch.checkpoint``) ``simulate`` runs the
 trajectory as segments, one round loop or one K3 segment launch each, and
 snapshots the carry at every boundary; ``resume_from`` continues from the
-latest snapshot.  The hook not ported yet — bf16 streaming — keeps its
-argument and raises ``NotImplementedError``.
+latest snapshot.  ``stream_bf16`` (fused only) returns the per-round b, e,
+q and rho decisions as bfloat16; the trajectory is the float32 one.
 """
 from __future__ import annotations
 
@@ -549,15 +549,18 @@ def simulate(
     restores the latest committed snapshot and continues from it.  The
     segmented run equals the single-program run bit for bit, and a
     resumed run the uninterrupted one, on both trajectory backends.
+
+    ``stream_bf16=True`` (``traj="fused"`` only) returns the (C, T, K)
+    b, e, q and rho decisions as bfloat16, rounded to nearest even from
+    the float32 trajectory, which is unchanged (selections, counts,
+    objectives, the final state and the telemetry are the float32 run's).
     """
     traj = check_traj_backend(cfg.traj if traj is None else traj)
-    if stream_bf16:
-        if traj != "fused":
-            raise ValueError(
-                "stream_bf16=True requires the 'fused' trajectory backend; "
-                f"got traj={traj!r}"
-            )
-        raise not_ported("stream_bf16")
+    if stream_bf16 and traj != "fused":
+        raise ValueError(
+            "stream_bf16=True requires the 'fused' trajectory backend; "
+            f"got traj={traj!r}"
+        )
     ckpt_spec = check_checkpoint_spec(cfg.checkpoint if checkpoint is None
                                       else (checkpoint or None))
     if resume_from is False:
@@ -566,12 +569,13 @@ def simulate(
     streams, budgets = simulate_inputs(cfg, h2_seq, eta_seq, v, budgets, budget_seq, radio_seq,
                                        failure_seq, dev)
     if ckpt_spec is not None or resume_from is not None:
-        return _simulate_segmented(cfg, traj, ckpt_spec, resume_from, streams, budgets)
+        return _simulate_segmented(cfg, traj, ckpt_spec, resume_from, streams, budgets,
+                                   stream_bf16)
 
     if traj == "fused":
         from repro_torch.kernels.ocean_traj import ocean_trajectory_fused
 
-        return ocean_trajectory_fused(cfg, *streams)
+        return ocean_trajectory_fused(cfg, *streams, stream_bf16=stream_bf16)
 
     spec = cfg.metrics
     C = streams[0].shape[0]
@@ -617,18 +621,19 @@ def slice_rounds(streams, t0: int, t1: int):
             None if failure is None else failure._replace(delivered=sl(failure.delivered)))
 
 
-def segment_step(cfg, traj, state, mstate, streams, budgets=None):
+def segment_step(cfg, traj, state, mstate, streams, budgets=None, stream_bf16=False):
     """The rounds of ``streams`` (``slice_rounds``) from a carry:
     ``(state', mstate', stacked decisions, stacked full traces)``, the
     telemetry unfinalized (``mstate`` and the traces None without
-    ``cfg.metrics``).  ``traj="fused"`` is one K3 segment launch."""
+    ``cfg.metrics``).  ``traj="fused"`` is one K3 segment launch, its float
+    rows bfloat16 under ``stream_bf16``."""
     spec = cfg.metrics
     h2, v, eta, inc, radio, failure = streams
     if traj == "fused":
         from repro_torch.kernels.ocean_traj import ocean_trajectory_fused
 
         out = ocean_trajectory_fused(cfg, *streams, init_state=state, init_mstate=mstate,
-                                     raw_metrics=True)
+                                     raw_metrics=True, stream_bf16=stream_bf16)
         if spec is None:
             return out[0], None, out[1], None
         return out[0], out[2], out[1], out[3]
@@ -698,13 +703,16 @@ def traces_like(cfg, C: int, r: int):
         for n in cfg.metrics.full_trace_entries}
 
 
-def _decisions_like(cfg, C: int, r: int, has_failure: bool) -> RoundDecision:
-    """The template of r rounds of stacked decisions."""
+def _decisions_like(cfg, C: int, r: int, has_failure: bool,
+                    stream_bf16: bool = False) -> RoundDecision:
+    """The template of r rounds of stacked decisions (the float rows
+    bfloat16 under ``stream_bf16``)."""
     from repro_torch.checkpoint import TensorSpec
 
     K = cfg.num_clients
     f32, i32 = torch.float32, torch.int32
-    rows = {f: TensorSpec((C, r, K), f32) for f in ("b", "e", "q", "rho")}
+    row = torch.bfloat16 if stream_bf16 else f32
+    rows = {f: TensorSpec((C, r, K), row) for f in ("b", "e", "q", "rho")}
     cell = dict(objective=TensorSpec((C, r), f32), num_selected=TensorSpec((C, r), i32))
     if has_failure:
         cell.update(delivered=TensorSpec((C, r, K), torch.bool), realloc=TensorSpec((C, r), i32))
@@ -713,7 +721,8 @@ def _decisions_like(cfg, C: int, r: int, has_failure: bool) -> RoundDecision:
     return RoundDecision(a=TensorSpec((C, r, K), torch.bool), **rows, **cell)
 
 
-def _simulate_segmented(cfg, traj, ckpt_spec, resume_from, streams, budgets):
+def _simulate_segmented(cfg, traj, ckpt_spec, resume_from, streams, budgets,
+                        stream_bf16=False):
     from repro_torch.checkpoint import trajectory as ckpt_io
 
     spec = cfg.metrics
@@ -729,7 +738,8 @@ def _simulate_segmented(cfg, traj, ckpt_spec, resume_from, streams, budgets):
         r = latest_snapshot_round(directory)
         # the template from known shapes (the zero carry has the carry's):
         # nothing of the prefix is recomputed
-        like = {"state": state, "decs": _decisions_like(cfg, C, r, streams[5] is not None)}
+        like = {"state": state, "decs": _decisions_like(cfg, C, r, streams[5] is not None,
+                                                        stream_bf16)}
         if spec is not None:
             like.update(mstate=mstate, traces=traces_like(cfg, C, r))
         snap, start = ckpt_io.load_snapshot(directory, like, r, device=dev)
@@ -738,7 +748,7 @@ def _simulate_segmented(cfg, traj, ckpt_spec, resume_from, streams, budgets):
             mstate, traces = snap["mstate"], snap["traces"]
     for t0, t1 in ckpt_io.segment_bounds(T, every, start):
         state, mstate, decs_s, traces_s = segment_step(
-            cfg, traj, state, mstate, slice_rounds(streams, t0, t1), budgets)
+            cfg, traj, state, mstate, slice_rounds(streams, t0, t1), budgets, stream_bf16)
         decs = decs_s if decs is None else concat_rounds([decs, decs_s])
         if spec is not None:
             traces = traces_s if traces is None else concat_rounds([traces, traces_s])

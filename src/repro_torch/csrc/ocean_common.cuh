@@ -2,9 +2,10 @@
 // K3 ocean_traj): the Shannon-inversion math, the safeguarded Newton
 // waterfilling of one P4 candidate, the double bisection of one P4
 // candidate (the ``bisect`` solver, K3 only), the ``newton`` solver's
-// grid-seeded candidate and masked P4 (K3 only), and the candidate-parallel
+// grid-seeded candidate and masked P4 (K3 only), the candidate-parallel
 // K+1-prefix sweep over any of them (a warp or half warp per candidate; K1,
-// K2, K3).
+// K2, K3), and the top-m extraction's keys, block sort and search (K2 and
+// K3's wide instances).
 //
 // The math follows the reference line for line:
 //   f, f', f''            repro/core/energy.py:128-151
@@ -113,6 +114,66 @@ __device__ float b_of_lam(float lam, float rho, float beta, float b_min,
   if (at_min) b = b_min;
   if (at_max) b = b_max;
   return b;
+}
+
+// ---------------------------------------------------------------------------
+// The top-m extraction's keys (K2, and K3's wide instances): a client's
+// sort key is the order-preserving bits of rho (NaN as +inf, as the
+// extraction never picks a NaN; -0 as +0) above its index, so keys order
+// as (rho, index) pairs do and ties go to the lower index.
+// ---------------------------------------------------------------------------
+constexpr uint64_t kNoKey = ~0ull;  // above every client's key
+
+__device__ __forceinline__ uint64_t topm_key(float v, int i) {
+  if (isnan(v)) v = INFINITY;
+  if (v == 0.f) v = 0.f;
+  unsigned u = __float_as_uint(v);
+  u = (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+  return ((uint64_t)u << 32) | (unsigned)i;
+}
+
+__device__ __forceinline__ float key_value(uint64_t k) {
+  const unsigned u = (unsigned)(k >> 32);
+  return __uint_as_float((u & 0x80000000u) ? (u & 0x7fffffffu) : ~u);
+}
+
+// Sorts keys[0, n) ascending in place with the block: a bitonic network
+// over the next power of two, whose slots past n hold kNoKey implicitly
+// (a compare-exchange with such a slot never moves anything, since every
+// exchange puts the smaller key at the lower index).  Callers make
+// keys[0, n) visible to the block first; it ends with a barrier.
+__device__ void bitonic_sort(uint64_t* keys, int n) {
+  int np = 1;
+  while (np < n) np <<= 1;
+  for (int k = 2; k <= np; k <<= 1) {
+    for (int j = k >> 1; j > 0; j >>= 1) {
+      for (int t = threadIdx.x; t < (np >> 1); t += blockDim.x) {
+        const int i = ((t & ~(j - 1)) << 1) | (t & (j - 1));  // bit j clear
+        const int pr = j == (k >> 1) ? (i ^ (k - 1)) : (i | j);
+        if (pr < n) {
+          const uint64_t a = keys[i], b = keys[pr];
+          if (b < a) {
+            keys[i] = b;
+            keys[pr] = a;
+          }
+        }
+      }
+      __syncthreads();
+    }
+  }
+}
+
+// Keys of list[0, n) (ascending) below ``key``.
+__device__ __forceinline__ int lower_bound(const uint64_t* list, int n, uint64_t key) {
+  int lo = 0, hi = n;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (list[mid] < key)
+      lo = mid + 1;
+    else
+      hi = mid;
+  }
+  return lo;
 }
 
 // ---------------------------------------------------------------------------
@@ -586,15 +647,20 @@ __device__ void prefix_sweep_bisect(const float* rho, int L, int start, int n_ca
 //      delta) of candidate m is <= 0: GridCandidate reads the bracket from
 //      these bits and lam_g (a min and a max, exact in any order).
 //   red   at least 64 floats of shared scratch
+// RowMax: rho is only the candidates' compact row (K3's wide instances:
+// K = n_c, n0 = 0) and ``row_max`` the largest rho of the whole client
+// row, which the caller reduced (a max: exact in any order).
 // ---------------------------------------------------------------------------
+template <bool RowMax = false>
 __device__ void newton_grid_seeds(const float* rho, int K, int n0, int n_c, const SweepParams& p,
                                   int grid, int inner, const float* frac, float* scr, int scr_n,
-                                  unsigned* bits, float* lam_g, float* red) {
+                                  unsigned* bits, float* lam_g, float* red,
+                                  float row_max = 0.f) {
   const int tid = threadIdx.x, nt = blockDim.x, lane = tid & 31;
   const int warp = tid >> 5, nwarps = nt >> 5;
-  float mx = -INFINITY, mn = INFINITY;
+  float mx = RowMax ? row_max : -INFINITY, mn = INFINITY;
   for (int i = tid; i < K; i += nt) {
-    mx = jmax(mx, rho[i]);
+    if (!RowMax) mx = jmax(mx, rho[i]);
     if (i >= n0 && i < n0 + n_c && rho[i] > 0.f) mn = jmin(mn, rho[i]);
   }
   mx = warp_all<Max>(mx);

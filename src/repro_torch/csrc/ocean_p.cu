@@ -96,62 +96,8 @@ __global__ void ocean_p_prefix_kernel(const float* __restrict__ scal,
   }
 }
 
-// A client's sort key: the order-preserving bits of rho (NaN as +inf, as
-// the extraction never picks a NaN; -0 as +0) above its index, so keys
-// order as (rho, index) pairs do and ties go to the lower index.
-constexpr uint64_t kNoKey = ~0ull;  // above every client's key
-
-__device__ __forceinline__ uint64_t topm_key(float v, int i) {
-  if (isnan(v)) v = INFINITY;
-  if (v == 0.f) v = 0.f;
-  unsigned u = __float_as_uint(v);
-  u = (u & 0x80000000u) ? ~u : (u | 0x80000000u);
-  return ((uint64_t)u << 32) | (unsigned)i;
-}
-
-__device__ __forceinline__ float key_value(uint64_t k) {
-  const unsigned u = (unsigned)(k >> 32);
-  return __uint_as_float((u & 0x80000000u) ? (u & 0x7fffffffu) : ~u);
-}
-
-// Sorts keys[0, n) ascending in place with the block: a bitonic network
-// over the next power of two, whose slots past n hold kNoKey implicitly
-// (a compare-exchange with such a slot never moves anything, since every
-// exchange puts the smaller key at the lower index).  Callers make
-// keys[0, n) visible to the block first; it ends with a barrier.
-__device__ void bitonic_sort(uint64_t* keys, int n) {
-  int np = 1;
-  while (np < n) np <<= 1;
-  for (int k = 2; k <= np; k <<= 1) {
-    for (int j = k >> 1; j > 0; j >>= 1) {
-      for (int t = threadIdx.x; t < (np >> 1); t += blockDim.x) {
-        const int i = ((t & ~(j - 1)) << 1) | (t & (j - 1));  // bit j clear
-        const int pr = j == (k >> 1) ? (i ^ (k - 1)) : (i | j);
-        if (pr < n) {
-          const uint64_t a = keys[i], b = keys[pr];
-          if (b < a) {
-            keys[i] = b;
-            keys[pr] = a;
-          }
-        }
-      }
-      __syncthreads();
-    }
-  }
-}
-
-// Keys of list[0, n) (ascending) below ``key``.
-__device__ __forceinline__ int lower_bound(const uint64_t* list, int n, uint64_t key) {
-  int lo = 0, hi = n;
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (list[mid] < key)
-      lo = mid + 1;
-    else
-      hi = mid;
-  }
-  return lo;
-}
+// The keys (topm_key, key_value), the block's bitonic_sort and lower_bound
+// are ocean_common.cuh's, shared with K3's wide instances.
 
 // Shared bytes of one K2 CTA: region A (the key list and its append buffer
 // of ``cap`` keys while extracting, then each warp's two sweep rows and the

@@ -84,10 +84,16 @@
 // end (MetricsDesc::raw).  A whole launch passes null pointers: t0 = 0, a
 // zero carry, the empty region.
 // The ranking's clip (n_cands), the non-finite mask and whether the
-// ranking is top-m (the topm_saturated collector) are launch arguments.
+// ranking is top-m (the topm_saturated collector) are launch arguments,
+// and so is the rows' element type: under stream_bf16 the (C, T, K) b, e,
+// q_pre and rho rows are stored as bfloat16 (put_row), while the round's
+// math, the carries, a, obj and nsel stay as they are; HasMetrics then
+// reads the round's float rows from a float32 mirror (TrajArgs::mirror).
 // Scope: ranking "sort" or "topm"; solver "pallas", "bisect", "newton" or
 // "pallas_tiled" (top-m only), and chaos backends of pallas or bisect;
 // K <= 2048 (the sort and the per-client state live in shared memory).
+// Past that, ranking="topm" runs on the wide instances
+// (ocean_traj_wide.cu), whose per-client state lives in global memory.
 //
 // What bounds it on the H100: the bytes are tiny (per cell-round it reads
 // 2K + 2 floats and writes 4K floats, K bytes and 2 scalars), so the bound
@@ -115,6 +121,7 @@
 // warp sums in another order than a block did.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <float.h>
 
 #include "ocean_common.cuh"
@@ -171,7 +178,22 @@ struct TrajArgs {
   float gain_floor, residual_tol;
   int chaos;                 // kChaosNone, kChaosObjective, kChaosBudget
   float chaos_scale;
+  int bf16;                  // stream_bf16: the b/e/q_pre/rho rows are bfloat16
+  // HasMetrics with bf16 rows: a (C, 3, K) float scratch of the round's
+  // q_pre, b and e rows, which the telemetry reads in place of the rows
+  float* mirror;
 };
+
+// One element of a (C, T, K) float row as the launch stores it: float32,
+// or under stream_bf16 bfloat16 rounded to nearest even (the reference's
+// ``.astype(bfloat16)``, repro/kernels/ocean_traj.py:484-489).  The round's
+// math and its carries stay float32.
+__device__ __forceinline__ void put_row(float* row, size_t i, float v, bool bf16) {
+  if (bf16)
+    reinterpret_cast<__nv_bfloat16*>(row)[i] = __float2bfloat16_rn(v);
+  else
+    row[i] = v;
+}
 
 enum { kPlain = 0, kOverprovision = 1, kReallocate = 2 };
 enum { kQuarantine = 1, kFloor = 2, kFallback = 4 };
@@ -362,13 +384,22 @@ __device__ __forceinline__ void metrics_pass(const MetricsDesc& md, const TrajAr
                                              float sat, float (&ctr)[4]) {
   const int T = args.T, K = args.K, tid = threadIdx.x, nt = blockDim.x;
   const float bmin_hi = b_min * (float)(1.0 + 1e-6);
+  // the round's float rows: the outputs, or their float32 mirror under bf16
+  const float* r_q = args.qpre_out + row;
+  const float* r_b = args.b_out + row;
+  const float* r_e = args.e_out + row;
+  if (args.mirror != nullptr) {
+    r_q = args.mirror + (size_t)c * 3 * K;
+    r_b = r_q + K;
+    r_e = r_b + K;
+  }
   float part[kMetricSums] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
   for (int k = tid; k < K; k += nt) {
-    const float q = args.qpre_out[row + k];
+    const float q = r_q[k];
     const float qn = s_q[k];
     const bool a = args.a_out[row + k] != 0;
-    const float b = args.b_out[row + k];
-    const float e = args.e_out[row + k];
+    const float b = r_b[k];
+    const float e = r_e[k];
     part[0] += q * q;
     part[1] += qn * qn;
     part[2] += q * e;
@@ -481,6 +512,8 @@ __global__ void __maxnreg__(NT == 32 ? kMaxRegs : 128)
   const int c = blockIdx.x, tid = threadIdx.x, nt = blockDim.x;
   const int lane = tid & 31;
   const int t0 = args.t0 != nullptr ? args.t0[c] : 0;  // the first global round
+  const bool bf16 = args.bf16 != 0;
+  float* mirror = HasMetrics && args.mirror != nullptr ? args.mirror + (size_t)c * 3 * K : nullptr;
   const bool admits = (args.guard & (kQuarantine | kFloor)) != 0 || args.cap != nullptr;
   // HasMetrics: past the round's own layout (16-byte aligned) the entries,
   // the block-sum scratch, then the cell's region there or in the global
@@ -557,8 +590,11 @@ __global__ void __maxnreg__(NT == 32 ? kMaxRegs : 128)
           r = q / jmax(h2_t[i], kSafeDivFloor);
         }
         s_key[i] = r;
-        args.qpre_out[row + i] = q;
-        args.rho_out[row + i] = r;
+        put_row(args.qpre_out, row + i, q, bf16);
+        put_row(args.rho_out, row + i, r, bf16);
+        if constexpr (HasMetrics) {
+          if (mirror != nullptr) mirror[i] = q;
+        }
         if constexpr (HasFailure) s_ok[i] = args.dlv[row + i] > 0.f ? 1.f : 0.f;
       } else {
         s_key[i] = INFINITY;
@@ -749,8 +785,14 @@ __global__ void __maxnreg__(NT == 32 ? kMaxRegs : 128)
         args.dlv_out[row + k] = a && ok ? 1 : 0;
       }
       args.a_out[row + k] = a ? 1 : 0;
-      args.b_out[row + k] = b;
-      args.e_out[row + k] = e;
+      put_row(args.b_out, row + k, b, bf16);
+      put_row(args.e_out, row + k, e, bf16);
+      if constexpr (HasMetrics) {
+        if (mirror != nullptr) {
+          mirror[K + k] = b;
+          mirror[2 * K + k] = e;
+        }
+      }
       float inc = inc_t[k];
       if constexpr (HasGuard) {
         if ((args.guard & kQuarantine) && !isfinite(inc)) inc = 0.f;
@@ -976,7 +1018,7 @@ int traj_metrics_warps(int K, bool failure, bool guard, int region, int* in_smem
       const float *frac, int solver, int bis_outer, int bis_inner, int guarded,                \
       const float *cap, int *fc_out, int *dm_out, int *fb_out, int guard, float gain_floor,    \
       float residual_tol, int chaos, float chaos_scale, const float *q0, const float *es0,     \
-      const int *t0, int T_total
+      const int *t0, int T_total, int bf16, float *mirror
 
 #define OCEAN_TRAJ_ARGS                                                                       \
   TrajArgs {                                                                                  \
@@ -984,5 +1026,5 @@ int traj_metrics_warps(int K, bool failure, bool guard, int region, int* in_smem
         rho, obj, nsel, q_final, es_final, dlv_out, ral_out, T, K, sort_slots(K), R, T_total,  \
         b_min, beta, scale, outer, inner, n_cands, mask_nonfinite, topm, mode, wf_outer,       \
         wf_inner, wf_grid, bis_outer, bis_inner, cap, fc_out, dm_out, fb_out, guard,           \
-        gain_floor, residual_tol, chaos, chaos_scale                                           \
+        gain_floor, residual_tol, chaos, chaos_scale, bf16, mirror                             \
   }

@@ -23,11 +23,19 @@ launch descriptor (``_metrics_descriptor``); the wrapper finalizes it.
 Every instance also runs as a *segment* of a longer trajectory, the
 checkpoint/resume launch (``init_state``, ``init_mstate``,
 ``raw_metrics``): runtime launch arguments seed the carry and the global
-round, and the telemetry region goes in and comes back out raw.
+round, and the telemetry region goes in and comes back out raw.  Past
+``MAX_CLIENTS`` (the shared-memory sort's limit) ``ranking="topm"`` runs on
+the *wide* instances (``csrc/ocean_traj_wide.cu``): the carry in global
+memory, each round a streaming pass with the top-m extraction (K2's
+phase 1 in one block), the sweep on the compact row and a commit pass in
+client order.  ``stream_bf16`` stores the (C, T, K) b, e, q_pre and rho
+rows as bfloat16 (a launch argument of every instance); the trajectory is
+the float32 one.
 
 * ``ocean_traj`` — the wrapper: launches K3 for CUDA tensors (counting
-  launches in ``ocean_traj.launches``, raising on CUDA errors) and runs
-  the plain version for CPU tensors.
+  launches in ``ocean_traj.launches``, by instance in
+  ``ocean_traj.instances``, the wide ones as ``...+wide``; raising on CUDA
+  errors) and runs the plain version for CPU tensors.
 * ``ocean_traj_plain`` — the plain PyTorch version: the port's scan loop
   through ``ocean_round`` with the plain K1 sweep (or ``bisect``,
   ``newton``, K2's plain version for ``pallas_tiled``), and
@@ -42,14 +50,18 @@ round, and the telemetry region goes in and comes back out raw.
 
 Scope: ``ranking`` ``sort`` or ``topm``; ``solver`` ``pallas``, ``bisect``,
 ``newton`` or ``pallas_tiled`` (top-m only), or a chaos backend of
-``pallas`` or ``bisect``; K <= 2048 (K3's shared-memory sort).  Under
-``ranking="topm"`` the round's sweep is clipped to ``min(top_m, K)``
-candidates, a launch argument: K3's sorted row holds at those slots what
-the top-m extraction ranks, ties by client index.  ``pallas_tiled`` is
-K2's semantics in the round: K1's candidates on that clip with a
-non-finite W counted as NEG_INF, another launch argument.  Anything else
-raises ``NotImplementedError``, as does ``stream_bf16``.  Like the
-reference's kernel, K3 caps a guard's energy at ``energy_cap x cfg.budgets()``.
+``pallas`` or ``bisect``.  Under ``ranking="topm"`` the round's sweep is
+clipped to ``min(top_m, K)`` candidates, a launch argument: at K <= 2048
+K3's sorted row holds at those slots what the top-m extraction ranks,
+ties by client index.  ``pallas_tiled`` is K2's semantics in the round:
+K1's candidates on that clip with a non-finite W counted as NEG_INF,
+another launch argument.  Past K = 2048 only ``ranking="topm"`` with
+``top_m <= 2048`` runs (the wide instances), with the static or a
+streamed radio, whole or as a segment; ``sort``, a failure process, a
+guard or chaos backend and a ``MetricsSpec`` raise there
+(``check_fused_scope``).  ``stream_bf16`` runs on every instance at every
+K.  Anything else raises ``NotImplementedError``.  Like the reference's
+kernel, K3 caps a guard's energy at ``energy_cap x cfg.budgets()``.
 """
 from __future__ import annotations
 
@@ -69,7 +81,11 @@ from repro_torch.kernels.ocean_p import (
     _stream,
 )
 
+# The shared-memory sort's limit: past it K3 runs its wide instances.
 MAX_CLIENTS = 2048
+# The wide instances' largest clip: their key list, compact row and sweep
+# rows live in shared memory.
+MAX_WIDE_TOP_M = 2048
 FUSED_SOLVERS = ("pallas", "bisect", "newton", "pallas_tiled")
 # the bases of the chaos backends K3 runs
 CHAOS_BASES = ("pallas", "bisect")
@@ -80,11 +96,13 @@ BISECT_ITERS = 42
 _QUARANTINE, _FLOOR, _FALLBACK = 1, 2, 4
 _CHAOS = {None: 0, "objective": 1, "budget": 2}
 _SOLVER_CODE = {"pallas": 0, "pallas_tiled": 0, "bisect": 1, "newton": 2}
+# The (C, T, K) float rows that stream_bf16 stores as bfloat16.
+BF16_ROWS = ("b", "e", "q_pre", "rho")
 
 
 class TrajOut(NamedTuple):
     a: torch.Tensor         # (C, T, K) bool
-    b: torch.Tensor         # (C, T, K)
+    b: torch.Tensor         # (C, T, K); b, e, q_pre, rho bfloat16 under stream_bf16
     e: torch.Tensor         # (C, T, K)
     q_pre: torch.Tensor     # (C, T, K) queues used by each round's P3
     rho: torch.Tensor       # (C, T, K)
@@ -110,13 +128,20 @@ def _base_solver(backend) -> str:
     return backend.chaos[0] if backend.chaos is not None else backend.name
 
 
-def check_fused_scope(cfg) -> None:
+def check_fused_scope(cfg, failure: bool = False, wide: bool = False) -> None:
     """Raise for configurations K3 does not run yet.  Within them every
     instance fits a block's shared memory: at K = 2048 a guarded failure
     newton instance needs 106,960 bytes with one warp of teams, and the
     launch takes as many teams as fit (``csrc/ocean_traj.cuh::traj_smem``).
     ``pallas_tiled`` under ``ranking="sort"`` raises the scan path's
-    ``ValueError``."""
+    ``ValueError``.
+
+    Past ``MAX_CLIENTS`` (or with ``wide``, the wide instance forced at any
+    K) only ``ranking="topm"`` with ``top_m <= MAX_WIDE_TOP_M`` runs, with
+    the static or a streamed radio: ``sort`` (a global-memory sort), a
+    failure process (``failure``: its overprovision walks the whole ranked
+    row), a ``GuardSpec`` or chaos backend and a ``MetricsSpec`` (their
+    per-client rows live in shared memory) raise, naming the hook."""
     from repro_torch.core.ocean import not_ported
     from repro_torch.core.solvers import get_solver
 
@@ -130,11 +155,23 @@ def check_fused_scope(cfg) -> None:
         )
     if base == "pallas_tiled" and cfg.ranking != "topm":
         get_solver("pallas_tiled").prefixes()  # raises the sort-free solver's ValueError
-    if cfg.num_clients > MAX_CLIENTS:
+    if cfg.num_clients <= MAX_CLIENTS and not wide:
+        return
+    where = (f"traj='fused' at K={cfg.num_clients} > {MAX_CLIENTS}" if not wide
+             else f"K3's wide instance at K={cfg.num_clients}")
+    if cfg.ranking != "topm":
         raise not_ported(
-            f"traj='fused' at K={cfg.num_clients} (the fused kernel's "
-            f"shared-memory sort holds K <= {MAX_CLIENTS})"
+            f"{where} with ranking={cfg.ranking!r} (past the shared-memory sort the "
+            f"fused kernel runs ranking='topm' only; 'sort' needs a global-memory sort)"
         )
+    if cfg.top_m > MAX_WIDE_TOP_M:
+        raise not_ported(f"{where} with top_m={cfg.top_m} > {MAX_WIDE_TOP_M}")
+    if failure:
+        raise not_ported(f"{where} with a failure process")
+    if cfg.guard is not None or backend.chaos is not None:
+        raise not_ported(f"{where} with a GuardSpec or chaos backend")
+    if cfg.metrics is not None:
+        raise not_ported(f"{where} with a MetricsSpec")
 
 
 def _library(base: str, metrics: bool) -> str:
@@ -172,16 +209,20 @@ def _plain_solver(backend):
 
 
 def ocean_traj_plain(cfg, h2, v, eta, inc, radio=None, failure=None, *, init_state=None,
-                     init_mstate=None, raw_metrics: bool = False) -> TrajOut:
+                     init_mstate=None, raw_metrics: bool = False,
+                     stream_bf16: bool = False) -> TrajOut:
     """Plain PyTorch K3: the scan loop through ``ocean_round`` with plain K1
     (or bisect), guarded by ``cfg.guard`` with caps at ``cfg.budgets()``.
+    It runs at any K (the top-m ranking's plain extraction past 2048).
 
     ``radio`` is a ``TracedRadio`` of (C, T) leaves; ``failure`` a
     ``TracedFailure`` with a (C, T, K) ``delivered`` mask and (C, K) ``rate``.
     ``init_state`` (an ``OceanState``) and ``init_mstate`` (a
     ``MetricsState``) make the T rounds a segment from that carry;
     ``raw_metrics`` returns the telemetry unfinalized (``TrajOut.mstate``,
-    ``TrajOut.traces``).
+    ``TrajOut.traces``).  ``stream_bf16`` casts the b, e, q_pre and rho
+    rows to bfloat16 at the end (``.to(torch.bfloat16)``, round to nearest
+    even); the loop, the carry and the telemetry stay float32.
     """
     from repro_torch.core.ocean import init_state as zero_state
     from repro_torch.core.ocean import ocean_round, stack_decisions
@@ -225,6 +266,8 @@ def ocean_traj_plain(cfg, h2, v, eta, inc, radio=None, failure=None, *, init_sta
         nsel=d.num_selected, q_final=state.q, es_final=state.energy_spent,
         dlv=d.delivered, ral=d.realloc, fc=d.fault_count, dm=d.demoted, fb=d.fallback,
     )
+    if stream_bf16:
+        out = out._replace(**{f: getattr(out, f).to(torch.bfloat16) for f in BF16_ROWS})
     if spec is None:
         return out
     if raw_metrics:
@@ -589,7 +632,8 @@ def _region_state(cfg, ml: MetricsLaunch, raw: torch.Tensor):
 
 def ocean_traj(cfg, h2, v, eta, inc, radio=None, failure=None, *,
                hist_shift: Optional[Dict[str, int]] = None, init_state=None, init_mstate=None,
-               raw_metrics: bool = False) -> TrajOut:
+               raw_metrics: bool = False, stream_bf16: bool = False,
+               _force_wide: bool = False) -> TrajOut:
     """K3: every cell's T rounds in one launch.
 
     ``h2``/``inc`` (C, T, K) and ``v``/``eta`` (C, T), contiguous float32
@@ -612,8 +656,16 @@ def ocean_traj(cfg, h2, v, eta, inc, radio=None, failure=None, *,
     the telemetry.  ``raw_metrics`` returns the telemetry unfinalized
     (``TrajOut.mstate`` and ``TrajOut.traces``) for the next segment.
     Segment launches count under their instance's label with ``+seg``.
+
+    ``stream_bf16`` stores the b, e, q_pre and rho rows as bfloat16 (the
+    label gains ``+bf16``); every other output, and the trajectory, is the
+    float32 launch's.  Past ``MAX_CLIENTS`` clients the launch runs K3's
+    wide instances (``csrc/ocean_traj_wide.cu``, label ``+wide``);
+    ``_force_wide`` runs them at any K, to hold them against the
+    shared-memory instances on the card.
     """
-    check_fused_scope(cfg)
+    wide = cfg.num_clients > MAX_CLIENTS or _force_wide
+    check_fused_scope(cfg, failure=failure is not None, wide=_force_wide)
     for name, x, nd in (("h2", h2, 3), ("v", v, 2), ("eta", eta, 2), ("inc", inc, 3)):
         _check_f32(name, x, nd)
     C, T, K = h2.shape
@@ -656,7 +708,8 @@ def ocean_traj(cfg, h2, v, eta, inc, radio=None, failure=None, *,
         streams += [failure.delivered, failure.rate]
     if _launch_target(*streams) == "cpu":
         return ocean_traj_plain(cfg, h2, v, eta, inc, radio, failure, init_state=init_state,
-                                init_mstate=init_mstate, raw_metrics=raw_metrics)
+                                init_mstate=init_mstate, raw_metrics=raw_metrics,
+                                stream_bf16=stream_bf16)
     from repro_torch.kernels import _build
 
     from repro_torch.core.ocean import guard_caps
@@ -665,8 +718,11 @@ def ocean_traj(cfg, h2, v, eta, inc, radio=None, failure=None, *,
     raw_metrics = raw_metrics and spec is not None
     backend = get_solver(cfg.solver)
     base = _base_solver(backend)
-    lib = _build.load(_library(base, spec is not None))
-    fn = lib.ocean_traj_launch if spec is None else lib.ocean_traj_metrics_launch
+    lib = _build.load("ocean_traj_wide" if wide else _library(base, spec is not None))
+    if wide:
+        fn = lib.ocean_traj_wide_launch
+    else:
+        fn = lib.ocean_traj_launch if spec is None else lib.ocean_traj_metrics_launch
     fn.restype = ctypes.c_int
     dev = h2.device
     f32 = dict(dtype=torch.float32, device=dev)
@@ -678,12 +734,13 @@ def ocean_traj(cfg, h2, v, eta, inc, radio=None, failure=None, *,
     guarded = guard is not None or chaos is not None
     i32 = dict(dtype=torch.int32, device=dev)
     gout = [torch.empty((C, T), **i32) for _ in range(3)] if guarded else [None] * 3
+    rows = dict(dtype=torch.bfloat16 if stream_bf16 else torch.float32, device=dev)
     out = TrajOut(
         a=torch.empty((C, T, K), dtype=torch.bool, device=dev),
-        b=torch.empty((C, T, K), **f32),
-        e=torch.empty((C, T, K), **f32),
-        q_pre=torch.empty((C, T, K), **f32),
-        rho=torch.empty((C, T, K), **f32),
+        b=torch.empty((C, T, K), **rows),
+        e=torch.empty((C, T, K), **rows),
+        q_pre=torch.empty((C, T, K), **rows),
+        rho=torch.empty((C, T, K), **rows),
         obj=torch.empty((C, T), **f32),
         nsel=torch.empty((C, T), dtype=torch.int32, device=dev),
         q_final=torch.empty((C, K), **f32),
@@ -692,8 +749,10 @@ def ocean_traj(cfg, h2, v, eta, inc, radio=None, failure=None, *,
         ral=None if failure is None else torch.empty((C, T), dtype=torch.int32, device=dev),
         **dict(zip(("fc", "dm", "fb"), gout if guard is not None else [None] * 3)),
     )
-    extra, raw = [], None
+    extra, raw, mirror = [], None, None
     if spec is not None:
+        if stream_bf16:  # the telemetry reads the round's float32 rows here
+            mirror = torch.empty((C, 3, K), **f32)
         ml = _metrics_descriptor(cfg, C, dev, hist_shift, T=T,
                                  init_accs=None if init_mstate is None else init_mstate.accs)
         scratch = torch.empty((max(C * ml.region, 1),), **f32)
@@ -745,7 +804,7 @@ def ocean_traj(cfg, h2, v, eta, inc, radio=None, failure=None, *,
         ctypes.c_int(int(guarded)), _ptr(cap), *(_ptr(x) for x in gout), ctypes.c_int(bits),
         ctypes.c_float(floor), ctypes.c_float(tol), ctypes.c_int(_CHAOS[kind]),
         ctypes.c_float(scale), _ptr(q0), _ptr(es0), _ptr(t0), ctypes.c_int(cfg.num_rounds),
-        *extra, _stream(),
+        ctypes.c_int(int(stream_bf16)), _ptr(mirror), *extra, _stream(),
     )
     _build.check(err, lib, "ocean_traj")
     if raw_metrics:
@@ -757,7 +816,8 @@ def ocean_traj(cfg, h2, v, eta, inc, radio=None, failure=None, *,
     parts = (("radio", radio is not None), ("bisect", base == "bisect"),
              ("newton", base == "newton"), ("pallas_tiled", base == "pallas_tiled"),
              ("topm", topm), ("guard", guard is not None), ("chaos", chaos is not None),
-             ("failure", failure is not None), ("metrics", spec is not None))
+             ("failure", failure is not None), ("metrics", spec is not None), ("wide", wide),
+             ("bf16", stream_bf16))
     inst = "+".join(n for n, on in parts if on) or "static"
     if seg:
         inst += "+seg"
@@ -770,9 +830,10 @@ def ocean_traj(cfg, h2, v, eta, inc, radio=None, failure=None, *,
 ocean_traj.launches = 0
 # launches by instance: "static", or the "+"-joined branches it ran of
 # "radio", "bisect", "newton", "pallas_tiled", "topm" (the ranking), "guard",
-# "chaos", "failure" and "metrics", then "+seg" for a segment launch (and
-# "/<mode>" with failures), e.g. "bisect+guard", "newton+topm",
-# "pallas_tiled+topm", "static+seg" or "radio+failure+metrics+seg/plain"
+# "chaos", "failure", "metrics", "wide" (csrc/ocean_traj_wide.cu) and "bf16"
+# (stream_bf16), then "+seg" for a segment launch (and "/<mode>" with
+# failures), e.g. "bisect+guard", "newton+topm", "pallas_tiled+topm+wide",
+# "static+seg" or "radio+failure+metrics+seg/plain"
 ocean_traj.instances = {}
 
 
@@ -814,15 +875,15 @@ def ocean_trajectory_fused(
     ``init_state.t`` plus them), with ``cfg.metrics`` seeded by
     ``init_mstate``; ``raw_metrics=True`` returns the unfinalized
     ``(state, decisions, mstate, traces)`` so that a segmented run can
-    keep accumulating (``ocean_traj``).
+    keep accumulating (``ocean_traj``).  ``stream_bf16`` returns the b, e,
+    q and rho decisions as bfloat16.
     """
-    from repro_torch.core.ocean import OceanState, RoundDecision, not_ported
+    from repro_torch.core.ocean import OceanState, RoundDecision
 
     del chunk
-    if stream_bf16:
-        raise not_ported("stream_bf16")
     out = ocean_traj(cfg, h2_seq, v_seq, eta_seq, budget_seq, radio_seq, failure_seq,
-                     init_state=init_state, init_mstate=init_mstate, raw_metrics=raw_metrics)
+                     init_state=init_state, init_mstate=init_mstate, raw_metrics=raw_metrics,
+                     stream_bf16=stream_bf16)
     C, T = h2_seq.shape[:2]
     if init_state is None:
         t = torch.full((C,), cfg.num_rounds, dtype=torch.int32, device=h2_seq.device)

@@ -213,10 +213,12 @@ def test_fused_scope_takes_the_new_branches_and_refuses_the_rest():
     tt.check_fused_scope(_cfg(register_chaos_solver("bisect", kind="budget").name, "topm"))
     with pytest.raises(NotImplementedError, match="chaos"):
         tt.check_fused_scope(_cfg(register_chaos_solver("newton", kind="objective").name, "sort"))
+    # past the shared-memory sort the wide instances take top-m, and only it
     big = TConfig(num_clients=2049, num_rounds=T, radio=TRadio(b_min=1e-4), solver="newton",
                   ranking="topm", traj="fused")
-    with pytest.raises(NotImplementedError, match="K=2049"):
-        tt.check_fused_scope(big)
+    tt.check_fused_scope(big)
+    with pytest.raises(NotImplementedError, match="K=2049 > 2048 with ranking='sort'"):
+        tt.check_fused_scope(dataclasses.replace(big, ranking="sort"))
     # pallas_tiled is sort-free: the config refuses sort, and so does K3
     # with the scan path's ValueError where a config slips past it
     with pytest.raises(ValueError, match="sort-free"):
@@ -225,10 +227,15 @@ def test_fused_scope_takes_the_new_branches_and_refuses_the_rest():
     object.__setattr__(tiled, "ranking", "sort")
     with pytest.raises(ValueError, match="sort-free: it fuses top-m extraction"):
         tt.check_fused_scope(tiled)
+    # stream_bf16 runs: the float rows come back as the float32 run's, cast
     h2 = torch.tensor(_h2()[:1])
-    with pytest.raises(NotImplementedError, match="stream_bf16"):
-        simulate(_cfg("newton", "topm"), h2, eta_schedule("ascend", T), V, traj="fused",
-                 device="cpu", stream_bf16=True)
+    runs = [simulate(_cfg("newton", "topm"), h2, eta_schedule("ascend", T), V, traj="fused",
+                     device="cpu", stream_bf16=bf) for bf in (False, True)]
+    (s32, d32), (s16, d16) = runs
+    for f in ("b", "e", "q", "rho"):
+        assert getattr(d16, f).dtype == torch.bfloat16
+        assert torch.equal(getattr(d16, f), getattr(d32, f).to(torch.bfloat16)), f
+    assert torch.equal(d16.a, d32.a) and torch.equal(s16.q, s32.q)
 
 
 def test_pallas_tiled_composes_with_a_guard_a_failure_mode_and_segments(tmp_path):

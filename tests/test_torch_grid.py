@@ -217,7 +217,7 @@ def test_entry_points_refuse_to_fall_back_to_the_cpu(monkeypatch):
 
 
 def test_unported_hooks_raise_not_implemented():
-    """Hooks not ported raise; the radio and failure hooks, ported since, run
+    """Hooks not ported raise; the radio, failure and bf16 hooks, ported since, run
     (a static radio and an all-ones mask give the plain round's bits); the
     guard, the metrics and the checkpoint, ported since, take a GuardSpec, a
     MetricsSpec and a CheckpointSpec and refuse anything else (resuming from
@@ -225,8 +225,11 @@ def test_unported_hooks_raise_not_implemented():
     cfg = OceanConfig(num_clients=K, num_rounds=T, radio=RadioParams())
     h2 = torch.full((1, T, K), 2.5e-4)
     eta = eta_schedule("uniform", T)
-    with pytest.raises(NotImplementedError):
-        simulate(cfg, h2, eta, 1e-5, device="cpu", stream_bf16=True, traj="fused")
+    # bf16 streaming, ported since, runs on the fused path and refuses scan
+    _, d16 = simulate(cfg, h2, eta, 1e-5, device="cpu", stream_bf16=True, traj="fused")
+    assert d16.b.dtype == torch.bfloat16 and d16.num_selected.dtype == torch.int32
+    with pytest.raises(ValueError, match="fused"):
+        simulate(cfg, h2, eta, 1e-5, device="cpu", stream_bf16=True, traj="scan")
     with pytest.raises(TypeError, match="checkpoint"):
         simulate(cfg, h2, eta, 1e-5, device="cpu", checkpoint=object())
     with pytest.raises(FileNotFoundError, match="no committed snapshots"):

@@ -1190,7 +1190,7 @@ def _bits(x):
     return x.contiguous().view(torch.uint8) if x.dtype != torch.bool else x
 
 
-def _k3_segmented(cfg, h2, v, eta, inc, radio=None, failure=None, every=7):
+def _k3_segmented(cfg, h2, v, eta, inc, radio=None, failure=None, every=7, stream_bf16=False):
     """K3 as segments ending on multiples of ``every``, each launch seeded
     with the last one's carry (``core.ocean.segment_step``), against the
     whole launch: every decision, the final carry and the telemetry equal
@@ -1200,7 +1200,8 @@ def _k3_segmented(cfg, h2, v, eta, inc, radio=None, failure=None, every=7):
     from repro_torch.obs.metrics import finalize_metrics, init_metrics
 
     C, T, _ = h2.shape
-    whole = tt.ocean_traj(cfg, h2, v, eta, inc, radio=radio, failure=failure)
+    whole = tt.ocean_traj(cfg, h2, v, eta, inc, radio=radio, failure=failure,
+                          stream_bf16=stream_bf16)
     state = init_state(cfg, C, device=h2.device)
     mstate = None if cfg.metrics is None else init_metrics(cfg.metrics, cfg, C, device=h2.device)
     streams = (h2, v, eta, inc, radio, failure)
@@ -1209,7 +1210,8 @@ def _k3_segmented(cfg, h2, v, eta, inc, radio=None, failure=None, every=7):
     decs, traces = [], []
     for t0, t1 in bounds:
         state, mstate, d, tr = segment_step(cfg, "fused", state, mstate,
-                                            slice_rounds(streams, t0, t1))
+                                            slice_rounds(streams, t0, t1),
+                                            stream_bf16=stream_bf16)
         decs.append(d)
         traces.append(tr)
     torch.cuda.synchronize()
@@ -1300,9 +1302,8 @@ RANKED = [("newton", "sort"), ("newton", "topm"), ("pallas", "topm"), ("bisect",
 RANKED_SHAPES = [(10, 8, 30), (33, 4, 12), (2048, 2, 4)]
 
 
-def _ranked_inputs(dev, seed, C, T, K):
-    """chip_smoke.py's ``_k3_ranked_inputs``: ``_k3_inputs`` with the §VI
-    per-client load at any K."""
+def _chip_smoke():
+    """chip_smoke.py as a module (its input makers and gates)."""
     import importlib.util
     import pathlib
     import sys
@@ -1314,7 +1315,13 @@ def _ranked_inputs(dev, seed, C, T, K):
         mod = importlib.util.module_from_spec(spec)
         spec.loader.exec_module(mod)
         sys.modules["chip_smoke"] = mod
-    return mod._k3_ranked_inputs(torch, np, dev, C, T, K, seed)
+    return mod
+
+
+def _ranked_inputs(dev, seed, C, T, K):
+    """chip_smoke.py's ``_k3_ranked_inputs``: ``_k3_inputs`` with the §VI
+    per-client load at any K."""
+    return _chip_smoke()._k3_ranked_inputs(torch, np, dev, C, T, K, seed)
 
 
 def _top_m(K):
@@ -1445,3 +1452,158 @@ def test_k3_ranked_instances_compose_with_every_branch(dev, solver, ranking):
     assert torch.equal(out.metrics["topm_saturated/full_trace"], sat)
     _k3_segmented(cfg, h2, v, eta, inc, every=7)
     _k3_segmented(m_cfg, h2, v, eta, inc, every=7)
+
+
+# ---------------------------------------------------------------------------
+# K3's wide instances (ranking="topm" past K = 2048, csrc/ocean_traj_wide.cu)
+# and stream_bf16
+# ---------------------------------------------------------------------------
+ALL_FIELDS = ("a", "b", "e", "q_pre", "rho", "obj", "nsel", "q_final", "es_final")
+
+
+def _assert_same_bits(x, y):
+    for f in ALL_FIELDS:
+        assert torch.equal(_bits(getattr(x, f)), _bits(getattr(y, f))), f
+
+
+@pytest.mark.parametrize("K,C,T", [(100, 4, 40), (2048, 4, 40)])
+@pytest.mark.parametrize("solver", ["pallas", "newton", "pallas_tiled", "bisect"])
+def test_k3_wide_equals_the_shared_topm_instance_bitwise(dev, solver, K, C, T):
+    """The wide instance, forced at K <= 2048, gives the shared-memory top-m
+    instance's bits on every output (the compact row's lanes sum each
+    candidate in the sorted row's order), also with a streamed radio; it
+    counts under its own label."""
+    import dataclasses
+
+    cfg, h2, v, eta, inc = _ranked_inputs(dev, 51 + K, C, T, K)
+    cfg = dataclasses.replace(cfg, solver=solver, ranking="topm", top_m=_top_m(K))
+    label = _label(solver, "topm", ("wide",))
+    before = tt.ocean_traj.instances.get(label, 0)
+    wide = tt.ocean_traj(cfg, h2, v, eta, inc, _force_wide=True)
+    shared = tt.ocean_traj(cfg, h2, v, eta, inc)
+    torch.cuda.synchronize()
+    assert tt.ocean_traj.instances[label] == before + 1
+    _assert_same_bits(shared, wide)
+    radio = _k3_radio(dev, 51, C, T, cfg)
+    wide = tt.ocean_traj(cfg, h2, v, eta, inc, radio=radio, _force_wide=True)
+    shared = tt.ocean_traj(cfg, h2, v, eta, inc, radio=radio)
+    torch.cuda.synchronize()
+    _assert_same_bits(shared, wide)
+
+
+@pytest.mark.parametrize("solver", ["pallas", "newton", "pallas_tiled", "bisect"])
+def test_k3_wide_matches_plain_past_2048(dev, solver):
+    """K = 4096, 2 cells x 4 rounds: the wide instance (taken without being
+    forced) against its plain version: whole trajectories (a, nsel exact,
+    the final queues within 1e-6 + 1e-5 |q|) and every round on the
+    kernel's own queues through ``chip_smoke._hold_to_plain`` (PERF.md §2's
+    gates: selections exact outside near ties, P3 within 2e-4 and b within
+    2e-4 on every round that selects alike but the flat ones, which are held
+    to the float64 optimum)."""
+    import dataclasses
+
+    C, T, K = 2, 4, 4096
+    cfg, h2, v, eta, inc = _ranked_inputs(dev, 53, C, T, K)
+    cfg = dataclasses.replace(cfg, solver=solver, ranking="topm", top_m=128)
+    label = _label(solver, "topm", ("wide",))
+    before = tt.ocean_traj.instances.get(label, 0)
+    out = tt.ocean_traj(cfg, h2, v, eta, inc)
+    plain = tt.ocean_traj_plain(cfg, h2, v, eta, inc)
+    torch.cuda.synchronize()
+    assert tt.ocean_traj.instances[label] == before + 1
+    assert torch.equal(out.a, plain.a) and torch.equal(out.nsel, plain.nsel)
+    torch.testing.assert_close(out.q_final, plain.q_final, atol=1e-6, rtol=1e-5)
+    rec = _chip_smoke()._hold_to_plain(torch, cfg, out, out.q_pre, h2, v, eta, inc,
+                                       f"wide {solver} K={K}", same_selection=True)
+    assert rec["rounds"] == C * T
+    assert bool((tt.m_star(out.nsel, out.rho) > 0).any())
+
+
+@pytest.mark.parametrize("stream_bf16", [False, True])
+def test_k3_wide_segments_equal_the_whole_launch(dev, stream_bf16):
+    """Segment launches of the wide instance (frames of 3 rounds, segments
+    of 3 and 2) equal the whole launch bit for bit, in float32 and bf16."""
+    import dataclasses
+
+    C, T, K = 2, 8, 4096
+    cfg, h2, v, eta, inc = _ranked_inputs(dev, 55, C, T, K)
+    cfg = dataclasses.replace(cfg, solver="newton", ranking="topm", top_m=128, frame_len=3)
+    _k3_segmented(cfg, h2, v, eta, inc, every=3, stream_bf16=stream_bf16)
+
+
+def _bf16_case(dev, case):
+    """(cfg, h2, v, eta, inc, launch keywords) of one K3 instance family."""
+    import dataclasses
+
+    from repro_torch.guard import GuardSpec
+
+    if case == "vi":  # chip_kernels.py's §VI inputs: the static §VI instance
+        from repro_torch.core.scenario import paper_scenarios
+        from repro_torch.sim import GridEngine
+
+        C, T, K = 192, 300, 10
+        cfg = GridEngine(paper_scenarios(T, K), ["ocean-u", "ocean-a"], solver="pallas",
+                         traj="fused", device=dev).cfg
+        h2 = torch.tensor(np.random.default_rng(3).exponential(size=(C, T, K)).astype(
+            np.float32) * 2.5e-4, device=dev)
+        eta = eta_schedule("uniform", T, device=dev).expand(C, T).contiguous()
+        return cfg, h2, torch.full((C, T), 1e-5, device=dev), eta, torch.full_like(h2, 0.15 / T), {}
+    if case == "wide":
+        cfg, h2, v, eta, inc = _ranked_inputs(dev, 57, 2, 4, 4096)
+        return dataclasses.replace(cfg, solver="pallas_tiled", ranking="topm", top_m=128), \
+            h2, v, eta, inc, {}
+    C, T, K = 8, 20, 10
+    cfg, h2, v, eta, inc = _k3_inputs(dev, 58, C, T, K)
+    if case == "metrics":
+        return dataclasses.replace(cfg, metrics=_metrics_spec()), h2, v, eta, inc, {}
+    if case == "failure":
+        return dataclasses.replace(cfg, failure_mode="overprovision"), h2, v, eta, inc, dict(
+            failure=_k3_failure(dev, 58, C, T, K, p=0.6), radio=_k3_radio(dev, 58, C, T, cfg))
+    return dataclasses.replace(cfg, solver="newton", guard=GuardSpec(energy_cap=1.0)), \
+        h2, v, eta, inc, {}
+
+
+@pytest.mark.parametrize("case", ["vi", "wide", "metrics", "failure", "guard"])
+def test_k3_stream_bf16_rows_are_the_float32_rows_cast(dev, case):
+    """stream_bf16 on the §VI instance, the wide one, HasMetrics, a failure
+    mode with a streamed radio and the guarded newton instance: the b, e,
+    q_pre and rho rows are the float32 launch's rows cast with
+    ``.to(torch.bfloat16)`` bit for bit; every other output (and the
+    telemetry) is the float32 launch's bits."""
+    cfg, h2, v, eta, inc, kw = _bf16_case(dev, case)
+    f32 = tt.ocean_traj(cfg, h2, v, eta, inc, **kw)
+    before = sum(n for k, n in tt.ocean_traj.instances.items() if "bf16" in k)
+    bf = tt.ocean_traj(cfg, h2, v, eta, inc, stream_bf16=True, **kw)
+    torch.cuda.synchronize()
+    assert sum(n for k, n in tt.ocean_traj.instances.items() if "bf16" in k) == before + 1
+    for f in tt.BF16_ROWS:
+        assert getattr(bf, f).dtype == torch.bfloat16, f
+        assert torch.equal(_bits(getattr(bf, f)), _bits(getattr(f32, f).to(torch.bfloat16))), f
+    for f in ("a", "obj", "nsel", "q_final", "es_final", "dlv", "ral", "fc", "dm", "fb"):
+        x, y = getattr(f32, f), getattr(bf, f)
+        assert (x is None and y is None) or torch.equal(_bits(x), _bits(y)), f
+    if cfg.metrics is not None:
+        assert sorted(bf.metrics) == sorted(f32.metrics)
+        for k in f32.metrics:
+            assert torch.equal(_bits(bf.metrics[k]), _bits(f32.metrics[k])), k
+
+
+def test_k3_wide_refuses_what_it_does_not_run(dev):
+    """Past 2048 the sort ranking, a failure process, a guard and a
+    MetricsSpec raise before anything launches."""
+    import dataclasses
+
+    from repro_torch.guard import GuardSpec
+
+    cfg, h2, v, eta, inc = _ranked_inputs(dev, 59, 1, 2, 2049)
+    before = tt.ocean_traj.launches
+    with pytest.raises(NotImplementedError, match="ranking='sort'"):
+        tt.ocean_traj(cfg, h2, v, eta, inc)
+    top = dataclasses.replace(cfg, ranking="topm", top_m=128)
+    with pytest.raises(NotImplementedError, match="failure process"):
+        tt.ocean_traj(top, h2, v, eta, inc, failure=_k3_failure(dev, 59, 1, 2, 2049))
+    with pytest.raises(NotImplementedError, match="GuardSpec"):
+        tt.ocean_traj(dataclasses.replace(top, guard=GuardSpec(energy_cap=1.0)), h2, v, eta, inc)
+    with pytest.raises(NotImplementedError, match="MetricsSpec"):
+        tt.ocean_traj(dataclasses.replace(top, metrics=_metrics_spec()), h2, v, eta, inc)
+    assert tt.ocean_traj.launches == before
