@@ -25,7 +25,8 @@ reading also carries the digest of its decision outputs alone), and a
 segment launch of rounds 128-192 from round 128's carry (``k3_seg``, where
 the checkout has checkpoint/resume), and its wide instance on traj_bench's
 K-scaling cell, 8 cells x 8 rounds x K = 10^4, top_m 128 (``k3_wide``, where
-the checkout has it); the §VI instance's reading also
+the checkout has it), and with pallas, newton and bisect on the §VI
+per-client load at that shape (``k3_wide_<solver>``); the §VI instance's reading also
 carries ptxas's registers and spills (``ptxas``); K5: the long cache; K6: one 4096-channel block of jamba's mixer
 over 8192 steps; K7: the rwkv6 prefill layer, 8 x 8192 x 32 heads of 64,
 and at B = 4, 128 (b, h) chains, fewer than the card's 132 SMs) and is
@@ -209,7 +210,15 @@ def main() -> int:
         if "k3_wide" in rec:
             rec["k3_wide"]["bound_ms"], rec["k3_wide"]["bound_by"] = cs.k3_bound(
                 torch, ocean_traj(*wide).rho, n_cands=128, wide=True)[:2]
-        del wide
+        # the other branch-free wide instances on the §VI per-client load
+        # with H / 300 a round (phase k3_wide's inputs)
+        ranked = cs._k3_ranked_inputs(torch, np, dev, 8, 8, 10_000, seed=10_000)
+        ranked = ranked[:4] + (torch.full_like(ranked[1], 0.15 / 300),)
+        for solver in ("pallas", "newton", "bisect"):
+            cfg_w = dataclasses.replace(ranked[0], solver=solver, ranking="topm", top_m=128)
+            timed(f"k3_wide_{solver}", lambda cfg_w=cfg_w: ocean_traj(cfg_w, *ranked[1:]),
+                  3 if solver == "bisect" else 5)
+        del wide, ranked
 
     qd, kc, vc, vl = cs._k5_inputs(torch, dev, 4, 8192, 32, 16, 128, 8000)
     timed("k5", lambda: decode_attention(qd, kc, vc, vl, logit_cap=50.0), 50)

@@ -16,11 +16,16 @@ the §VI grid with solver="newton", and K = 2048 under ranking="topm"
 (top_m 128) with pallas, newton and pallas_tiled, each bit for bit the
 sort instance on the rounds whose optimum fits and held to its plain
 version round by round.  Then K3's wide instances (phase ``k3_wide``,
-``csrc/ocean_traj_wide.cu``): bit for bit the shared-memory top-m instance
-at K = 100 and 2048; traj_bench's K-scaling cell (K = 10^4, 8 cells x 8
+``csrc/ocean_traj_wide.cuh``): bit for bit the shared-memory top-m instance
+at K = 100 and 2048, for each solver, the streamed radio, failure plain and
+reallocate, the guard, objective chaos of bisect and the overhead spec;
+traj_bench's K-scaling cell (K = 10^4, 8 cells x 8
 rounds, pallas_tiled, top_m 128) through ``run_grid`` on traj="fused"
 (one wide launch) beside traj="scan" (K2 every round) and against the
-plain version, the same shape for pallas, newton and bisect; K = 10^5 with
+plain version, the same shape for pallas, newton and bisect, and for the
+failure, guard, chaos and telemetry branches through ``run_grid`` and
+``simulate`` (segmented and resumed telemetry runs bit for bit the whole
+one); K = 10^5 with
 ``stream_bf16`` through ``simulate``, its bf16 rows the float32 rows cast.
 
 Then the LM serving path at gemma2-27b's full width and depth (46 layers,
@@ -758,7 +763,7 @@ def k3_bound(torch, rho, radio=False, failure=False, solves=(), bisect=False, gu
     with ``bisect`` the bisect sweep, with ``newton`` the newton sweep and
     its seed grid);
     the sort is P log2(P)(log2(P)+1)/4 exchanges; the ``wide`` instances
-    (csrc/ocean_traj_wide.cu) sort only the clip's list, n_cands padded to a
+    (csrc/ocean_traj_wide.cuh) sort only the clip's list, n_cands padded to a
     power of two (its keys and appends are in the ~30 K operations a round
     every instance counts).  The b, e, q_pre and rho rows take
     ``row_bytes`` a value (2 under stream_bf16).  The streamed-radio
@@ -947,10 +952,12 @@ def _k3_ranked_inputs(torch, np, dev, C, T, K, seed):
     return dataclasses.replace(cfg, radio=radio), h2, v, eta, inc
 
 
-def _plain_rounds(torch, cfg, q_pre, h2, v, eta, inc, chunk=160):
+def _plain_rounds(torch, cfg, q_pre, h2, v, eta, inc, chunk=160, failure=None):
     """The plain round of ``cfg``'s solver on every (cell, round) of the
-    (C, T, K) queues ``q_pre``, ``chunk`` cell-rounds at a time: (C * T, ...)
-    a, b, objective and num_selected."""
+    (C, T, K) queues ``q_pre`` (``failure`` a TracedFailure of (C, T, K)
+    masks and (C, K) rates), ``chunk`` cell-rounds at a time: (C * T, ...)
+    a, b, objective and num_selected, and the delivered mask, reallocation
+    flags and guard counters the round reports."""
     from repro_torch.core.ocean import OceanState, ocean_round
     from repro_torch.core.solvers import get_solver
     from repro_torch.kernels.ocean_traj import _plain_solver
@@ -962,13 +969,25 @@ def _plain_rounds(torch, cfg, q_pre, h2, v, eta, inc, chunk=160):
     q, hh, ii = (x.reshape(CT, K) for x in (q_pre, h2, inc))
     vv, ee = v.reshape(CT), eta.reshape(CT)
     t = torch.arange(T, dtype=torch.int32, device=h2.device).repeat(C)
+    dlv = rate = None
+    if failure is not None:
+        dlv = failure.delivered.reshape(CT, K)
+        rate = failure.rate[:, None, :].expand(C, T, K).reshape(CT, K)
     parts = []
     for i in range(0, CT, chunk):
         sl = slice(i, i + chunk)
         state = OceanState(q=q[sl], t=t[sl], energy_spent=torch.zeros_like(q[sl]))
-        parts.append(ocean_round(state, hh[sl], vv[sl], ee[sl], plain_cfg, budget_inc=ii[sl])[1])
-    return {f: torch.cat([getattr(d, f) for d in parts])
-            for f in ("a", "b", "objective", "num_selected")}
+        parts.append(ocean_round(state, hh[sl], vv[sl], ee[sl], plain_cfg, budget_inc=ii[sl],
+                                 delivered=None if dlv is None else dlv[sl],
+                                 fail_rate=None if rate is None else rate[sl])[1])
+    return {f: None if getattr(parts[0], f) is None else torch.cat([getattr(d, f) for d in parts])
+            for f in ("a", "b", "objective", "num_selected") + BRANCH_ROWS}
+
+
+# The rows the failure and guard branches add: TrajOut's names and the
+# RoundDecision's.
+BRANCH_FIELDS = ("dlv", "ral", "fc", "dm", "fb")
+BRANCH_ROWS = ("delivered", "realloc", "fault_count", "demoted", "fallback")
 
 
 # A round whose P3 value K3 and the plain round agree on within FLAT_W_RTOL
@@ -1025,22 +1044,36 @@ def _nan_as_nan(torch, x, y, d):
     return torch.where(x.isnan() & y.isnan(), torch.zeros_like(d), d)
 
 
-def _hold_to_plain(torch, cfg, got, q_pre, h2, v, eta, inc, what, same_selection=False):
+def _hold_to_plain(torch, cfg, got, q_pre, h2, v, eta, inc, what, same_selection=False,
+                   failure=None):
     """Contract (b): K3's one-round outputs ``got`` ((C, T, ...)) against the
     plain round on the same queues: selections and counts exact outside
     near ties (margins of the plain K1 sweep over the clip's candidates),
     the P3 value within W_RTOL x (|P3| + v eta) and b within B_ATOL there
     (``same_selection``: also on the near-tie rounds that select alike);
     flat rounds (FLAT_W_RTOL) are counted and held to the float64 optimum
-    (``_flat_witness``).  A NaN (W, or b) beside a NaN counts as equal."""
+    (``_flat_witness``).  A NaN (W, or b) beside a NaN counts as equal.
+    With ``failure`` (a TracedFailure) or a guard, the delivered mask, the
+    reallocation flags and the guard's counters exact on every round that
+    selects alike."""
     C, T, K = h2.shape
-    pl = _plain_rounds(torch, cfg, q_pre, h2, v, eta, inc)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pl = _plain_rounds(torch, cfg, q_pre, h2, v, eta, inc, failure=failure)
+    torch.cuda.synchronize()
+    plain_rounds_ms = 1e3 * (time.perf_counter() - t0)
     v_eta = (v * eta).reshape(-1)
     n_cands = min(cfg.top_m, K) if cfg.ranking == "topm" else K
     near = _near_rounds(torch, got.rho.reshape(-1, K), v_eta, cfg.radio, n_cands=n_cands)
     flip = (got.a.reshape(-1, K) != pl["a"]).any(1) | (got.nsel.reshape(-1) != pl["num_selected"])
     check(not bool((flip & ~near).any()),
           f"{what}: {int((flip & ~near).sum())} rounds select differently outside near ties")
+    for f, g in zip(BRANCH_FIELDS, BRANCH_ROWS):
+        x = getattr(got, f, None)
+        if x is not None or pl[g] is not None:
+            check(x is not None and pl[g] is not None
+                  and torch.equal(x.reshape(C * T, -1)[~flip], pl[g].reshape(C * T, -1)[~flip]),
+                  f"{what}: {g} differs from the plain round's on rounds that select alike")
     ok = ~flip if same_selection else ~near
     obj = got.obj.reshape(-1)
     rel = _nan_as_nan(torch, obj, pl["objective"],
@@ -1061,7 +1094,8 @@ def _hold_to_plain(torch, cfg, got, q_pre, h2, v, eta, inc, what, same_selection
               and max(witness["kernel_p3_short_ulps"]) <= 1.0
               and max(witness["kernel_b_off"]) <= FLAT_B_ATOL,
               f"{what}: a flat round is off the float64 optimum: {witness}")
-    return dict(rounds=C * T, near_tie_rounds=int(near.sum()), flipped_rounds=int(flip.sum()),
+    return dict(rounds=C * T, plain_rounds_ms=plain_rounds_ms, near_tie_rounds=int(near.sum()),
+                flipped_rounds=int(flip.sum()),
                 rounds_held=int(ok.sum()), max_abs_err_b=err_b,
                 max_rel_err_obj=rel[ok].max().item(),
                 flat_rounds=int(flat.sum()),
@@ -1239,34 +1273,44 @@ def _modulated_radio(torch, np, dev, cfg, C, T, seed):
                           energy_scale=radio.deadline_s * radio.noise_w * bw)
 
 
-def _wide_vs_plain(torch, cfg, out, h2, v, eta, inc, what):
+def _wide_vs_plain(torch, cfg, out, h2, v, eta, inc, what, failure=None, whole=True):
     """A wide launch's outputs ``out`` against ``ocean_traj_plain``: every
     round on the launch's own queues through ``rounds_alone`` (bit for bit
     the whole launch's rows) and ``_hold_to_plain`` (b within B_ATOL and P3
     within W_RTOL on every round that selects alike, near ties included:
     with thousands of S0 clients their utility makes W_RTOL |W*| exceed a
-    candidate's margin; flat rounds to the float64 optimum), and the whole
-    trajectory: a cell may
-    select unlike the plain version only where one of its rounds is a near
-    tie, and the other cells' final queues lie within Q_ATOL + Q_RTOL |q|.
+    candidate's margin; flat rounds to the float64 optimum; with
+    ``failure`` or a guard the delivered mask, reallocation flags and guard
+    counters exact there), and, with ``whole``, the whole trajectory: a
+    cell may select unlike the plain version only where one of its rounds
+    is a near tie, and the other cells' final queues lie within Q_ATOL +
+    Q_RTOL |q| (their branch rows equal).
     b over the whole trajectory is read, not held: the two runs' queues
     part in their last bits, which on a flat round moves b by more than
     the round's own tolerance (``tests/test_torch_kernels_cuda.py``,
     ``_replay_rounds``); the worst round's P3 values are read beside it.
-    Returns the readings and the plain version's wall ms."""
+    Returns the readings and the plain version's wall ms (the whole run's,
+    or without ``whole`` that of the plain round on every cell-round)."""
     from repro_torch.kernels.ocean_traj import ocean_traj_plain, rounds_alone
 
     C, T, K = h2.shape
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    plain = ocean_traj_plain(cfg, h2, v, eta, inc)
-    torch.cuda.synchronize()
-    plain_ms = 1e3 * (time.perf_counter() - t0)
-    rounds = rounds_alone(cfg, out.q_pre, h2, v, eta, inc)
-    diff = [f for f in RANK_FIELDS if not _same_bits(torch, getattr(rounds, f), getattr(out, f))]
+    cfg = dataclasses.replace(cfg, metrics=None)  # the decisions are the metrics-off launch's
+    rounds = rounds_alone(cfg, out.q_pre, h2, v, eta, inc, failure=failure)
+    diff = [f for f in RANK_FIELDS + BRANCH_FIELDS
+            if getattr(out, f) is not None
+            and not _same_bits(torch, getattr(rounds, f), getattr(out, f))]
     check(not diff, f"{what}: one-round launches differ from the whole launch: {diff}")
     rec = _hold_to_plain(torch, cfg, rounds, out.q_pre, h2, v, eta, inc, what,
-                         same_selection=True)
+                         same_selection=True, failure=failure)
+    rec.update(plain_ms=rec["plain_rounds_ms"], plain_rounds=T,
+               mean_selected=out.nsel.float().mean().item())
+    if not whole:
+        return rec
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plain = ocean_traj_plain(cfg, h2, v, eta, inc, failure=failure)
+    torch.cuda.synchronize()
+    rec["plain_ms"] = 1e3 * (time.perf_counter() - t0)
     near = _near_rounds(torch, out.rho.reshape(-1, K), (v * eta).reshape(-1), cfg.radio,
                         n_cands=min(cfg.top_m, K)).reshape(C, T).any(1)
     same = (out.a == plain.a).flatten(1).all(1) & (out.nsel == plain.nsel).all(1)
@@ -1276,6 +1320,10 @@ def _wide_vs_plain(torch, cfg, out, h2, v, eta, inc, what):
     dq = _nan_as_nan(torch, out.q_final, plain.q_final, (out.q_final - plain.q_final).abs())
     over = (dq - Q_ATOL - Q_RTOL * plain.q_final.abs())[same].max().item()
     check(over <= 0, f"{what}: final queues differ by {dq[same].max().item()}")
+    for f in BRANCH_FIELDS:
+        if getattr(out, f) is not None:
+            check(torch.equal(getattr(out, f)[same], getattr(plain, f)[same]),
+                  f"{what}: the whole run's {f} differs from the plain version's")
     db = _nan_as_nan(torch, out.b, plain.b, (out.b - plain.b).abs()).amax(-1).reshape(-1)
     db = torch.where(same[:, None].expand(C, T).reshape(-1), db, torch.zeros_like(db))
     worst = int(db.argmax())
@@ -1284,9 +1332,8 @@ def _wide_vs_plain(torch, cfg, out, h2, v, eta, inc, what):
                whole_max_abs_err_b=db[worst].item(),
                whole_worst_round=dict(round=worst, obj=o_k, obj_plain=o_p,
                                       rel_obj=abs(o_k - o_p) / max(abs(o_p), 1e-30)),
-               whole_max_abs_err_q_final=dq[same].max().item(), plain_ms=plain_ms,
-               plain_rounds=T, nan_w_rounds=int(out.obj.isnan().sum()),
-               mean_selected=out.nsel.float().mean().item())
+               whole_max_abs_err_q_final=dq[same].max().item(),
+               nan_w_rounds=int(out.obj.isnan().sum()))
     return rec
 
 
@@ -1308,9 +1355,319 @@ def _wide_row(torch, cfg, args, out, label, launches, launch=None, **bound_kw):
     return row
 
 
+# The readings of a wide row in the kernels line.
+WIDE_ROW_KEYS = ("shape", "launches", "ms", "device_ms", "plain_ms", "plain_rounds", "bound_ms",
+                 "bound_by")
+# The wide instances' failure, guard and telemetry branches (phase k3_wide):
+# the labels ocean_traj counts their launches under, by branch.
+WIDE_BRANCH_LABELS = {
+    "failure/plain": "topm+failure+wide/plain",
+    "failure/reallocate": "topm+failure+wide/reallocate",
+    "guard": "topm+guard+wide", "guard+cap": "topm+guard+wide",
+    "chaos": "bisect+topm+guard+chaos+wide", "metrics": "topm+metrics+wide",
+}
+
+
+def _drop_heavy(torch, np, dev, C, T, K, seed):
+    """reliability_sweep.py's drop_heavy (iid_dropout, p_deliver 0.7) as a
+    seeded (C, T, K) mask and its declared rates."""
+    from repro_torch.env.failure import TracedFailure
+
+    dlv = (np.random.default_rng(seed).random((C, T, K)) < 0.7).astype(np.float32)
+    return TracedFailure(delivered=torch.tensor(dlv, device=dev),
+                         rate=torch.full((C, K), 0.7, device=dev))
+
+
+def _faulty_cells(torch, h2, seed, faults):
+    """(C, T, K) gains with ``inject_h2_faults``' draws per cell (seeded by
+    the cell) and the (C, T) quarantined counts it reports."""
+    from repro_torch.guard import inject_h2_faults
+
+    rows, expected = [], []
+    for c in range(h2.shape[0]):
+        x, rep = inject_h2_faults(h2[c], seed + c, **faults)
+        rows.append(torch.from_numpy(x))
+        expected.append(torch.from_numpy(rep.per_round_quarantined(h2.shape[1])))
+    return (torch.stack(rows).to(h2.device).contiguous(),
+            torch.stack(expected).to(device=h2.device, dtype=torch.int32))
+
+
+def _branch_cfgs(cfg, top_m):
+    """Each wide branch's config on ``cfg`` under top-m: the failure modes
+    (launched with a drop_heavy mask), the robustness sweep's guard
+    (quarantine and the fallback; with the energy cap 1), the objective
+    chaos backend of bisect under that guard, and the overhead spec."""
+    from repro_torch.guard import GuardSpec, register_chaos_solver
+    from repro_torch.obs import MetricsSpec
+
+    base = dataclasses.replace(cfg, solver="pallas", ranking="topm", top_m=top_m, traj="fused")
+    guard = GuardSpec(quarantine=True, fallback=True)
+    return {
+        "failure/plain": dataclasses.replace(base, failure_mode="plain"),
+        "failure/reallocate": dataclasses.replace(base, failure_mode="reallocate"),
+        "guard": dataclasses.replace(base, guard=guard),
+        "guard+cap": dataclasses.replace(base, guard=dataclasses.replace(guard, energy_cap=1.0)),
+        "chaos": dataclasses.replace(
+            base, guard=guard, solver=register_chaos_solver("bisect", kind="objective").name),
+        "metrics": dataclasses.replace(base, metrics=MetricsSpec.of(*OVERHEAD_SPEC)),
+    }
+
+
+def _branch_bits(torch, x, y, what):
+    """Two launches' outputs bit for bit: every decision and branch row, and
+    the telemetry but for the float-sum collectors (their block sums follow
+    each block's size; the replay holds them)."""
+    from repro_torch.kernels.ocean_traj import FLOAT_SUM_COLLECTORS
+
+    diff = [f for f in WIDE_FIELDS + BRANCH_FIELDS
+            if not ((getattr(x, f) is None and getattr(y, f) is None)
+                    or _same_bits(torch, getattr(x, f), getattr(y, f)))]
+    if x.metrics is not None:
+        diff += [k for k in x.metrics if k.split("/")[0] not in FLOAT_SUM_COLLECTORS
+                 and not _same_bits(torch, x.metrics[k], y.metrics[k])]
+    check(not diff, f"{what}: differs in {diff}")
+
+
+def _wide_branches(torch, np, dev, equal, big, top_m):
+    """Phase k3_wide's failure, guard and telemetry branches.
+
+    1. At the ``equal`` shapes (``_k3_ranked_inputs``, top_m 128): for
+       failure plain and reallocate under drop_heavy, the guard (quarantine,
+       energy cap 1, fallback) on ``WIDE_INJECT`` gains, the objective chaos
+       backend of bisect under it, and the overhead spec, the forced wide
+       instance equals the shared-memory top-m instance bit for bit (the
+       telemetry but for its float sums); fault counts the injected ones;
+       the wide telemetry held to the replay of its rows.
+    2. At ``big`` (K = 10^4, 8 cells x 8 rounds) on the §VI per-client load
+       with H / 300 a round: ``run_grid`` with drop_heavy under ocean-realloc
+       and ocean-u (one wide launch each), ``simulate`` under the guard on
+       ``WIDE_INJECT`` gains, with the cap, and under the chaos backend, and
+       ``run_grid`` with the overhead spec, whole and as two 4-round
+       segments resumed from a checkpoint; every round of each held to its
+       plain version (``_wide_vs_plain``), fault counts exact, the energy
+       within the cap, no quarantined client selected, a never-firing guard
+       the unguarded bits, the chaos run the guarded bisect run's bits, the
+       telemetry through ``check_metrics_replay`` (a planted ``hist_shift``
+       must fail it), segmented and resumed equal to whole.
+    3. Each branch's row: device ms beside the unbranched instance's on the
+       same cells, launches on the path above, bound, plain ms.
+    """
+    import tempfile
+
+    from repro_torch.checkpoint import CheckpointSpec
+    from repro_torch.core.energy import RadioParams
+    from repro_torch.core.ocean import simulate
+    from repro_torch.core.patterns import eta_schedule
+    from repro_torch.core.scenario import Scenario
+    from repro_torch.env import EnvSpec
+    from repro_torch.guard import GuardSpec
+    from repro_torch.kernels.ocean_traj import check_metrics_replay, m_star, ocean_traj
+    from repro_torch.sim import GridEngine, run_grid
+
+    parts, t_part = {}, [time.perf_counter()]
+
+    def part(name):
+        """Seconds since the previous part ended (the breakdown)."""
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        parts[name] = now - t_part[0]
+        t_part[0] = now
+
+    # 1. bit for bit the shared-memory top-m instance
+    bits = {}
+    for K, C, T in equal:
+        cfg, h2, v, eta, inc = _k3_ranked_inputs(torch, np, dev, C, T, K, seed=K + 11)
+        fail = _drop_heavy(torch, np, dev, C, T, K, seed=K + 11)
+        h2_bad, expected = _faulty_cells(torch, h2, K + 11, WIDE_INJECT)
+        for name, rc in _branch_cfgs(cfg, top_m).items():
+            if name == "guard":  # the cap's run covers the quarantine and the fallback
+                continue
+            kw = dict(failure=fail) if name.startswith("failure") else {}
+            hh = h2_bad if rc.guard is not None else h2
+            shared = ocean_traj(rc, hh, v, eta, inc, **kw)
+            wide = ocean_traj(rc, hh, v, eta, inc, _force_wide=True, **kw)
+            what = f"k3_wide K={K} {name}"
+            _branch_bits(torch, shared, wide, f"{what}: the wide instance against the shared one")
+            rec = dict(rounds=C * T, mean_m_star=m_star(wide.nsel, wide.rho).float().mean().item())
+            if rc.guard is not None:
+                check(torch.equal(wide.fc, expected), f"{what}: fault counts")
+                rec.update(fallback_rounds=int(wide.fb.sum()), demoted=int(wide.dm.sum()))
+            if name == "failure/reallocate":
+                rec["realloc_rounds"] = int(wide.ral.sum())
+            if rc.metrics is not None:
+                check_metrics_replay(rc, wide.metrics, wide, v, eta, inc)
+                rec["float_sums_bitwise"] = all(
+                    _same_bits(torch, wide.metrics[k], shared.metrics[k]) for k in wide.metrics)
+            bits[f"K={K} {name}"] = rec
+
+    part("bits")
+
+    # 2. K = 10^4 through the entry points
+    Kb, Cb, Tb = big
+    b_min = 0.5 / Kb
+    radio = RadioParams(b_min=b_min, model_bits=RadioParams().model_bits * b_min / 0.02)
+    load = dict(num_clients=Kb, num_rounds=Tb, radio=radio, energy_budget_j=0.15 * Tb / 300)
+    drop = [Scenario(name="drop_heavy", env=EnvSpec(failure="iid_dropout",
+                                                    failure_params={"p_deliver": 0.7}), **load)]
+    clean = [Scenario(name="clean", **load)]
+    gkw = dict(solver="pallas", ranking="topm", top_m=top_m, traj="fused", device=dev)
+    cfgs = _branch_cfgs(GridEngine(clean, ["ocean-u"], **gkw).cfg, top_m)
+    # the guard caps at cfg.budgets(): the §VI H = 0.15 J, with H / 300 a
+    # round as above
+    g_cfgs = _branch_cfgs(Scenario(name="guard", num_clients=Kb, num_rounds=Tb,
+                                   radio=radio).ocean_config(), top_m)
+    cfgs.update({k: g_cfgs[k] for k in ("guard", "guard+cap", "chaos")})
+    eta = eta_schedule("uniform", Tb, device=dev).expand(Cb, Tb).contiguous()
+    v = torch.full((Cb, Tb), V_PAPER, device=dev)
+    run_grid(drop, ["ocean-realloc", "ocean-u"], range(2), **gkw)  # warm-up
+    torch.cuda.synchronize()
+    _reset_counts()
+    g_drop = run_grid(drop, ["ocean-realloc", "ocean-u"], range(Cb), **gkw)
+    torch.cuda.synchronize()
+    launches = dict(_counts()["ocean_traj_instances"])
+    check(launches == {WIDE_BRANCH_LABELS["failure/reallocate"]: 1,
+                       WIDE_BRANCH_LABELS["failure/plain"]: 1},
+          f"k3_wide: the K={Kb} drop_heavy grid's launches {launches}")
+    h2d = g_drop.h2.reshape(Cb, Tb, Kb).contiguous()
+    incd = g_drop.budget_inc.reshape(Cb, Tb, Kb).contiguous()
+    _, fail = _cells(g_drop, Cb, Tb, failure=g_drop.failure_seq)
+    runs = {}  # name: (cfg, gains, launch keywords, TrajOut-like outputs)
+    for p_idx, name in enumerate(("failure/reallocate", "failure/plain")):
+        rc = cfgs[name]
+        out = ocean_traj(rc, h2d, v, eta, incd, failure=fail)  # a comparison launch
+        for f, g in (("a", "a"), ("b", "b"), ("e", "e"), ("q_pre", "q"), ("dlv", "delivered")):
+            check(torch.equal(getattr(out, f), getattr(g_drop, g)[p_idx].reshape(out.a.shape)),
+                  f"k3_wide K={Kb} {name}: a launch on the grid's cells differs from it ({f})")
+        runs[name] = (rc, h2d, incd, dict(failure=fail), out)
+    # the guard, the cap and the chaos backend on faulty gains, through simulate
+    h2c = GridEngine(clean, ["ocean-u"], **gkw).sample_env(range(Cb))[0].reshape(Cb, Tb, Kb)
+    h2_bad, expected = _faulty_cells(torch, h2c, 0, WIDE_INJECT)
+    incc = torch.full((Cb, Tb, Kb), 0.15 / 300, device=dev)
+    sim = {}
+    _reset_counts()
+    for name in ("guard", "guard+cap", "chaos"):
+        sim[name] = simulate(cfgs[name], h2_bad, eta[0], V_PAPER, budget_seq=incc, device=dev)
+    torch.cuda.synchronize()
+    launches.update(_counts()["ocean_traj_instances"])
+    check(launches.get(WIDE_BRANCH_LABELS["guard"]) == 2
+          and launches.get(WIDE_BRANCH_LABELS["chaos"]) == 1,
+          f"k3_wide: the K={Kb} guarded runs' launches {launches}")
+    for name in ("guard", "guard+cap", "chaos"):
+        rc = cfgs[name]
+        out = ocean_traj(rc, h2_bad, v, eta, incc)
+        st, d = sim[name]
+        for f, g in (("a", "a"), ("b", "b"), ("fc", "fault_count"), ("fb", "fallback")):
+            check(torch.equal(getattr(out, f), getattr(d, g)),
+                  f"k3_wide K={Kb} {name}: simulate differs from the launch ({f})")
+        check(torch.equal(out.fc, expected), f"k3_wide K={Kb} {name}: fault counts")
+        bad = ~torch.isfinite(h2_bad) | (h2_bad <= 0)
+        check(not bool(out.a[bad].any()), f"k3_wide K={Kb} {name}: a quarantined client selected")
+        check(bool(torch.isfinite(out.q_final).all()), f"k3_wide K={Kb} {name}: queues not finite")
+        runs[name] = (rc, h2_bad, incc, {}, out)
+    path_launches = {name: launches.get(WIDE_BRANCH_LABELS[name], 0)
+                     for name in ("failure/reallocate", "failure/plain", "chaos")}
+    path_launches.update(guard=1, **{"guard+cap": 1})  # the two launches of one label
+    cap = cfgs["guard+cap"].guard.energy_cap * cfgs["guard+cap"].budgets(device=dev)
+    e_max = runs["guard+cap"][4].e.amax((0, 1))
+    check(bool((e_max <= cap * (1 + 1e-6)).all()),
+          f"k3_wide K={Kb}: energy {float(e_max.max())} past the cap")
+    check(bool((runs["chaos"][4].fb == 1).all()), f"k3_wide K={Kb}: chaos did not fall back")
+    g_bisect = ocean_traj(dataclasses.replace(cfgs["guard"], solver="bisect"), h2_bad, v, eta, incc)
+    _branch_bits(torch, runs["chaos"][4]._replace(fb=g_bisect.fb), g_bisect,
+                 f"k3_wide K={Kb}: the chaos run against the guarded bisect run")
+    h2c = h2c.contiguous()
+    never = ocean_traj(dataclasses.replace(cfgs["guard"], guard=GuardSpec(energy_cap=1e6)), h2c,
+                       v, eta, incc)
+    plain_run = ocean_traj(dataclasses.replace(cfgs["guard"], guard=None), h2c, v, eta, incc)
+    check(not bool(never.fc.any() or never.dm.any() or never.fb.any())
+          and all(_same_bits(torch, getattr(never, f), getattr(plain_run, f)) for f in WIDE_FIELDS),
+          f"k3_wide K={Kb}: a never-firing guard moved the unguarded bits")
+    # the telemetry: run_grid whole, then as 4-round segments, resumed
+    spec = cfgs["metrics"].metrics
+    mkw = dict(gkw, metrics=spec)
+    _reset_counts()
+    g_met = run_grid(clean, ["ocean-u"], range(Cb), **mkw)
+    torch.cuda.synchronize()
+    launches.update(_counts()["ocean_traj_instances"])
+    check(launches.get(WIDE_BRANCH_LABELS["metrics"]) == 1,
+          f"k3_wide: the K={Kb} telemetry grid's launches {launches}")
+    path_launches["metrics"] = 1
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-wide-") as tmp:
+        ck = CheckpointSpec(directory=os.path.join(tmp, "ck"), every_rounds=Tb // 2)
+        g_seg = run_grid(clean, ["ocean-u"], range(Cb), checkpoint=ck, **mkw)
+        snaps = sorted(os.listdir(ck.directory))
+        os.remove(os.path.join(ck.directory, snaps[-1]))  # a run killed after its first segment
+        g_res = run_grid(clean, ["ocean-u"], range(Cb), checkpoint=ck, resume_from=True, **mkw)
+        torch.cuda.synchronize()
+    seg_launches = {k: n for k, n in _counts()["ocean_traj_instances"].items() if "+seg" in k}
+    check(seg_launches == {"topm+metrics+wide+seg": 3},
+          f"k3_wide: the K={Kb} segmented telemetry launches {seg_launches}")
+    for gname, g in (("segmented", g_seg), ("resumed", g_res)):
+        diff = [f for f in ("a", "b", "e", "q", "num_selected", "energy_spent")
+                if not _same_bits(torch, getattr(g, f), getattr(g_met, f))]
+        diff += [k for k in g_met.metrics[0]
+                 if not _same_bits(torch, g.metrics[0][k], g_met.metrics[0][k])]
+        check(not diff, f"k3_wide K={Kb}: the {gname} telemetry run differs from whole: {diff}")
+    h2m = g_met.h2.reshape(Cb, Tb, Kb).contiguous()
+    incm = g_met.budget_inc.reshape(Cb, Tb, Kb).contiguous()
+    out = ocean_traj(cfgs["metrics"], h2m, v, eta, incm)
+    check(all(_same_bits(torch, out.metrics[k], g_met.metrics[0][k].reshape(out.metrics[k].shape))
+              for k in out.metrics), f"k3_wide K={Kb}: the grid's telemetry is not the launch's")
+    replay = check_metrics_replay(cfgs["metrics"], out.metrics, out, v, eta, incm)
+    planted = ocean_traj(cfgs["metrics"], h2m, v, eta, incm, hist_shift={"queue": 1})
+    try:
+        check_metrics_replay(cfgs["metrics"], planted.metrics, planted, v, eta, incm)
+        caught = False
+    except AssertionError:
+        caught = True
+    check(caught, f"k3_wide K={Kb}: the planted hist_shift passed the replay")
+    runs["metrics"] = (cfgs["metrics"], h2m, incm, {}, out)
+    part("runs")
+
+    # every round of each run against its plain version; the rows, beside
+    # the unbranched wide instance on the drop_heavy grid's cells
+    held, rows = {}, {}
+    bare = dataclasses.replace(cfgs["failure/plain"], failure_mode="plain")
+    unbranched_ms = device_ms(torch, lambda: ocean_traj(bare, h2d, v, eta, incd), 3)[0]
+    for name, (rc, hh, ii, kw, out) in runs.items():
+        held[name] = _wide_vs_plain(torch, rc, out, hh, v, eta, ii, f"k3_wide K={Kb} {name}",
+                                    failure=kw.get("failure"), whole=False)
+        ms_ = m_star(out.nsel, out.rho)
+        held[name].update(mean_m_star=ms_.float().mean().item(),
+                          saturated_rounds=int((ms_ == top_m).sum()))
+        bound_kw = {}
+        if kw:
+            surv = (out.dlv & (out.rho > 1e-30)).sum(-1)[out.ral > 0].tolist()
+            bound_kw.update(failure=True, solves=surv)
+            held[name].update(realloc_rounds=int(out.ral.sum()))
+        if rc.guard is not None:
+            bound_kw.update(guard=True, fallback=out.fb, bisect="chaos" in name)
+            held[name].update(fallback_rounds=int(out.fb.sum()), demoted=int(out.dm.sum()))
+        label = WIDE_BRANCH_LABELS[name]
+        row = _wide_row(torch, rc, (hh, v, eta, ii), out, label, path_launches[name],
+                        launch=kw, **bound_kw)
+        if rc.metrics is not None:
+            row.update(zip(("bound_ms", "bound_by", "ops", "bytes"),
+                           metrics_bound(torch, out.rho, rc.metrics, rc, n_cands=top_m,
+                                         wide=True, **bound_kw)))
+            row["replay_max_abs_err"] = max(replay.values())
+        rows[name] = dict(row, unbranched_device_ms=unbranched_ms,
+                          shape=f"{Cb} cells x {Tb} rounds x K = {Kb}, top_m {top_m}",
+                          plain_ms=held[name]["plain_ms"], plain_rounds=Tb)
+        part(f"held and timed: {name}")
+    err = max([r["max_abs_err_b"] for r in held.values()]
+              + [r["flat_max_abs_err_b"] for r in held.values()])
+    return dict(parts_s=parts, bitwise_vs_shared=bits, held_to_plain=held, rows=rows,
+                launches=launches,
+                segment_launches=seg_launches, max_abs_err_b=err, energy_max=float(e_max.max()),
+                energy_cap=float(cap.max()),
+                never_firing_guard_digest=k3_digest(torch, never),
+                unguarded_digest=k3_digest(torch, plain_run))
+
+
 def phase_k3_wide(torch, np, dev, smi, equal=((100, 4, 40), (2048, 4, 40)), big=(10_000, 8, 8),
                   huge=(100_000, 1, 2), top_m=KSCALE_TOP_M):
-    """K3's wide instances (csrc/ocean_traj_wide.cu) and stream_bf16.
+    """K3's wide instances (csrc/ocean_traj_wide.cuh) and stream_bf16.
 
     1. At K = 100 and 2048, 4 cells x 40 rounds (``_k3_ranked_inputs``, top_m
        128): the wide instance, forced, equals the shared-memory top-m
@@ -1331,6 +1688,7 @@ def phase_k3_wide(torch, np, dev, smi, equal=((100, 4, 40), (2048, 4, 40)), big=
        bf16 casts on the §VI instance too.
     4. Each wide row's device ms, ms, launches, bound and plain ms, and the
        K = 10^4 grid's rounds·cells/s on fused against the scan path.
+    5. The failure, guard, chaos and telemetry branches (``_wide_branches``).
     """
     from repro_torch.core.energy import RadioParams
     from repro_torch.core.ocean import simulate
@@ -1452,6 +1810,9 @@ def phase_k3_wide(torch, np, dev, smi, equal=((100, 4, 40), (2048, 4, 40)), big=
                                                  f"k3_wide K={Kb} pallas_tiled ranked")
     held["pallas_tiled ranked"]["mean_m_star"] = m_star(out.nsel, out.rho).float().mean().item()
     del out
+    t_branches = time.perf_counter()
+    branches = _wide_branches(torch, np, dev, equal, big, top_m)
+    branches["phase_s"] = time.perf_counter() - t_branches
 
     # 3. K = 10^5, stream_bf16 through simulate; the bf16 casts on the §VI instance
     Kh, Ch, Th = huge
@@ -1516,10 +1877,10 @@ def phase_k3_wide(torch, np, dev, smi, equal=((100, 4, 40), (2048, 4, 40)), big=
     del vi32, vi16, vi_args
 
     out = dict(gpu=smi, bitwise_vs_shared=same, vs_scan_grid=vs_scan, held_to_plain=held,
-               rows=rows, vi_bf16=dict(digest=vi_digest, **vi),
+               rows=rows, vi_bf16=dict(digest=vi_digest, **vi), branches=branches,
                max_abs_err_b=max([r["max_abs_err_b"] for r in held.values()]
                                  + [r["flat_max_abs_err_b"] for r in held.values()]
-                                 + [err_scan]),
+                                 + [err_scan, branches["max_abs_err_b"]]),
                phase_s=time.perf_counter() - t_phase)
     emit({"phase": "k3_wide", **out})
     return out
@@ -1846,6 +2207,7 @@ def phase_baselines(torch, np, dev, smi, T=300, K=10, seeds=64, num_iters=400):
 # ---------------------------------------------------------------------------
 GUARD_FIELDS = (("fault_count", "fc"), ("demoted", "dm"), ("fallback", "fb"))
 INJECT = dict(num_inf=3, num_zero=2, num_negative=2)   # robustness_sweep.py:59
+WIDE_INJECT = dict(INJECT, num_nan=2)  # phase k3_wide: the sweep's draws and two NaNs
 ENERGY_CAP = 1.0
 
 
@@ -2838,6 +3200,9 @@ def _near_rounds(torch, rho, v_eta, radio, n_cands=None):
     from repro_torch.core.selection import prefix_inputs
     from repro_torch.kernels.ocean_p import _scal, prefix_objectives_plain
 
+    # a NaN rho (a NaN gain outside the quarantine) ranks as +inf, as the
+    # top-m extraction ranks it
+    rho = torch.where(rho.isnan(), torch.full_like(rho, math.inf), rho)
     _, rho_sorted, n0, delta = prefix_inputs(rho, radio)
     w = prefix_objectives_plain(_scal(n0, delta, v_eta, radio, rho_sorted), rho_sorted,
                                 n_cands=n_cands)
@@ -3738,6 +4103,38 @@ def phase_jamba_prefill(torch, dev, smi, B=1, S=8192, seed=0):
     return model, out
 
 
+def wide_kernel_entries(wide):
+    """The kernels line's entries of K3's wide instances from phase
+    k3_wide's record: the K = 10^4 grid's launch (traj_bench's K-scaling
+    cell), the K = 10^5 stream_bf16 run through simulate, the other solvers
+    and the failure and guard branches on the §VI per-client load (beside
+    the unbranched instance on the same cells), and the HasMetrics source's
+    instance with the overhead spec."""
+    rows, branches = wide["rows"], wide["branches"]["rows"]
+    metrics = branches["metrics"]
+    return [
+        dict(name="ocean_traj_wide", route="cuda",
+             source="src/repro_torch/csrc/ocean_traj_wide.cu",
+             replaces="src/repro/kernels/ocean_traj.py:96",
+             launches=sum(r["launches"] for r in rows.values())
+             + sum(r["launches"] for n, r in branches.items() if n != "metrics"),
+             max_abs_err=wide["max_abs_err_b"],
+             **{k: rows["pallas_tiled+topm+wide"][k] for k in WIDE_ROW_KEYS if k != "launches"},
+             library_ms=None,
+             instances={**{label: {k: r[k] for k in WIDE_ROW_KEYS} for label, r in rows.items()},
+                        **{f"{r['label']} ({n})": {k: r[k] for k in
+                                                   WIDE_ROW_KEYS + ("unbranched_device_ms",)}
+                           for n, r in branches.items() if n != "metrics"}}),
+        dict(name="ocean_traj_wide_metrics", route="cuda",
+             source="src/repro_torch/csrc/ocean_traj_wide_metrics.cu",
+             replaces="src/repro/kernels/ocean_traj.py:96",
+             max_abs_err=wide["branches"]["max_abs_err_b"],
+             **{k: metrics[k] for k in WIDE_ROW_KEYS + ("unbranched_device_ms",
+                                                        "replay_max_abs_err")},
+             library_ms=None),
+    ]
+
+
 def main() -> int:
     # torch.compile (the flex_attention reading) caches inside the checkout.
     os.environ.setdefault("TORCHINDUCTOR_CACHE_DIR", str(ROOT / "build" / "inductor"))
@@ -3868,21 +4265,7 @@ def main() -> int:
                                        **{k: ranking["big"]["rows"]["sort"][k]
                                           for k in INSTANCE_KEYS}),
              }),
-        # K3's wide instances: the K = 10^4 grid's launch (traj_bench's
-        # K-scaling cell) and the K = 10^5 stream_bf16 run through simulate
-        dict(name="ocean_traj_wide", route="cuda",
-             source="src/repro_torch/csrc/ocean_traj_wide.cu",
-             replaces="src/repro/kernels/ocean_traj.py:96",
-             launches=sum(r["launches"] for r in wide["rows"].values()),
-             max_abs_err=wide["max_abs_err_b"],
-             **{k: wide["rows"]["pallas_tiled+topm+wide"][k]
-                for k in ("shape", "ms", "device_ms", "plain_ms", "plain_rounds", "bound_ms",
-                          "bound_by")},
-             library_ms=None,
-             instances={label: {k: r[k] for k in ("shape", "launches", "ms", "device_ms",
-                                                  "plain_ms", "plain_rounds", "bound_ms",
-                                                  "bound_by")}
-                        for label, r in wide["rows"].items()}),
+        *wide_kernel_entries(wide),
         dict(name="ocean_traj_metrics", route="cuda",
              source="src/repro_torch/csrc/ocean_traj_metrics.cu",
              replaces="src/repro/kernels/ocean_traj.py:96",

@@ -93,7 +93,7 @@
 // "pallas_tiled" (top-m only), and chaos backends of pallas or bisect;
 // K <= 2048 (the sort and the per-client state live in shared memory).
 // Past that, ranking="topm" runs on the wide instances
-// (ocean_traj_wide.cu), whose per-client state lives in global memory.
+// (ocean_traj_wide.cuh), whose per-client state lives in global memory.
 //
 // What bounds it on the H100: the bytes are tiny (per cell-round it reads
 // 2K + 2 floats and writes 4K floats, K bytes and 2 scalars), so the bound

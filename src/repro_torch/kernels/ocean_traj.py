@@ -25,10 +25,13 @@ checkpoint/resume launch (``init_state``, ``init_mstate``,
 ``raw_metrics``): runtime launch arguments seed the carry and the global
 round, and the telemetry region goes in and comes back out raw.  Past
 ``MAX_CLIENTS`` (the shared-memory sort's limit) ``ranking="topm"`` runs on
-the *wide* instances (``csrc/ocean_traj_wide.cu``): the carry in global
-memory, each round a streaming pass with the top-m extraction (K2's
-phase 1 in one block), the sweep on the compact row and a commit pass in
-client order.  ``stream_bf16`` stores the (C, T, K) b, e, q_pre and rho
+the *wide* instances (``csrc/ocean_traj_wide.cuh``, instantiated by
+``ocean_traj_wide.cu`` and, with telemetry, ``ocean_traj_wide_metrics.cu``):
+the carry in global memory, each round a streaming pass with the guard's
+screens and the top-m extraction (K2's phase 1 in one block), the sweep on
+the compact row (the guard's validation and bisect fallback, reallocate's
+masked P4 there too) and a commit pass in client order, then the
+telemetry's pass.  ``stream_bf16`` stores the (C, T, K) b, e, q_pre and rho
 rows as bfloat16 (a launch argument of every instance); the trajectory is
 the float32 one.
 
@@ -57,11 +60,13 @@ ties by client index.  ``pallas_tiled`` is K2's semantics in the round:
 K1's candidates on that clip with a non-finite W counted as NEG_INF,
 another launch argument.  Past K = 2048 only ``ranking="topm"`` with
 ``top_m <= 2048`` runs (the wide instances), with the static or a
-streamed radio, whole or as a segment; ``sort``, a failure process, a
-guard or chaos backend and a ``MetricsSpec`` raise there
-(``check_fused_scope``).  ``stream_bf16`` runs on every instance at every
-K.  Anything else raises ``NotImplementedError``.  Like the reference's
-kernel, K3 caps a guard's energy at ``energy_cap x cfg.budgets()``.
+streamed radio, failure modes ``plain`` and ``reallocate``, a guard or
+chaos backend and a ``MetricsSpec``, in any mix, whole or as a segment;
+``sort`` and ``failure_mode="overprovision"`` (both need the full ranked
+order) raise there (``check_fused_scope``).  ``stream_bf16`` runs on every
+instance at every K.  Anything else raises ``NotImplementedError``.  Like
+the reference's kernel, K3 caps a guard's energy at ``energy_cap x
+cfg.budgets()``.
 """
 from __future__ import annotations
 
@@ -138,10 +143,11 @@ def check_fused_scope(cfg, failure: bool = False, wide: bool = False) -> None:
 
     Past ``MAX_CLIENTS`` (or with ``wide``, the wide instance forced at any
     K) only ``ranking="topm"`` with ``top_m <= MAX_WIDE_TOP_M`` runs, with
-    the static or a streamed radio: ``sort`` (a global-memory sort), a
-    failure process (``failure``: its overprovision walks the whole ranked
-    row), a ``GuardSpec`` or chaos backend and a ``MetricsSpec`` (their
-    per-client rows live in shared memory) raise, naming the hook."""
+    the static or a streamed radio, a failure process (``failure``) under
+    ``cfg.failure_mode`` ``plain`` or ``reallocate``, a ``GuardSpec`` or
+    chaos backend and a ``MetricsSpec``: ``sort`` (a global-memory sort)
+    and ``overprovision`` (its extension walks the full ranked order)
+    raise, naming the hook."""
     from repro_torch.core.ocean import not_ported
     from repro_torch.core.solvers import get_solver
 
@@ -166,12 +172,11 @@ def check_fused_scope(cfg, failure: bool = False, wide: bool = False) -> None:
         )
     if cfg.top_m > MAX_WIDE_TOP_M:
         raise not_ported(f"{where} with top_m={cfg.top_m} > {MAX_WIDE_TOP_M}")
-    if failure:
-        raise not_ported(f"{where} with a failure process")
-    if cfg.guard is not None or backend.chaos is not None:
-        raise not_ported(f"{where} with a GuardSpec or chaos backend")
-    if cfg.metrics is not None:
-        raise not_ported(f"{where} with a MetricsSpec")
+    if failure and cfg.failure_mode == "overprovision":
+        raise not_ported(
+            f"{where} with failure_mode='overprovision' (its extension walks the full "
+            f"ranked order, repro/core/ocean.py:369: a global-memory sort)"
+        )
 
 
 def _library(base: str, metrics: bool) -> str:
@@ -660,7 +665,7 @@ def ocean_traj(cfg, h2, v, eta, inc, radio=None, failure=None, *,
     ``stream_bf16`` stores the b, e, q_pre and rho rows as bfloat16 (the
     label gains ``+bf16``); every other output, and the trajectory, is the
     float32 launch's.  Past ``MAX_CLIENTS`` clients the launch runs K3's
-    wide instances (``csrc/ocean_traj_wide.cu``, label ``+wide``);
+    wide instances (``csrc/ocean_traj_wide.cuh``, label ``+wide``);
     ``_force_wide`` runs them at any K, to hold them against the
     shared-memory instances on the card.
     """
@@ -718,10 +723,11 @@ def ocean_traj(cfg, h2, v, eta, inc, radio=None, failure=None, *,
     raw_metrics = raw_metrics and spec is not None
     backend = get_solver(cfg.solver)
     base = _base_solver(backend)
-    lib = _build.load("ocean_traj_wide" if wide else _library(base, spec is not None))
     if wide:
-        fn = lib.ocean_traj_wide_launch
+        lib = _build.load("ocean_traj_wide" if spec is None else "ocean_traj_wide_metrics")
+        fn = lib.ocean_traj_wide_launch if spec is None else lib.ocean_traj_wide_metrics_launch
     else:
+        lib = _build.load(_library(base, spec is not None))
         fn = lib.ocean_traj_launch if spec is None else lib.ocean_traj_metrics_launch
     fn.restype = ctypes.c_int
     dev = h2.device
@@ -830,10 +836,11 @@ def ocean_traj(cfg, h2, v, eta, inc, radio=None, failure=None, *,
 ocean_traj.launches = 0
 # launches by instance: "static", or the "+"-joined branches it ran of
 # "radio", "bisect", "newton", "pallas_tiled", "topm" (the ranking), "guard",
-# "chaos", "failure", "metrics", "wide" (csrc/ocean_traj_wide.cu) and "bf16"
+# "chaos", "failure", "metrics", "wide" (csrc/ocean_traj_wide.cuh) and "bf16"
 # (stream_bf16), then "+seg" for a segment launch (and "/<mode>" with
 # failures), e.g. "bisect+guard", "newton+topm", "pallas_tiled+topm+wide",
-# "static+seg" or "radio+failure+metrics+seg/plain"
+# "newton+topm+guard+metrics+wide", "static+seg",
+# "radio+failure+metrics+seg/plain" or "pallas_tiled+topm+failure+wide/reallocate"
 ocean_traj.instances = {}
 
 

@@ -315,6 +315,9 @@ def test_stream_bf16_rows_are_the_float32_rows_cast(shape, tmp_path):
 # the scope past 2048
 # ---------------------------------------------------------------------------
 def test_scope_past_2048_runs_topm_and_refuses_the_rest():
+    """Past 2048 under top-m: the failure modes plain and reallocate, a
+    guard, a chaos backend and a MetricsSpec run (the plain version on the
+    CPU); sort, a clip past 2048 and overprovision raise, naming the hook."""
     from repro_torch.env.failure import TracedFailure
     from repro_torch.guard import GuardSpec, register_chaos_solver
     from repro_torch.obs import MetricsSpec
@@ -328,15 +331,23 @@ def test_scope_past_2048_runs_topm_and_refuses_the_rest():
     _, decs = simulate(cfg, h2, eta, V, device="cpu")
     assert decs.a.shape == (1, t, k)
     tt.check_fused_scope(dataclasses.replace(cfg, top_m=2048))
+    failure = dict(failure_seq=TracedFailure(delivered=torch.ones(1, t, k), rate=torch.ones(1, k)))
+    runs = [
+        (dataclasses.replace(cfg, failure_mode="plain"), failure),
+        (dataclasses.replace(cfg, failure_mode="reallocate"), failure),
+        (dataclasses.replace(cfg, guard=GuardSpec(energy_cap=1.0)), {}),
+        (dataclasses.replace(cfg, solver=register_chaos_solver("pallas", kind="budget").name), {}),
+        (dataclasses.replace(cfg, metrics=MetricsSpec.of("queue:mean")), {}),
+    ]
+    for c, kw in runs:
+        out = simulate(c, h2, eta, V, device="cpu", **kw)
+        assert out[1].a.shape == (1, t, k)
+        if c.metrics is not None:
+            assert out[2]["queue/mean"].shape == (1, k)
     refusals = [
         (dataclasses.replace(cfg, ranking="sort"), {}, "ranking='sort'"),
         (dataclasses.replace(cfg, top_m=2049), {}, "top_m=2049"),
-        (cfg, dict(failure_seq=TracedFailure(delivered=torch.ones(1, t, k),
-                                            rate=torch.ones(1, k))), "failure process"),
-        (dataclasses.replace(cfg, guard=GuardSpec(energy_cap=1.0)), {}, "GuardSpec"),
-        (dataclasses.replace(cfg, solver=register_chaos_solver("pallas", kind="budget").name),
-         {}, "chaos backend"),
-        (dataclasses.replace(cfg, metrics=MetricsSpec.of("queue:mean")), {}, "MetricsSpec"),
+        (dataclasses.replace(cfg, failure_mode="overprovision"), failure, "overprovision"),
     ]
     for c, kw, hook in refusals:
         with pytest.raises(NotImplementedError, match=f"K={k} > 2048 with .*{hook}"):

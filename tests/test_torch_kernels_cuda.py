@@ -1455,7 +1455,7 @@ def test_k3_ranked_instances_compose_with_every_branch(dev, solver, ranking):
 
 
 # ---------------------------------------------------------------------------
-# K3's wide instances (ranking="topm" past K = 2048, csrc/ocean_traj_wide.cu)
+# K3's wide instances (ranking="topm" past K = 2048, csrc/ocean_traj_wide.cuh)
 # and stream_bf16
 # ---------------------------------------------------------------------------
 ALL_FIELDS = ("a", "b", "e", "q_pre", "rho", "obj", "nsel", "q_final", "es_final")
@@ -1588,22 +1588,172 @@ def test_k3_stream_bf16_rows_are_the_float32_rows_cast(dev, case):
             assert torch.equal(_bits(bf.metrics[k]), _bits(f32.metrics[k])), k
 
 
-def test_k3_wide_refuses_what_it_does_not_run(dev):
-    """Past 2048 the sort ranking, a failure process, a guard and a
-    MetricsSpec raise before anything launches."""
+def test_k3_wide_refuses_what_it_does_not_run(dev, monkeypatch):
+    """Past 2048 the sort ranking and failure_mode overprovision raise
+    before anything launches; the wide launch itself refuses overprovision
+    with cudaErrorInvalidValue."""
     import dataclasses
-
-    from repro_torch.guard import GuardSpec
 
     cfg, h2, v, eta, inc = _ranked_inputs(dev, 59, 1, 2, 2049)
     before = tt.ocean_traj.launches
     with pytest.raises(NotImplementedError, match="ranking='sort'"):
         tt.ocean_traj(cfg, h2, v, eta, inc)
-    top = dataclasses.replace(cfg, ranking="topm", top_m=128)
-    with pytest.raises(NotImplementedError, match="failure process"):
-        tt.ocean_traj(top, h2, v, eta, inc, failure=_k3_failure(dev, 59, 1, 2, 2049))
-    with pytest.raises(NotImplementedError, match="GuardSpec"):
-        tt.ocean_traj(dataclasses.replace(top, guard=GuardSpec(energy_cap=1.0)), h2, v, eta, inc)
-    with pytest.raises(NotImplementedError, match="MetricsSpec"):
-        tt.ocean_traj(dataclasses.replace(top, metrics=_metrics_spec()), h2, v, eta, inc)
+    over = dataclasses.replace(cfg, ranking="topm", top_m=128, failure_mode="overprovision")
+    failure = _k3_failure(dev, 59, 1, 2, 2049)
+    with pytest.raises(NotImplementedError, match="overprovision"):
+        tt.ocean_traj(over, h2, v, eta, inc, failure=failure)
     assert tt.ocean_traj.launches == before
+    monkeypatch.setattr(tt, "check_fused_scope", lambda *a, **k: None)
+    with pytest.raises(RuntimeError, match="CUDA error 1: invalid argument"):
+        tt.ocean_traj(over, h2, v, eta, inc, failure=failure)
+    assert tt.ocean_traj.launches == before
+
+
+# ---------------------------------------------------------------------------
+# The wide instances' failure, guard and telemetry branches
+# ---------------------------------------------------------------------------
+WIDE_BRANCHES = ("plain", "reallocate", "guard", "chaos", "budget", "metrics")
+BRANCH_FIELDS = ALL_FIELDS + ("dlv", "ral", "fc", "dm", "fb")
+
+
+def _planted(h2, seed, **faults):
+    """Each cell's gains with ``inject_h2_faults``' faults (seeded by the
+    cell), and the reports."""
+    from repro_torch.guard import inject_h2_faults
+
+    rows, reps = [], []
+    for c in range(h2.shape[0]):
+        x, rep = inject_h2_faults(h2[c].cpu(), seed + c, **faults)
+        rows.append(torch.tensor(x))
+        reps.append(rep)
+    return torch.stack(rows).to(h2.device).contiguous(), reps
+
+
+def _wide_branch(dev, branch, seed, C, T, K, top_m=None):
+    """One branch on ``_ranked_inputs`` under top-m: (cfg, h2, v, eta, inc,
+    launch keywords, fault reports or None).  ``plain``/``reallocate``: a
+    delivery mask at p = 0.7; ``guard``: quarantine, the energy cap 1 and
+    the fallback on gains with inf, zero, negative and NaN draws;
+    ``chaos``: the objective chaos backend of bisect under GuardSpec() on
+    the same gains; ``budget``: the budget chaos backend of pallas (x 1.5)
+    there; ``nan``: NaN gains with the quarantine off (their rho
+    is NaN; the fallback fires on their rounds); ``metrics``: chip_smoke's
+    overhead spec."""
+    import dataclasses
+
+    from repro_torch.guard import GuardSpec, register_chaos_solver
+    from repro_torch.obs import MetricsSpec
+
+    cfg, h2, v, eta, inc = _ranked_inputs(dev, seed, C, T, K)
+    cfg = dataclasses.replace(cfg, ranking="topm", top_m=top_m or _top_m(K))
+    kw, reps = {}, None
+    if branch in ("plain", "reallocate"):
+        cfg = dataclasses.replace(cfg, failure_mode=branch)
+        kw["failure"] = _k3_failure(dev, seed, C, T, K, p=0.7)
+    elif branch in ("guard", "chaos", "budget"):
+        h2, reps = _planted(h2, seed, num_inf=2, num_zero=1, num_negative=1, num_nan=2)
+        cfg = dataclasses.replace(cfg, guard=GuardSpec(energy_cap=1.0) if branch == "guard"
+                                  else GuardSpec())
+        if branch == "chaos":
+            cfg = dataclasses.replace(
+                cfg, solver=register_chaos_solver("bisect", kind="objective").name)
+        if branch == "budget":
+            cfg = dataclasses.replace(
+                cfg, solver=register_chaos_solver("pallas", kind="budget", scale=1.5).name)
+    elif branch == "nan":
+        h2, reps = _planted(h2, seed, num_nan=3)
+        cfg = dataclasses.replace(cfg, guard=GuardSpec(quarantine=False))
+    else:
+        cfg = dataclasses.replace(cfg, metrics=MetricsSpec.of(*_chip_smoke().OVERHEAD_SPEC))
+    return cfg, h2, v, eta, inc, kw, reps
+
+
+def _branch_label(cfg, kw):
+    parts = [p for p, on in (("bisect", "bisect" in cfg.solver), ("topm", True),
+                             ("guard", cfg.guard is not None), ("chaos", "chaos" in cfg.solver),
+                             ("failure", "failure" in kw), ("metrics", cfg.metrics is not None),
+                             ("wide", True)) if on]
+    return "+".join(parts) + (f"/{cfg.failure_mode}" if "failure" in kw else "")
+
+
+def _assert_branch_bits(x, y, metrics=False):
+    for f in BRANCH_FIELDS:
+        a, b = getattr(x, f), getattr(y, f)
+        assert (a is None and b is None) or torch.equal(_bits(a), _bits(b)), f
+    if metrics:  # the float sums follow each block's size: held by the replay
+        assert sorted(x.metrics) == sorted(y.metrics)
+        for k in x.metrics:
+            if k.split("/")[0] not in tt.FLOAT_SUM_COLLECTORS:
+                assert torch.equal(_bits(x.metrics[k]), _bits(y.metrics[k])), k
+
+
+@pytest.mark.parametrize("branch", WIDE_BRANCHES)
+def test_k3_wide_branches_equal_the_shared_topm_instance_bitwise(dev, branch):
+    """K = 100, 4 cells x 40 rounds: the forced wide instance of each branch
+    gives the shared-memory top-m instance's bits on every output (the
+    masked P4 on the compact row at the sorted row's lanes), the guard's
+    counters the injected ones; the telemetry equal but for the float-sum
+    collectors, and held to the replay of the wide launch's rows."""
+    C, T, K = 4, 40, 100
+    cfg, h2, v, eta, inc, kw, reps = _wide_branch(dev, branch, 61, C, T, K)
+    label = _branch_label(cfg, kw)
+    before = tt.ocean_traj.instances.get(label, 0)
+    wide = tt.ocean_traj(cfg, h2, v, eta, inc, _force_wide=True, **kw)
+    shared = tt.ocean_traj(cfg, h2, v, eta, inc, **kw)
+    torch.cuda.synchronize()
+    assert tt.ocean_traj.instances[label] == before + 1
+    _assert_branch_bits(shared, wide, metrics=cfg.metrics is not None)
+    if reps is not None:
+        _assert_guard_counts(wide, reps, T)
+    if branch == "reallocate":
+        assert bool(wide.ral.any())
+    if branch == "chaos":
+        assert bool((wide.fb == 1).all())
+    if branch == "budget":  # the scaled row fails validation where m* > 0
+        assert bool(wide.fb.any())
+    if cfg.metrics is not None:
+        tt.check_metrics_replay(cfg, wide.metrics, wide, v, eta, inc)
+
+
+@pytest.mark.parametrize("branch", WIDE_BRANCHES + ("nan",))
+def test_k3_wide_branches_match_plain_past_2048(dev, branch):
+    """K = 4096, 2 cells x 4 rounds, top_m 128: each branch of the wide
+    instance (taken without being forced) against its plain version, whole
+    and every round on its own queues (``chip_smoke._wide_vs_plain``: the
+    delivered mask, the reallocation flags and the guard's counters exact
+    where the rounds select alike); fault counts the injected ones, the
+    telemetry held to the replay.  ``nan``: a NaN rho ranks as +inf, as
+    the plain extraction ranks it."""
+    C, T, K = 2, 4, 4096
+    cfg, h2, v, eta, inc, kw, reps = _wide_branch(dev, branch, 63, C, T, K, top_m=128)
+    label = _branch_label(cfg, kw)
+    before = tt.ocean_traj.instances.get(label, 0)
+    out = tt.ocean_traj(cfg, h2, v, eta, inc, **kw)
+    torch.cuda.synchronize()
+    assert tt.ocean_traj.instances[label] == before + 1
+    rec = _chip_smoke()._wide_vs_plain(torch, cfg, out, h2, v, eta, inc, f"wide {branch}",
+                                       failure=kw.get("failure"))
+    assert rec["rounds"] == C * T
+    if reps is not None and cfg.guard.quarantine:
+        _assert_guard_counts(out, reps, T)
+    if branch == "nan":
+        assert bool(out.rho.isnan().any()) and bool(out.fb.any())
+    if cfg.metrics is not None:
+        tt.check_metrics_replay(cfg, out.metrics, out, v, eta, inc)
+
+
+@pytest.mark.parametrize("stream_bf16", [False, True])
+def test_k3_wide_branch_segments_equal_the_whole_launch(dev, stream_bf16):
+    """The wide HasMetrics instance with reallocate and the guard as
+    segments (frames of 3 rounds, segments of 3 and 2; the telemetry's
+    region seeded and returned raw) equals the whole launch bit for bit, in
+    float32 and bf16."""
+    import dataclasses
+
+    from repro_torch.guard import GuardSpec
+
+    C, T, K = 2, 8, 4096
+    cfg, h2, v, eta, inc, kw, _ = _wide_branch(dev, "reallocate", 65, C, T, K, top_m=128)
+    cfg = dataclasses.replace(cfg, solver="newton", frame_len=3, guard=GuardSpec(energy_cap=1.0),
+                              metrics=_metrics_spec())
+    _k3_segmented(cfg, h2, v, eta, inc, failure=kw["failure"], every=3, stream_bf16=stream_bf16)
