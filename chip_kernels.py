@@ -26,7 +26,12 @@ segment launch of rounds 128-192 from round 128's carry (``k3_seg``, where
 the checkout has checkpoint/resume), and its wide instance on traj_bench's
 K-scaling cell, 8 cells x 8 rounds x K = 10^4, top_m 128 (``k3_wide``, where
 the checkout has it), and with pallas, newton and bisect on the §VI
-per-client load at that shape (``k3_wide_<solver>``); the §VI instance's reading also
+per-client load at that shape (``k3_wide_<solver>``), and there its ranked
+row (``k3_ranked_sort``: ranking="sort" under pallas;
+``k3_ranked_over_topm``: overprovision under top-m 128 with a drop_heavy
+mask, where the checkout has them; ``k3_ranked_topm128``: the ranked row
+forced onto ``k3_wide``'s cell, and ``k3_wide_K1e5`` /
+``k3_ranked_topm128_K1e5`` both rows on that cell at K = 10^5); the §VI instance's reading also
 carries ptxas's registers and spills (``ptxas``); K5: the long cache; K6: one 4096-channel block of jamba's mixer
 over 8192 steps; K7: the rwkv6 prefill layer, 8 x 8192 x 32 heads of 64,
 and at B = 4, 128 (b, h) chains, fewer than the card's 132 SMs) and is
@@ -218,6 +223,36 @@ def main() -> int:
             cfg_w = dataclasses.replace(ranked[0], solver=solver, ranking="topm", top_m=128)
             timed(f"k3_wide_{solver}", lambda cfg_w=cfg_w: ocean_traj(cfg_w, *ranked[1:]),
                   3 if solver == "bisect" else 5)
+        if hasattr(k3mod, "ranked_row"):  # a checkout with the wide ranked row
+            # sort under pallas, and overprovision under top-m 128 with a
+            # drop_heavy mask (p_deliver 0.7), on the same cells
+            cfg_s = dataclasses.replace(ranked[0], solver="pallas", ranking="sort")
+            timed("k3_ranked_sort", lambda: ocean_traj(cfg_s, *ranked[1:]), 5)
+            over = dataclasses.replace(cfg_s, ranking="topm", top_m=128,
+                                       failure_mode="overprovision")
+            drop = cs._drop_heavy(torch, np, dev, 8, 8, 10_000, seed=10_000)
+            timed("k3_ranked_over_topm",
+                  lambda: ocean_traj(over, *ranked[1:], failure=drop), 5)
+            del drop
+
+            def forced(fn):
+                """``fn`` with the ranked row taken for any configuration."""
+                def run():
+                    keep = k3mod.ranked_row
+                    k3mod.ranked_row = lambda cfg, failure=False: True
+                    try:
+                        return fn()
+                    finally:
+                        k3mod.ranked_row = keep
+                return run
+
+            # the ranked row on the compact row's traffic: traj_bench's
+            # K-scaling cell (top-m 128), and the same at K = 10^5
+            timed("k3_ranked_topm128", forced(lambda: ocean_traj(*wide)), 5)
+            wide5 = cs._kscale_inputs(torch, np, dev, 8, 8, 100_000, seed=100_000)
+            timed("k3_wide_K1e5", lambda: ocean_traj(*wide5), 5)
+            timed("k3_ranked_topm128_K1e5", forced(lambda: ocean_traj(*wide5)), 3)
+            del wide5
         del wide, ranked
 
     qd, kc, vc, vl = cs._k5_inputs(torch, dev, 4, 8192, 32, 16, 128, 8000)

@@ -27,6 +27,13 @@ failure, guard, chaos and telemetry branches through ``run_grid`` and
 ``simulate`` (segmented and resumed telemetry runs bit for bit the whole
 one); K = 10^5 with
 ``stream_bf16`` through ``simulate``, its bf16 rows the float32 rows cast.
+Then K3's wide ranked row (phase ``k3_ranked``): ranking="sort", a top-m
+clip past 2048 and overprovision, sorted inside the kernel, bit for bit
+the shared-memory instances at K = 100 and 2048 and held to the plain
+rounds at K = 10^4 (traj_bench's K-scaling cell under sort beside the
+scan path's K1 rounds, its round cell against top-m 128, overprovision
+through ``run_grid`` under top-m, sort and the energy cap, a clip of
+4096).
 
 Then the LM serving path at gemma2-27b's full width and depth (46 layers,
 27.2e9 random bf16 parameters from a seed): K4 and K5 against their plain
@@ -757,7 +764,7 @@ def ops_waterfill(n, outer, inner, grid):
 
 
 def k3_bound(torch, rho, radio=False, failure=False, solves=(), bisect=False, guard=False,
-             fallback=None, newton=False, n_cands=None, wide=False, row_bytes=4):
+             fallback=None, newton=False, n_cands=None, wide=False, row_bytes=4, ranked=False):
     """K3's bound on (C, T, K) priorities: per cell-round the sweep runs
     K - n0 candidates, at most ``n_cands`` (the top-m clip; K1's Newton, or
     with ``bisect`` the bisect sweep, with ``newton`` the newton sweep and
@@ -765,7 +772,9 @@ def k3_bound(torch, rho, radio=False, failure=False, solves=(), bisect=False, gu
     the sort is P log2(P)(log2(P)+1)/4 exchanges; the ``wide`` instances
     (csrc/ocean_traj_wide.cuh) sort only the clip's list, n_cands padded to a
     power of two (its keys and appends are in the ~30 K operations a round
-    every instance counts).  The b, e, q_pre and rho rows take
+    every instance counts), but on the ``ranked`` row, which sorts all K
+    keys (P the power of two above K) and writes and reads each client's
+    key, rank and ranked priority once a round (20 bytes).  The b, e, q_pre and rho rows take
     ``row_bytes`` a value (2 under stream_bf16).  The streamed-radio
     instance also reads 3 floats a cell-round; the failure instance reads
     the (C, T, K) mask and (C, K) rates, writes the delivered mask and the
@@ -784,7 +793,7 @@ def k3_bound(torch, rho, radio=False, failure=False, solves=(), bisect=False, gu
         per_round = torch.clamp(per_round, max=n_cands)
     counts = per_round.reshape(-1).tolist()
     Pp = max(32, 1 << (K - 1).bit_length())
-    if wide:
+    if wide and not ranked:
         Pp = 1 << (min(n_cands, K) - 1).bit_length()
     lg = int(math.log2(Pp))
     sort_ops = Pp * lg * (lg + 1) // 4 * 8
@@ -796,6 +805,8 @@ def k3_bound(torch, rho, radio=False, failure=False, solves=(), bisect=False, gu
         ops = ops_sweep(counts, OUTER_ITERS, INNER_ITERS)
     ops += C * T * (sort_ops + 30 * K)
     n_bytes = C * T * K * (4 * 2 + row_bytes * 4 + 1) + C * T * 4 * 4 + C * K * 4 * 2
+    if ranked:
+        n_bytes += C * T * K * 20
     if guard:
         n_bytes += K * 4 + C * T * 3 * 4
         ops += C * T * 20 * K
@@ -1001,20 +1012,31 @@ BRANCH_ROWS = ("delivered", "realloc", "fault_count", "demoted", "fallback")
 # its backends on random radios holds them to each other
 # (tests/test_solvers.py:76-101): the same selection and sum(b) within
 # FLAT_SUM_ATOL; beyond it, P3 no more than one float32 ulp short of the
-# optimum's and b within FLAT_B_ATOL of it.
+# optimum's and b within FLAT_B_ATOL of it.  Under overprovision, whose
+# extended set is re-solved, the optimum is that set's masked P4
+# (``_masked_witness``).  Only where a caller asks: with ``flat64`` (the
+# ranked row's runs with ~10^4 clients selected, whose float32 P3 outputs
+# carry a 10^4-term cost sum's order) a round is also flat by its two
+# allocations' P3 values in float64 (``_p3_64``); with ``resolvable`` (the
+# clip of 4096 on the §VI per-client load, ROADMAP Queue 3) also a flat
+# round's b is held within the deviation that moves the client's cost term
+# by one float32 ulp of P3 where that exceeds FLAT_B_ATOL, at most
+# FLAT_B_CAP (``_b_resolvable``).
 FLAT_W_RTOL = 1e-6
 FLAT_ITERS = 60
 FLAT_SUM_ATOL = 1e-5
 FLAT_B_ATOL = 10 * B_ATOL
+FLAT_B_CAP = 0.1
 
 
-def _flat_witness(torch, cfg, rows, got, pl, q_pre, h2, v, eta):
+def _flat_witness(torch, cfg, rows, got, pl, q_pre, h2, v, eta, resolvable=False):
     """The float64 optimum of the rounds ``rows`` (indices into the C x T
     cell-rounds) beside K3's ``got`` and the plain round's ``pl``: per
     round, whether K3 selects as the optimum does, each side's max |b -
     b64| and |sum(b) - sum(b64)|, and each side's float64 P3 shortfall
-    from the optimum in float32 ulps of the optimum's P3."""
-    from repro_torch.core.selection import ocean_p, p3_value
+    from the optimum in float32 ulps of the optimum's P3; with
+    ``resolvable``, each side's max |b - b64| over ``_b_resolvable``'s."""
+    from repro_torch.core.selection import ocean_p, p3_value, priorities
 
     C, T, K = h2.shape
     f64 = torch.float64
@@ -1029,12 +1051,100 @@ def _flat_witness(torch, cfg, rows, got, pl, q_pre, h2, v, eta):
     w32 = w64.abs().float()
     ulp = (torch.nextafter(w32, torch.full_like(w32, math.inf)) - w32).to(f64)
     out = dict(rounds=rows.tolist(), same_a=(got.a.reshape(-1, K)[rows] == sol.a).all(1).tolist())
+    res = _b_resolvable(torch, cfg, priorities(q, hh), sol.b, ulp) if resolvable else None
     for name, a, b in (("kernel", got.a.reshape(-1, K)[rows], got.b.reshape(-1, K)[rows]),
                        ("plain", pl["a"][rows], pl["b"][rows])):
         b = b.to(f64)
         out[f"{name}_b_off"] = (b - sol.b).abs().amax(1).tolist()
+        if res is not None:
+            out[f"{name}_b_excess"] = ((b - sol.b).abs() / res).amax(1).tolist()
         out[f"{name}_sum_off"] = (b.sum(1) - sol.b.sum(1)).abs().tolist()
         out[f"{name}_p3_short_ulps"] = ((w64 - p3_value(a, b, q, hh, vv, ee, cfg.radio))
+                                        / ulp).tolist()
+    return out
+
+
+def _b_resolvable(torch, cfg, rho, b64, ulp):
+    """Per client, how far from the float64 optimum ``b64`` a flat round's
+    b is held under ``resolvable``: FLAT_B_ATOL, or where larger the
+    deviation that moves the client's P3 cost term by one float32 ulp
+    ``ulp`` of the optimum's P3 at its curvature, sqrt(2 ulp / (scale rho
+    f''(b64))), at most FLAT_B_CAP.  Where f is flat in b (b >> beta:
+    f(b) -> beta ln 2) no float32 sweep resolves b finer, the plain
+    version's neither (ROADMAP Queue 3); zero-rho clients stay at
+    FLAT_B_ATOL."""
+    beta = torch.as_tensor(cfg.radio.beta, dtype=torch.float64)
+    scale = float(cfg.radio.energy_scale)
+    bb = torch.clamp(b64, min=1e-30)
+    f2 = math.log(2.0) ** 2 * torch.exp2(torch.clamp(beta / bb, max=80.0)) * beta ** 2 / bb ** 3
+    dev = torch.sqrt(2.0 * ulp[:, None] / (scale * rho * f2))
+    dev = torch.where((rho > 1e-30) & (b64 > 0), dev, torch.zeros_like(dev))
+    return torch.clamp(torch.nan_to_num(dev, nan=0.0, posinf=FLAT_B_CAP), min=FLAT_B_ATOL,
+                       max=FLAT_B_CAP)
+
+
+def _p3_64(torch, cfg, rows, *allocs, q_pre, h2, v, eta):
+    """The float64 P3 value of each (a, b) allocation in ``allocs`` ((C*T,
+    K) rows) on the cell-rounds ``rows`` of the (C, T, K) queues, with the
+    frame reset and the guard's quarantine applied as the round applies
+    them."""
+    from repro_torch.core.selection import p3_value
+
+    C, T, K = h2.shape
+    f64 = torch.float64
+    t = rows % T
+    q = q_pre.reshape(-1, K)[rows].to(f64)
+    q = torch.where(((t > 0) & (t % cfg.R == 0))[:, None], torch.zeros_like(q), q)
+    hh = h2.reshape(-1, K)[rows].to(f64)
+    if cfg.guard is not None and cfg.guard.quarantine:
+        hh = torch.where(torch.isfinite(hh) & (hh > 0), hh, torch.ones_like(hh))
+    vv, ee = (x.reshape(-1)[rows].to(f64) for x in (v, eta))
+    return [p3_value(a[rows], b[rows].to(f64), q, hh, vv, ee, cfg.radio) for a, b in allocs]
+
+
+def _masked_witness(torch, cfg, rows, got, pl, q_pre, h2, v, eta, resolvable=False):
+    """``_flat_witness`` for a failure mode that re-solves the selected set
+    (overprovision's extended prefix): the float64 optimum of the masked
+    P4 of the rounds' selected set ``got.a`` (the bisect solve_p4,
+    FLAT_ITERS halvings; the set's zero-rho members split as
+    ``core.ocean._masked_p4`` splits them), the kernel's and the plain
+    round's b and P3 value beside it.  ``same_a``: the kernel's set is the
+    plain round's; ``resolvable`` as there."""
+    from repro_torch.core.bandwidth import solve_p4
+    from repro_torch.core.selection import p3_value, priorities
+
+    C, T, K = h2.shape
+    f64 = torch.float64
+    t = rows % T
+    q = q_pre.reshape(-1, K)[rows].to(f64)
+    q = torch.where(((t > 0) & (t % cfg.R == 0))[:, None], torch.zeros_like(q), q)
+    hh = h2.reshape(-1, K)[rows].to(f64)
+    if cfg.guard is not None and cfg.guard.quarantine:
+        hh = torch.where(torch.isfinite(hh) & (hh > 0), hh, torch.ones_like(hh))
+    vv, ee = (x.reshape(-1)[rows].to(f64) for x in (v, eta))
+    a = got.a.reshape(-1, K)[rows]
+    rho = priorities(q, hh)
+    in_s0 = rho <= 1e-30
+    n0 = (a & in_s0).sum(1).to(f64)
+    delta = 1.0 - n0 * cfg.radio.b_min
+    pos = a & ~in_s0
+    b_pos, _ = solve_p4(rho, pos, delta, cfg.radio, FLAT_ITERS, FLAT_ITERS)
+    left = torch.where(pos.sum(1) == 0, delta, torch.zeros_like(delta))
+    b0 = cfg.radio.b_min + left / torch.clamp(n0, min=1.0)
+    b64 = torch.where(pos, b_pos, torch.where(a & in_s0, b0[:, None], torch.zeros_like(b_pos)))
+    w64 = p3_value(a, b64, q, hh, vv, ee, cfg.radio)
+    w32 = w64.abs().float()
+    ulp = (torch.nextafter(w32, torch.full_like(w32, math.inf)) - w32).to(f64)
+    out = dict(rounds=rows.tolist(), same_a=(a == pl["a"][rows]).all(1).tolist())
+    res = _b_resolvable(torch, cfg, rho, b64, ulp) if resolvable else None
+    for name, aa, b in (("kernel", a, got.b.reshape(-1, K)[rows]),
+                        ("plain", pl["a"][rows], pl["b"][rows])):
+        b = b.to(f64)
+        out[f"{name}_b_off"] = (b - b64).abs().amax(1).tolist()
+        if res is not None:
+            out[f"{name}_b_excess"] = ((b - b64).abs() / res).amax(1).tolist()
+        out[f"{name}_sum_off"] = (b.sum(1) - b64.sum(1)).abs().tolist()
+        out[f"{name}_p3_short_ulps"] = ((w64 - p3_value(aa, b, q, hh, vv, ee, cfg.radio))
                                         / ulp).tolist()
     return out
 
@@ -1044,28 +1154,57 @@ def _nan_as_nan(torch, x, y, d):
     return torch.where(x.isnan() & y.isnan(), torch.zeros_like(d), d)
 
 
+def _n_cands(cfg):
+    """The sweep's candidates under ``cfg``'s ranking: the clip, or all K."""
+    K = cfg.num_clients
+    return min(cfg.top_m, K) if cfg.ranking == "topm" else K
+
+
+def _plain_chunk(cfg, rho, cap=16):
+    """Cell-rounds a plain-round batch may hold: its sweep's (rows, M, K)
+    tensors within NEAR_ELEMS elements, M the candidates the rounds of the
+    (C, T, K) priorities ``rho`` sweep (``sweep_cands``: one past the
+    largest K - n0, at most the clip)."""
+    K = rho.shape[-1]
+    m = min(int((rho > 1e-30).sum(-1).max()), _n_cands(cfg)) + 2
+    return max(1, min(cap, NEAR_ELEMS // (m * K)))
+
+
 def _hold_to_plain(torch, cfg, got, q_pre, h2, v, eta, inc, what, same_selection=False,
-                   failure=None):
+                   failure=None, chunk=160, near_all=True, flat64=False, resolvable=False):
     """Contract (b): K3's one-round outputs ``got`` ((C, T, ...)) against the
     plain round on the same queues: selections and counts exact outside
     near ties (margins of the plain K1 sweep over the clip's candidates),
     the P3 value within W_RTOL x (|P3| + v eta) and b within B_ATOL there
     (``same_selection``: also on the near-tie rounds that select alike);
     flat rounds (FLAT_W_RTOL) are counted and held to the float64 optimum
-    (``_flat_witness``).  A NaN (W, or b) beside a NaN counts as equal.
+    (``_flat_witness``; under overprovision, whose extended set is
+    re-solved, ``_masked_witness``).  A NaN (W, or b) beside a NaN counts
+    as equal.
+    ``near_all=False`` (with ``same_selection``) computes the near ties of
+    the flipped rounds only, all a held round needs (at K = 10^4 under sort
+    a round's plain sweep takes about a second).
+    ``flat64``, ``resolvable`` (which implies it): flat rounds as the
+    comment above FLAT_W_RTOL says.
     With ``failure`` (a TracedFailure) or a guard, the delivered mask, the
     reallocation flags and the guard's counters exact on every round that
     selects alike."""
     C, T, K = h2.shape
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    pl = _plain_rounds(torch, cfg, q_pre, h2, v, eta, inc, failure=failure)
+    pl = _plain_rounds(torch, cfg, q_pre, h2, v, eta, inc, chunk=chunk, failure=failure)
     torch.cuda.synchronize()
     plain_rounds_ms = 1e3 * (time.perf_counter() - t0)
     v_eta = (v * eta).reshape(-1)
-    n_cands = min(cfg.top_m, K) if cfg.ranking == "topm" else K
-    near = _near_rounds(torch, got.rho.reshape(-1, K), v_eta, cfg.radio, n_cands=n_cands)
     flip = (got.a.reshape(-1, K) != pl["a"]).any(1) | (got.nsel.reshape(-1) != pl["num_selected"])
+    if near_all or not same_selection:
+        near = _near_rounds(torch, got.rho.reshape(-1, K), v_eta, cfg.radio,
+                            n_cands=_n_cands(cfg))
+    else:
+        near = torch.zeros_like(flip)
+        if bool(flip.any()):
+            near[flip] = _near_rounds(torch, got.rho.reshape(-1, K)[flip], v_eta[flip],
+                                      cfg.radio, n_cands=_n_cands(cfg))
     check(not bool((flip & ~near).any()),
           f"{what}: {int((flip & ~near).sum())} rounds select differently outside near ties")
     for f, g in zip(BRANCH_FIELDS, BRANCH_ROWS):
@@ -1083,16 +1222,33 @@ def _hold_to_plain(torch, cfg, got, q_pre, h2, v, eta, inc, what, same_selection
     b = got.b.reshape(-1, K)
     db = _nan_as_nan(torch, b, pl["b"], (b - pl["b"]).abs()).amax(1)
     flat = ok & (db > B_ATOL) & (rel <= FLAT_W_RTOL)
-    err_b = db[ok & ~flat].max().item()
-    check(err_b <= B_ATOL, f"{what}: max |b - b_plain| = {err_b}")
+    apart = (ok & (db > B_ATOL) & ~flat).nonzero().reshape(-1)
+    if (flat64 or resolvable) and apart.numel():
+        # the float32 P3 outputs also carry their cost sums' order (a sum of
+        # up to K terms); a round whose two allocations' P3 values agree
+        # within FLAT_W_RTOL evaluated in float64 is flat as well
+        w_k, w_p = _p3_64(torch, cfg, apart, (got.a.reshape(-1, K), b), (pl["a"], pl["b"]),
+                          q_pre=q_pre, h2=h2, v=v, eta=eta)
+        flat[apart] = (w_k - w_p).abs() <= FLAT_W_RTOL * (w_p.abs() + v_eta[apart].double())
+    err_b = db[ok & ~flat].max().item() if bool((ok & ~flat).any()) else 0.0
+    resolves = failure is not None and cfg.failure_mode == "overprovision"
+    if err_b > B_ATOL:  # the rounds beside the float64 optimum, for the record
+        off = (ok & ~flat & (db > B_ATOL)).nonzero().reshape(-1)
+        seen = (_masked_witness if resolves else _flat_witness)(
+            torch, cfg, off[:8], got, pl, q_pre, h2, v, eta)
+        seen.update(rel_obj=rel[off[:8]].tolist(), nsel=got.nsel.reshape(-1)[off[:8]].tolist(),
+                    n0=(got.rho.reshape(-1, K)[off[:8]] <= 1e-30).sum(1).tolist())
+        check(False, f"{what}: max |b - b_plain| = {err_b}: {seen}")
     witness = None
     if bool(flat.any()):
-        witness = _flat_witness(torch, cfg, flat.nonzero().reshape(-1), got, pl, q_pre, h2,
-                                v, eta)
+        witness = (_masked_witness if resolves else _flat_witness)(
+            torch, cfg, flat.nonzero().reshape(-1), got, pl, q_pre, h2, v, eta,
+            resolvable=resolvable)
         check(all(witness["same_a"])
               and max(witness["kernel_sum_off"]) <= FLAT_SUM_ATOL
               and max(witness["kernel_p3_short_ulps"]) <= 1.0
-              and max(witness["kernel_b_off"]) <= FLAT_B_ATOL,
+              and (max(witness["kernel_b_excess"]) <= 1.0 if resolvable
+                   else max(witness["kernel_b_off"]) <= FLAT_B_ATOL),
               f"{what}: a flat round is off the float64 optimum: {witness}")
     return dict(rounds=C * T, plain_rounds_ms=plain_rounds_ms, near_tie_rounds=int(near.sum()),
                 flipped_rounds=int(flip.sum()),
@@ -1273,7 +1429,8 @@ def _modulated_radio(torch, np, dev, cfg, C, T, seed):
                           energy_scale=radio.deadline_s * radio.noise_w * bw)
 
 
-def _wide_vs_plain(torch, cfg, out, h2, v, eta, inc, what, failure=None, whole=True):
+def _wide_vs_plain(torch, cfg, out, h2, v, eta, inc, what, failure=None, whole=True,
+                   chunk=160, near_all=True, flat64=False, resolvable=False):
     """A wide launch's outputs ``out`` against ``ocean_traj_plain``: every
     round on the launch's own queues through ``rounds_alone`` (bit for bit
     the whole launch's rows) and ``_hold_to_plain`` (b within B_ATOL and P3
@@ -1301,7 +1458,8 @@ def _wide_vs_plain(torch, cfg, out, h2, v, eta, inc, what, failure=None, whole=T
             and not _same_bits(torch, getattr(rounds, f), getattr(out, f))]
     check(not diff, f"{what}: one-round launches differ from the whole launch: {diff}")
     rec = _hold_to_plain(torch, cfg, rounds, out.q_pre, h2, v, eta, inc, what,
-                         same_selection=True, failure=failure)
+                         same_selection=True, failure=failure, chunk=chunk,
+                         near_all=near_all, flat64=flat64, resolvable=resolvable)
     rec.update(plain_ms=rec["plain_rounds_ms"], plain_rounds=T,
                mean_selected=out.nsel.float().mean().item())
     if not whole:
@@ -1312,13 +1470,14 @@ def _wide_vs_plain(torch, cfg, out, h2, v, eta, inc, what, failure=None, whole=T
     torch.cuda.synchronize()
     rec["plain_ms"] = 1e3 * (time.perf_counter() - t0)
     near = _near_rounds(torch, out.rho.reshape(-1, K), (v * eta).reshape(-1), cfg.radio,
-                        n_cands=min(cfg.top_m, K)).reshape(C, T).any(1)
+                        n_cands=_n_cands(cfg)).reshape(C, T).any(1)
     same = (out.a == plain.a).flatten(1).all(1) & (out.nsel == plain.nsel).all(1)
     check(bool((same | near).all()),
           f"{what}: {int((~same & ~near).sum())} cells select unlike the plain version "
           f"without a near tie")
     dq = _nan_as_nan(torch, out.q_final, plain.q_final, (out.q_final - plain.q_final).abs())
-    over = (dq - Q_ATOL - Q_RTOL * plain.q_final.abs())[same].max().item()
+    qa = torch.nan_to_num(plain.q_final.abs())  # a NaN queue beside a NaN one: held by dq
+    over = (dq - Q_ATOL - Q_RTOL * qa)[same].max().item()
     check(over <= 0, f"{what}: final queues differ by {dq[same].max().item()}")
     for f in BRANCH_FIELDS:
         if getattr(out, f) is not None:
@@ -1786,7 +1945,9 @@ def phase_k3_wide(torch, np, dev, smi, equal=((100, 4, 40), (2048, 4, 40)), big=
         out = ocean_traj(cfg, h2, v, eta, inc)
         torch.cuda.synchronize()
         launches = _counts()["ocean_traj_instances"].get(WIDE_LABELS[solver], 0)
-        rec = _wide_vs_plain(torch, cfg, out, h2, v, eta, inc, what)
+        # the bisect run's rounds only (its whole plain run took 8.5 s of
+        # the script; the other solvers hold the whole trajectories)
+        rec = _wide_vs_plain(torch, cfg, out, h2, v, eta, inc, what, whole=solver != "bisect")
         ms_ = m_star(out.nsel, out.rho)
         rec.update(mean_m_star=ms_.float().mean().item(),
                    saturated_rounds=int((ms_ == top_m).sum()),
@@ -1884,6 +2045,598 @@ def phase_k3_wide(torch, np, dev, smi, equal=((100, 4, 40), (2048, 4, 40)), big=
                phase_s=time.perf_counter() - t_phase)
     emit({"phase": "k3_wide", **out})
     return out
+
+
+# ---------------------------------------------------------------------------
+# K3's wide ranked row: ranking="sort", a clip past 2048, overprovision
+# ---------------------------------------------------------------------------
+# the ranked row's launches, by path: the labels ocean_traj counts them under
+RANKED_ROW_LABELS = {
+    "sort": "wide+ranked",
+    "over_sort": "failure+wide+ranked/overprovision",
+    "over_topm": "topm+failure+wide+ranked/overprovision",
+    "over_cap": "guard+failure+wide+ranked/overprovision",
+    "clip": "topm+wide+ranked",
+    "clip_vi": "topm+wide+ranked",
+    "metrics": "topm+failure+metrics+wide+ranked/overprovision",
+}
+
+
+def _ranked_cfgs(cfg, top_m):
+    """The ranked row's configurations of the bit checks on ``cfg``: under
+    sort, pallas / newton / bisect, the streamed radio (``radio``), each
+    failure mode (launched with a drop_heavy mask), the robustness sweep's
+    guard with the energy cap 1, objective chaos of bisect under that guard,
+    the overhead spec and a segment launch; under top-m, overprovision."""
+    from repro_torch.guard import GuardSpec, register_chaos_solver
+    from repro_torch.obs import MetricsSpec
+
+    base = dataclasses.replace(cfg, solver="pallas", ranking="sort", traj="fused")
+    guard = GuardSpec(quarantine=True, fallback=True)
+    return {
+        "pallas": base,
+        "newton": dataclasses.replace(base, solver="newton"),
+        "bisect": dataclasses.replace(base, solver="bisect"),
+        "radio": base,
+        "failure/plain": dataclasses.replace(base, failure_mode="plain"),
+        "failure/overprovision": dataclasses.replace(base, failure_mode="overprovision"),
+        "failure/reallocate": dataclasses.replace(base, failure_mode="reallocate"),
+        "guard+cap": dataclasses.replace(base, guard=dataclasses.replace(guard, energy_cap=1.0)),
+        "chaos": dataclasses.replace(
+            base, guard=guard, solver=register_chaos_solver("bisect", kind="objective").name),
+        "metrics": dataclasses.replace(base, metrics=MetricsSpec.of(*OVERHEAD_SPEC)),
+        "segment": base,
+        "topm/overprovision": dataclasses.replace(base, ranking="topm", top_m=top_m,
+                                                  failure_mode="overprovision"),
+    }
+
+
+def _call_ms(torch, fn, kernel=None):
+    """One warm call of ``fn``: (its result, ms between CUDA events, device
+    ms from a profiler reading of the same call: its kernels' time, or
+    those whose name holds ``kernel``; None where the reading holds none).
+    For launches of seconds, where ``gpu_ms`` and ``device_ms`` would take
+    eight calls."""
+    from torch.autograd import DeviceType
+
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    with profiled(torch, PROFILE_PAD_S[0]) as prof:
+        t0.record()
+        res = fn()
+        t1.record()
+    ms = t0.elapsed_time(t1)
+    dev_us = sum(getattr(e, "self_device_time_total", 0) for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA and (kernel is None or kernel in e.key))
+    return res, ms, (dev_us / 1e3 if dev_us > 0 else None)
+
+
+def _timed(torch, fn, slow_ms=1000.0):
+    """(ms, device ms, the share of launches the profiler recorded) of a
+    warm ``fn``: ``gpu_ms`` and ``device_ms`` over 3 calls, or for a call
+    of ``slow_ms`` or more one call's (``_call_ms``; its device ms the
+    events' where the profiler recorded nothing, the share then 0)."""
+    _, ms, dms = _call_ms(torch, fn)
+    if ms >= slow_ms:
+        return ms, (ms if dms is None else dms), 0.0 if dms is None else 1.0
+    dms, _, seen = device_ms(torch, fn, 3)
+    return gpu_ms(torch, fn, 3), dms, seen
+
+
+def _ranked_row(torch, cfg, out, label, launches, run, held, **bound_kw):
+    """A ranked-row instance's reading for the kernels line: ms and device
+    ms (``_timed``), its launches on the phase's path, its
+    bound (``k3_bound`` with ``ranked``: the sort of all K keys and the
+    sweep of K - n0 candidates, or the clip's) and the plain ms of its
+    held rounds."""
+    C, T, K = out.rho.shape
+    ms, dms, seen = _timed(torch, run)
+    n_cands = min(cfg.top_m, K) if cfg.ranking == "topm" else None
+    row = dict(label=label, launches=launches, ms=ms, device_ms=dms, device_records_seen=seen,
+               shape=f"{C} cells x {T} rounds x K = {K}"
+               + (f", top_m {cfg.top_m}" if n_cands else ", sort"),
+               plain_ms=held["plain_ms"], plain_rounds=held["plain_rounds"])
+    row.update(zip(("bound_ms", "bound_by", "ops", "bytes"),
+                   k3_bound(torch, out.rho.float(), n_cands=n_cands, wide=True, ranked=True,
+                            **bound_kw)))
+    return row
+
+
+def _over_solves(torch, out):
+    """The masked P4s a failure run's data needed: per re-solved round
+    (overprovision extended it, or reallocate lost a client) its
+    positive-rho members (k3_bound's ``solves``)."""
+    pos = out.rho > 1e-30
+    if out.ral is not None and bool(out.ral.any()):
+        return (out.dlv & pos).sum(-1)[out.ral > 0].tolist()
+    return (out.a & pos).sum(-1).reshape(-1).tolist()
+
+
+def _ranked_bits(torch, np, dev, equal, top_m):
+    """Phase k3_ranked (a): the ranked row bit for bit the shared-memory
+    instances (``phase_k3_ranked``)."""
+    from repro_torch.core.ocean import OceanState
+    from repro_torch.kernels.ocean_traj import (
+        FLOAT_SUM_COLLECTORS, check_metrics_replay, m_star, ocean_traj, ranked_row)
+
+    # (a) bit for bit the shared-memory instances
+    bits = {}
+    for K, C, T in equal:
+        cfg, h2, v, eta, inc = _k3_ranked_inputs(torch, np, dev, C, T, K, seed=K + 13)
+        fail = _drop_heavy(torch, np, dev, C, T, K, seed=K + 13)
+        radio = _modulated_radio(torch, np, dev, cfg, C, T, seed=K + 13)
+        h2_bad, expected = _faulty_cells(torch, h2, K + 13, WIDE_INJECT)
+        for name, rc in _ranked_cfgs(cfg, top_m).items():
+            kw = dict(failure=fail) if "overprovision" in name or name.startswith("failure") \
+                else dict(radio=radio) if name == "radio" else {}
+            hh = h2_bad if rc.guard is not None else h2
+            what = f"k3_ranked K={K} {name}"
+            check(ranked_row(rc, "failure" in kw), f"{what}: not a ranked-row configuration")
+            if name == "segment":  # rounds T/2.. from the shared launch's carry there
+                t0 = T // 2
+                z = torch.zeros((C, K), device=dev)
+                first = ocean_traj(rc, *(x[:, :t0].contiguous() for x in (hh, v, eta, inc)),
+                                   init_state=OceanState(q=z, t=torch.zeros(
+                                       (C,), dtype=torch.int32, device=dev), energy_spent=z))
+                st = OceanState(q=first.q_final, t=torch.full((C,), t0, dtype=torch.int32,
+                                                              device=dev),
+                                energy_spent=first.es_final)
+                args = [x[:, t0:].contiguous() for x in (hh, v, eta, inc)]
+                shared = ocean_traj(rc, *args, init_state=st)
+                wide = ocean_traj(rc, *args, init_state=st, _force_wide=True)
+            else:
+                shared = ocean_traj(rc, hh, v, eta, inc, **kw)
+                wide = ocean_traj(rc, hh, v, eta, inc, _force_wide=True, **kw)
+            diff = [f for f in WIDE_FIELDS + BRANCH_FIELDS
+                    if not ((getattr(shared, f) is None and getattr(wide, f) is None)
+                            or _same_bits(torch, getattr(shared, f), getattr(wide, f)))]
+            rec = dict(rounds=C * T, mean_m_star=m_star(wide.nsel, wide.rho).float().mean().item())
+            if diff == ["obj"] and rc.failure_mode == "overprovision" and "failure" in kw:
+                # an extended round's P3 value: its cost is a block sum over
+                # the ranked slots, in the order of the block's thread count
+                odd = (shared.obj.view(torch.int32) != wide.obj.view(torch.int32))
+                bare = ocean_traj(dataclasses.replace(rc, failure_mode="plain"), hh, v, eta, inc,
+                                  _force_wide=True, **kw)
+                check(bool((wide.nsel[odd] != bare.nsel[odd]).all()),
+                      f"{what}: P3 values differ on rounds the extension did not grow")
+                held_obj = _hold_to_plain(torch, rc, wide, wide.q_pre, hh, v, eta, inc,
+                                          what, same_selection=True, failure=fail, chunk=16)
+                rec.update(obj_rounds_not_bitwise=int(odd.sum()),
+                           obj_held_max_rel_err=held_obj["max_rel_err_obj"])
+                diff = []
+            check(not diff, f"{what}: the ranked row differs from the shared instance in {diff}")
+            if rc.metrics is not None:
+                odd = [k for k in wide.metrics if k.split("/")[0] not in FLOAT_SUM_COLLECTORS
+                       and not _same_bits(torch, wide.metrics[k], shared.metrics[k])]
+                check(not odd, f"{what}: telemetry differs in {odd}")
+                check_metrics_replay(rc, wide.metrics, wide, v, eta, inc)
+                rec["float_sums_bitwise"] = all(
+                    _same_bits(torch, wide.metrics[k], shared.metrics[k]) for k in wide.metrics)
+            if rc.guard is not None:
+                check(torch.equal(wide.fc, expected), f"{what}: fault counts")
+                rec.update(fallback_rounds=int(wide.fb.sum()), demoted=int(wide.dm.sum()))
+            if rc.failure_mode == "overprovision" and "failure" in kw:
+                bare = ocean_traj(dataclasses.replace(rc, failure_mode="plain"), hh, v, eta, inc,
+                                  _force_wide=True, **kw)
+                rec["extended_rounds"] = int((wide.nsel > bare.nsel).sum())
+                check(bool((wide.nsel >= bare.nsel).all()), f"{what}: a prefix shrank")
+            if rc.failure_mode == "reallocate" and "failure" in kw:
+                rec["realloc_rounds"] = int(wide.ral.sum())
+            bits[f"K={K} {name}"] = rec
+    return bits
+
+
+def _ranked_kscale(torch, np, dev, big, whole_cells, lib, part):
+    """Phase k3_ranked (b): traj_bench's K-scaling cell under sort
+    (``phase_k3_ranked``); the comparison with the scan path, the held
+    rounds and the sort instance's row; ``part(name)`` records the
+    breakdown.  The scan path runs each cell-round once, all in one batch
+    on the fused grid's queues: its grid would take minutes (K1 holds its
+    rows in shared memory, so at K = 10^4 a block has 2 warps and a round
+    of 10^4 candidates takes ~50 s; eight of them in turn)."""
+    from repro_torch.core.energy import RadioParams
+    from repro_torch.core.ocean import OceanState, ocean_round
+    from repro_torch.core.patterns import eta_schedule
+    from repro_torch.core.scenario import Scenario
+    from repro_torch.kernels.ocean_traj import rounds_alone
+    from repro_torch.sim import GridEngine, run_grid
+    in_smem = ctypes.c_int(0)
+
+    # (b) traj_bench's K-scaling cell under sort through run_grid, under the
+    # profiler (its one launch is the row's reading)
+    Kb, Cb, Tb = big
+    scen = [Scenario(name="kscale", num_clients=Kb, num_rounds=Tb,
+                     radio=RadioParams(b_min=0.1 / Kb))]
+    gkw = dict(solver="pallas", ranking="sort", device=dev)
+    _reset_counts()
+    t0 = time.perf_counter()
+    gf, fused_ms, fused_dms = _call_ms(
+        torch, lambda: run_grid(scen, ["ocean-u"], range(Cb), traj="fused", **gkw),
+        kernel="ocean_traj_wide")
+    wall = time.perf_counter() - t0
+    glaunch = {"fused": _counts()}
+    check(glaunch["fused"]["ocean_traj_instances"] == {RANKED_ROW_LABELS["sort"]: 1}
+          and glaunch["fused"]["ocean_p_prefix"] == 0,
+          f"k3_ranked: the fused K={Kb} sort grid's launches {glaunch['fused']}")
+    part("b: the fused grid")
+    gcfg = GridEngine(scen, ["ocean-u"], traj="fused", **gkw).cfg
+    h2g = gf.h2.reshape(Cb, Tb, Kb).contiguous()
+    incg = gf.budget_inc.reshape(Cb, Tb, Kb).contiguous()
+    vg = torch.full((Cb, Tb), V_PAPER, device=dev)
+    etag = eta_schedule("uniform", Tb, device=dev).expand(Cb, Tb).contiguous()
+    q_f = gf.q[0].reshape(Cb, Tb, Kb).contiguous()
+    # the scan path's round (argsort and K1, what traj="scan" runs each
+    # round) on every cell-round of the fused grid's queues, in one batch
+    CT = Cb * Tb
+    _reset_counts()
+    _, dec = ocean_round(
+        OceanState(q=q_f.reshape(CT, Kb), t=torch.arange(Tb, dtype=torch.int32,
+                                                          device=dev).repeat(Cb),
+                   energy_spent=torch.zeros((CT, Kb), device=dev)),
+        h2g.reshape(CT, Kb), vg.reshape(-1), etag.reshape(-1),
+        dataclasses.replace(gcfg, traj="scan"), budget_inc=incg.reshape(CT, Kb))
+    torch.cuda.synchronize()
+    glaunch["scan"] = _counts()
+    check(glaunch["scan"]["ocean_p_prefix"] == 1 and glaunch["scan"]["ocean_traj"] == 0,
+          f"k3_ranked: the scan path's rounds' launches {glaunch['scan']}")
+    part("b: the scan path's rounds (K1)")
+    a_f, b_f = gf.a[0].reshape(CT, Kb), gf.b[0].reshape(CT, Kb)
+    n_f = gf.num_selected[0].reshape(-1)
+    flip = (a_f != dec.a).any(1) | (n_f != dec.num_selected)
+    near = torch.zeros_like(flip)
+    if bool(flip.any()):
+        near[flip] = _near_rounds(torch, dec.rho[flip], (vg * etag).reshape(-1)[flip],
+                                  gcfg.radio)
+    check(not bool((flip & ~near).any()),
+          f"k3_ranked: {int((flip & ~near).sum())} rounds select unlike the scan path's")
+    db = (b_f - dec.b).abs().amax(1)
+    err_scan = db[~flip].max().item()
+    check(err_scan <= B_ATOL, f"k3_ranked: max |b - b_scan| = {err_scan}")
+    # the rounds of ``whole_cells`` cells against the plain round, one
+    # cell-round at a time (the launch's own rows, teacher-forced: bit for
+    # bit the grid's)
+    cells = slice(0, whole_cells)
+    sub = [x[cells].contiguous() for x in (q_f, h2g, vg, etag, incg)]
+    tf = rounds_alone(gcfg, *sub)
+    same = all(torch.equal(getattr(tf, f).reshape(whole_cells, Tb, -1),
+                           getattr(gf, g).reshape(Cb, Tb, -1)[cells])
+               for f, g in (("a", "a"), ("b", "b"), ("e", "e"), ("nsel", "num_selected")))
+    check(same, "k3_ranked: the grid's rounds teacher-forced differ from the grid")
+    held_b = _hold_to_plain(torch, gcfg, tf, *sub, "k3_ranked K-scaling sort",
+                            same_selection=True, chunk=1, near_all=False)
+    held_b.update(plain_ms=held_b["plain_rounds_ms"], plain_rounds=Tb)
+    part("b: held to the plain rounds")
+    rho_f = q_f / torch.clamp(h2g, min=1e-30)  # the launch's rho
+    n0_b = (rho_f <= 1e-30).sum(-1)
+    vs_scan = dict(rounds=CT, flipped_rounds=int(flip.sum()), near_tie_flips=int(near.sum()),
+                   max_abs_err_b=err_scan, fused_wall_s=wall,
+                   fused_rounds_cells_per_s=CT / wall, launches=glaunch,
+                   n0_per_round=n0_b.tolist(),
+                   m_star_per_round=(n_f.reshape(Cb, Tb) - n0_b).tolist())
+    row = dict(
+        label=RANKED_ROW_LABELS["sort"],
+        launches=glaunch["fused"]["ocean_traj_instances"].get(RANKED_ROW_LABELS["sort"], 0),
+        ms=fused_ms, device_ms=fused_ms if fused_dms is None else fused_dms,
+        device_records_seen=0.0 if fused_dms is None else 1.0,
+        ms_is="the fused run_grid call between CUDA events",
+        shape=f"{Cb} cells x {Tb} rounds x K = {Kb}, sort", plain_ms=held_b["plain_ms"],
+        plain_rounds=Tb, warps=lib.ocean_traj_wide_ranked_warps(Kb, 0, ctypes.byref(in_smem)),
+        keys_in_shared_memory=bool(in_smem.value))
+    row.update(zip(("bound_ms", "bound_by", "ops", "bytes"),
+                   k3_bound(torch, rho_f, wide=True, ranked=True)))
+    return vs_scan, held_b, row
+
+
+def _ranked_round_cell(torch, np, dev, big, top_m):
+    """Phase k3_ranked (c): traj_bench's round cell, sort against top-m
+    (``phase_k3_ranked``)."""
+    from repro_torch.core.energy import RadioParams
+    from repro_torch.core.ocean import OceanConfig, OceanState
+    from repro_torch.kernels.ocean_traj import m_star, ocean_traj
+
+    Kb = big[0]
+    # (c) traj_bench's round cell: one warm round at K = 10^4
+    rng = np.random.default_rng(Kb)
+    q = rng.uniform(0.0, 0.2, Kb).astype(np.float32)
+    q[rng.random(Kb) < 0.2] = 0.0
+    h2c = rng.exponential(2.5e-4, Kb).astype(np.float32)
+    cell = {}
+    for frames, T_cfg in (("warm (R = 8)", 8), ("as traj_bench (T = R = 1)", 1)):
+        outs = {}
+        for name, solver, ranking in (("sort", "pallas", "sort"),
+                                      ("topm", "pallas_tiled", "topm")):
+            rc = OceanConfig(num_clients=Kb, num_rounds=T_cfg, radio=RadioParams(b_min=0.1 / Kb),
+                             solver=solver, ranking=ranking, top_m=top_m, traj="fused")
+            st = OceanState(q=torch.tensor(q, device=dev)[None], t=torch.ones(
+                (1,), dtype=torch.int32, device=dev), energy_spent=torch.zeros((1, Kb), device=dev))
+            args = (torch.tensor(h2c, device=dev)[None, None], torch.full((1, 1), 1e-5, device=dev),
+                    torch.ones((1, 1), device=dev),
+                    (rc.budgets(device=dev) / T_cfg)[None, None].contiguous())
+            run = lambda rc=rc, args=args, st=st: ocean_traj(rc, *args, init_state=st)  # noqa: E731
+            out = run()
+            ms, dms, _ = _timed(torch, run)
+            outs[name] = (rc, out, ms, dms, args)
+        (rs, os_, ms_s, dms_s, args_s), (_, ot, ms_t, dms_t, _) = outs["sort"], outs["topm"]
+        same_sel = torch.equal(os_.a, ot.a)
+        close = abs(os_.obj.item() - ot.obj.item()) <= 2e-4 * abs(ot.obj.item())
+        pl = _plain_rounds(torch, rs, os_.q_pre, *args_s, chunk=1)
+        held_c = dict(same_selection_as_plain=bool(torch.equal(pl["a"], os_.a.reshape(1, -1))),
+                      obj=os_.obj.item(), obj_plain=pl["objective"].item())
+        check(held_c["same_selection_as_plain"] and abs(held_c["obj"] - held_c["obj_plain"])
+              <= W_RTOL * (abs(held_c["obj_plain"]) + 1e-5),
+              f"k3_ranked round cell {frames}: the sort launch against its plain round {held_c}")
+        cell[frames] = dict(sort_ms=ms_s, sort_device_ms=dms_s, topm_ms=ms_t,
+                            topm_device_ms=dms_t, sort_over_topm=dms_s / dms_t,
+                            traj_bench_gate=">= 2", selections_equal=same_sel,
+                            objectives_within_w_rtol=close, n0=int((os_.rho <= 1e-30).sum()),
+                            m_star_sort=int(m_star(os_.nsel, os_.rho).item()),
+                            m_star_topm=int(m_star(ot.nsel, ot.rho).item()), held=held_c)
+    return cell
+
+
+def _ranked_over(torch, np, dev, big, top_m, clip, part):
+    """Phase k3_ranked (d), and (e) on the §VI per-client load:
+    overprovision and a clip past 2048 at K = 10^4 (``phase_k3_ranked``);
+    the held rounds and each instance's row; ``part(name)`` records the
+    breakdown."""
+    from repro_torch.core.energy import RadioParams
+    from repro_torch.core.patterns import eta_schedule
+    from repro_torch.core.scenario import Scenario
+    from repro_torch.env import EnvSpec
+    from repro_torch.guard import GuardSpec
+    from repro_torch.kernels.ocean_traj import check_metrics_replay, m_star, ocean_traj
+    from repro_torch.obs import MetricsSpec
+    from repro_torch.sim import GridEngine, run_grid
+
+    # (d) overprovision at K = 10^4 through run_grid, under top-m and sort
+    Kb, Cb, Tb = big
+    b_min = 0.5 / Kb
+    radio = RadioParams(b_min=b_min, model_bits=RadioParams().model_bits * b_min / 0.02)
+    load = dict(num_clients=Kb, num_rounds=Tb, radio=radio, energy_budget_j=0.15 * Tb / 300)
+    drop = [Scenario(name="drop_heavy", env=EnvSpec(failure="iid_dropout",
+                                                    failure_params={"p_deliver": 0.7}), **load)]
+    eta = eta_schedule("uniform", Tb, device=dev).expand(Cb, Tb).contiguous()
+    v = torch.full((Cb, Tb), V_PAPER, device=dev)
+    runs, held, rows = {}, {}, {}
+    spec = MetricsSpec.of(*OVERHEAD_SPEC)
+    for name, kw in (("over_topm", dict(ranking="topm", top_m=top_m)),
+                     ("over_sort", dict(ranking="sort")),
+                     ("metrics", dict(ranking="topm", top_m=top_m, metrics=spec))):
+        _reset_counts()
+        g = run_grid(drop, ["ocean-over"], range(Cb), solver="pallas", traj="fused",
+                     device=dev, **kw)
+        torch.cuda.synchronize()
+        lc = _counts()["ocean_traj_instances"]
+        check(lc == {RANKED_ROW_LABELS[name]: 1}, f"k3_ranked: the {name} grid's launches {lc}")
+        gc = dataclasses.replace(GridEngine(drop, ["ocean-over"], solver="pallas", traj="fused",
+                                            device=dev, **kw).cfg, failure_mode="overprovision")
+        hh = g.h2.reshape(Cb, Tb, Kb).contiguous()
+        ii = g.budget_inc.reshape(Cb, Tb, Kb).contiguous()
+        _, fail = _cells(g, Cb, Tb, failure=g.failure_seq)
+        out = ocean_traj(gc, hh, v, eta, ii, failure=fail)
+        check(torch.equal(out.a, g.a[0].reshape(out.a.shape))
+              and torch.equal(out.dlv, g.delivered[0].reshape(out.a.shape)),
+              f"k3_ranked {name}: a launch on the grid's cells differs from it")
+        if gc.metrics is not None:
+            check(all(_same_bits(torch, out.metrics[k], g.metrics[0][k].reshape(
+                out.metrics[k].shape)) for k in out.metrics),
+                f"k3_ranked {name}: the grid's telemetry is not the launch's")
+        runs[name] = (gc, hh, ii, fail, out, 1)
+    # the guard's energy cap on the same cells: the admitted count binds
+    gc, hh, ii, fail, _, _ = runs["over_sort"]
+    cap_cfg = dataclasses.replace(gc, guard=GuardSpec(energy_cap=1.0))
+    _reset_counts()
+    out_cap = ocean_traj(cap_cfg, hh, v, eta, ii, failure=fail)
+    torch.cuda.synchronize()
+    lc = _counts()["ocean_traj_instances"]
+    check(lc == {RANKED_ROW_LABELS["over_cap"]: 1}, f"k3_ranked: the capped run's launches {lc}")
+    n_adm = Kb - out_cap.fc - out_cap.dm
+    check(bool((out_cap.nsel == n_adm)[out_cap.nsel > 0].any()),
+          "k3_ranked: the capped overprovision never stopped at the admitted count")
+    check(bool((out_cap.nsel <= n_adm).all()), "k3_ranked: an extension past the admitted")
+    runs["over_cap"] = (cap_cfg, hh, ii, fail, out_cap, 1)
+    # (e) a clip past 2048 on the §VI per-client load
+    cfg_e, h2e, ve, etae, ince = _k3_ranked_inputs(torch, np, dev, Cb, Tb, Kb, seed=Kb + 1)
+    cfg_e = dataclasses.replace(cfg_e, ranking="topm", top_m=clip)
+    _reset_counts()
+    out_e = ocean_traj(cfg_e, h2e, ve, etae, ince)
+    torch.cuda.synchronize()
+    lc = _counts()["ocean_traj_instances"]
+    check(lc == {RANKED_ROW_LABELS["clip"]: 1}, f"k3_ranked: the clip run's launches {lc}")
+    part("d-e: runs")
+    for name, (rc, hh, ii, fail, out, n) in list(runs.items()) + [
+            ("clip_vi", (cfg_e, h2e, ince, None, out_e, 1))]:
+        vv, ee = (ve, etae) if name == "clip_vi" else (v, eta)
+        what = f"k3_ranked K={Kb} {name}"
+        if name == "metrics":  # the metrics-off run's decisions, bit for bit: held above
+            diff = [f for f in WIDE_FIELDS + BRANCH_FIELDS if getattr(out, f) is not None
+                    and not _same_bits(torch, getattr(out, f), getattr(runs["over_topm"][4], f))]
+            check(not diff, f"{what}: the telemetry run's decisions differ in {diff}")
+            held[name] = dict(held["over_topm"])
+        else:
+            # ~10^4 clients selected (S0 included): the float64 flatness;
+            # the clip on this load also b where f is flat in it (ROADMAP
+            # Queue 3)
+            held[name] = _wide_vs_plain(torch, dataclasses.replace(rc, metrics=None), out, hh,
+                                        vv, ee, ii, what, failure=fail, whole=False,
+                                        chunk=_plain_chunk(rc, out.rho), near_all=False,
+                                        flat64=True, resolvable=name == "clip_vi")
+        ms_ = m_star(out.nsel, out.rho)
+        held[name].update(mean_m_star=ms_.float().mean().item(), max_m_star=int(ms_.max()),
+                          n0_per_round=(out.rho <= 1e-30).sum(-1).tolist())
+        bound_kw = {}
+        if fail is not None:
+            bound_kw.update(failure=True, solves=_over_solves(torch, out))
+        if rc.guard is not None:
+            bound_kw.update(guard=True, fallback=out.fb)
+            held[name].update(demoted=int(out.dm.sum()), fallback_rounds=int(out.fb.sum()))
+        run = (lambda rc=rc, hh=hh, vv=vv, ee=ee, ii=ii, fail=fail:
+               ocean_traj(rc, hh, vv, ee, ii, failure=fail))
+        rows[name] = _ranked_row(torch, rc, out, RANKED_ROW_LABELS[name], n, run, held[name],
+                                 **bound_kw)
+        if rc.metrics is not None:
+            rows[name].update(zip(("bound_ms", "bound_by", "ops", "bytes"), metrics_bound(
+                torch, out.rho, rc.metrics, rc, n_cands=top_m, wide=True, ranked=True,
+                **bound_kw)))
+            rows[name]["replay_max_abs_err"] = max(check_metrics_replay(
+                rc, out.metrics, out, vv, ee, ii).values())
+        part(f"held and timed: {name}")
+    return held, rows
+
+
+def _ranked_clip(torch, np, dev, big, clip, whole_cells, part):
+    """Phase k3_ranked (e): a top-m clip past 2048 on traj_bench's K-scaling
+    cell (``_kscale_inputs`` under pallas: n0 = 0 from round 1, so every
+    round sweeps the full clip); one launch, counted and timed under the
+    profiler; all rounds of ``whole_cells`` cells against the plain round,
+    one cell-round at a time (the launch's own rows, teacher-forced: bit for
+    bit the launch's); the instance's row."""
+    from repro_torch.kernels.ocean_traj import m_star, ocean_traj, rounds_alone
+
+    Kb, Cb, Tb = big
+    cfg, h2, v, eta, inc = _kscale_inputs(torch, np, dev, Cb, Tb, Kb, seed=Kb + 1)
+    cfg = dataclasses.replace(cfg, solver="pallas", top_m=clip)
+    _reset_counts()
+    out, ms, dms = _call_ms(torch, lambda: ocean_traj(cfg, h2, v, eta, inc),
+                            kernel="ocean_traj_wide")
+    lc = _counts()["ocean_traj_instances"]
+    check(lc == {RANKED_ROW_LABELS["clip"]: 1}, f"k3_ranked: the clip run's launches {lc}")
+    part("e: the clip's launch")
+    cells = slice(0, whole_cells)
+    sub = [x[cells].contiguous() for x in (out.q_pre, h2, v, eta, inc)]
+    tf = rounds_alone(cfg, *sub)
+    same = all(torch.equal(getattr(tf, f), getattr(out, f)[cells])
+               for f in ("a", "b", "e", "nsel"))
+    check(same, "k3_ranked clip: the launch's rounds teacher-forced differ from it")
+    held = _hold_to_plain(torch, cfg, tf, *sub, f"k3_ranked K={Kb} clip",
+                          same_selection=True, chunk=1, near_all=False)
+    n0 = (out.rho <= 1e-30).sum(-1)
+    ms_ = m_star(out.nsel, out.rho)
+    held.update(plain_ms=held["plain_rounds_ms"], plain_rounds=Tb,
+                n0_per_round=n0.tolist(), swept_per_round=torch.clamp(Kb - n0, max=clip).tolist(),
+                mean_m_star=ms_.float().mean().item(), max_m_star=int(ms_.max()))
+    part("e: held to the plain rounds")
+    row = dict(label=RANKED_ROW_LABELS["clip"], launches=lc[RANKED_ROW_LABELS["clip"]], ms=ms,
+               device_ms=ms if dms is None else dms,
+               device_records_seen=0.0 if dms is None else 1.0,
+               ms_is="the counted launch between CUDA events",
+               shape=f"{Cb} cells x {Tb} rounds x K = {Kb}, top_m {clip}",
+               plain_ms=held["plain_ms"], plain_rounds=Tb)
+    row.update(zip(("bound_ms", "bound_by", "ops", "bytes"),
+                   k3_bound(torch, out.rho, n_cands=clip, wide=True, ranked=True)))
+    return held, row
+
+
+def phase_k3_ranked(torch, np, dev, smi, equal=((100, 4, 40), (2048, 4, 40)),
+                    big=(10_000, 8, 8), whole_cells=2, top_m=KSCALE_TOP_M, clip=4096):
+    """K3's wide ranked row (csrc/ocean_traj_wide.cuh, instances in
+    ``ocean_traj_wide_ranked{,_metrics}.cu``): ranking="sort", a top-m clip
+    past 2048 and failure_mode="overprovision", each sorting every client's
+    key inside the kernel.
+
+    (a) At K = 100 and 2048, 4 cells x 40 rounds (``_k3_ranked_inputs``):
+        the forced wide instance under sort (pallas, newton, bisect, a
+        streamed radio, failure plain / overprovision / reallocate under
+        drop_heavy, the guard with the energy cap 1 on ``WIDE_INJECT``
+        gains, objective chaos of bisect, the overhead spec, a segment
+        launch) equals the shared sort instance, and under top-m 128 with
+        overprovision the shared top-m instance, bit for bit on every
+        output; named exceptions (the telemetry's float sums, an extended
+        round's P3 value where the two blocks have other thread counts) are
+        held to the replay and to the plain round.
+    (b) traj_bench's K-scaling cell (``_kscale_inputs``) at K = 10^4, 8 x 8,
+        under sort with pallas: ``run_grid(traj="fused")`` (one ranked-row
+        launch, counted, timed under the profiler); the scan path's round
+        (argsort and K1, counted) on each of its 64 cell-rounds, in one
+        batch on the fused grid's queues (``_ranked_kscale`` says why not
+        the scan grid), against the fused decisions; all rounds of
+        ``whole_cells`` cells against the plain round, one cell-round at a
+        time; n0 and m* per round.
+    (c) traj_bench's round cell (``benchmarks/traj_bench.py:131-158``): one
+        round at K = 10^4 from its warm queues as a one-round segment at
+        global round 1, under sort + pallas and top-m 128 + pallas_tiled:
+        both device ms and their ratio beside traj_bench's 2x gate, whether
+        the selections agree and the P3 values lie within 2e-4; the sort
+        launch held to its plain round.  Read twice: with frames of 8
+        rounds (warm queues), and as traj_bench configures it (T = 1, so
+        R = 1 and the round resets the queues: every client in S0).
+    (d) overprovision at K = 10^4, 8 x 8, the §VI per-client load with
+        H / 300 a round, drop_heavy under ``ocean-over`` through
+        ``run_grid`` (one launch each, counted) under top-m 128 and under
+        sort, and with the energy cap 1 on the guard (the admitted count
+        binds); with the overhead spec under top-m; every round held to
+        the plain round (``flat64``: with ~10^4 clients selected a round
+        whose float64 P3 values agree is flat, and held to its masked
+        optimum, from which the plain round may lie farther than K3).
+    (e) top_m 4096 at K = 10^4, 8 x 8: on ``_k3_ranked_inputs`` (m* <= 47,
+        K - n0 a few hundred), every round held to the plain round with
+        ``resolvable`` flat rounds (ROADMAP Queue 3); and on traj_bench's
+        K-scaling cell (``_ranked_clip``: every round past the first sweeps
+        the full clip), all rounds of ``whole_cells`` cells held to the
+        plain round.
+    (f) each instance's row (ms, device ms, launches, bound, plain ms).
+    """
+    from repro_torch.kernels import _build
+
+    lib = _build.load("ocean_traj_wide_ranked")
+    lib.ocean_traj_wide_ranked_warps.restype = ctypes.c_int
+    t_phase = time.perf_counter()
+    parts, t_part = {}, [time.perf_counter()]
+
+    def part(name):
+        """Seconds since the previous part ended (the breakdown), also on
+        stderr as the phase goes."""
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        parts[name] = now - t_part[0]
+        t_part[0] = now
+        print(f"k3_ranked: {name} {parts[name]:.1f} s", file=sys.stderr, flush=True)
+
+    bits = _ranked_bits(torch, np, dev, equal, top_m)
+    part("a: bits")
+    vs_scan, held_b, row_sort = _ranked_kscale(torch, np, dev, big, whole_cells, lib, part)
+    part("b: the row")
+    cell = _ranked_round_cell(torch, np, dev, big, top_m)
+    part("c: the round cell")
+    held, rows = _ranked_over(torch, np, dev, big, top_m, clip, part)
+    held["clip"], row_clip = _ranked_clip(torch, np, dev, big, clip, whole_cells, part)
+    rows = {"sort": row_sort, **rows, "clip": row_clip}
+    err = max([r["max_abs_err_b"] for r in held.values()]
+              + [r["flat_max_abs_err_b"] for r in held.values()]
+              + [held_b["max_abs_err_b"], held_b["flat_max_abs_err_b"],
+                 vs_scan["max_abs_err_b"]])
+    out = dict(gpu=smi, bitwise_vs_shared=bits, vs_scan_grid=vs_scan, held_k_scaling=held_b,
+               round_cell=cell, held_to_plain=held, rows=rows, max_abs_err_b=err,
+               parts_s=parts, phase_s=time.perf_counter() - t_phase)
+    emit({"phase": "k3_ranked", **out})
+    return out
+
+
+def ranked_kernel_entries(ranked):
+    """The kernels line's entries of K3's ranked-row instances from phase
+    k3_ranked's record: the K-scaling grid's sort launch, overprovision
+    under top-m and sort (and with the cap) through run_grid, the clip of
+    4096 on the K-scaling cell and on the §VI load; the HasMetrics
+    source's instance with the overhead spec."""
+    rows = ranked["rows"]
+    keys = WIDE_ROW_KEYS + ("label",)
+    plain_rows = {n: r for n, r in rows.items() if n != "metrics"}
+    return [
+        dict(name="ocean_traj_wide_ranked", route="cuda",
+             source="src/repro_torch/csrc/ocean_traj_wide_ranked.cu",
+             replaces="src/repro/kernels/ocean_traj.py:96",
+             launches=sum(r["launches"] for r in plain_rows.values()),
+             max_abs_err=ranked["max_abs_err_b"],
+             **{k: rows["sort"][k] for k in WIDE_ROW_KEYS if k != "launches"},
+             library_ms=None,
+             instances={n: {k: r[k] for k in keys} for n, r in plain_rows.items()}),
+        dict(name="ocean_traj_wide_ranked_metrics", route="cuda",
+             source="src/repro_torch/csrc/ocean_traj_wide_ranked_metrics.cu",
+             replaces="src/repro/kernels/ocean_traj.py:96",
+             max_abs_err=ranked["held_to_plain"]["metrics"]["max_abs_err_b"],
+             **{k: rows["metrics"][k] for k in WIDE_ROW_KEYS + ("label", "replay_max_abs_err")},
+             library_ms=None),
+    ]
 
 
 # ---------------------------------------------------------------------------
@@ -3198,16 +3951,30 @@ def _near_rounds(torch, rho, v_eta, radio, n_cands=None):
     best and runner-up prefix W of the plain K1 sweep (over ``n_cands``
     candidates, default all) lie within W_RTOL |W*|."""
     from repro_torch.core.selection import prefix_inputs
+    from repro_torch.core.solvers import sweep_cands
     from repro_torch.kernels.ocean_p import _scal, prefix_objectives_plain
 
     # a NaN rho (a NaN gain outside the quarantine) ranks as +inf, as the
     # top-m extraction ranks it
     rho = torch.where(rho.isnan(), torch.full_like(rho, math.inf), rho)
     _, rho_sorted, n0, delta = prefix_inputs(rho, radio)
-    w = prefix_objectives_plain(_scal(n0, delta, v_eta, radio, rho_sorted), rho_sorted,
-                                n_cands=n_cands)
-    top2 = torch.topk(w, 2, dim=1).values
-    return (top2[:, 0] - top2[:, 1]) <= W_RTOL * top2[:, 0].abs()
+    K = rho.shape[-1]
+    # the candidates past every row's K - n0 are infeasible (sweep_cands
+    # keeps one); rows in chunks of at most NEAR_ELEMS (rows, M, K) elements
+    if rho.shape[0] == 0:
+        return torch.zeros((0,), dtype=torch.bool, device=rho.device)
+    m = sweep_cands(n0, K, n_cands)
+    step = max(1, NEAR_ELEMS // ((m + 1) * K))
+    scal = _scal(n0, delta, v_eta, radio, rho_sorted)
+    near = []
+    for i in range(0, rho.shape[0], step):
+        w = prefix_objectives_plain(scal[i:i + step], rho_sorted[i:i + step], n_cands=m)
+        top2 = torch.topk(w, 2, dim=1).values
+        near.append((top2[:, 0] - top2[:, 1]) <= W_RTOL * top2[:, 0].abs())
+    return torch.cat(near)
+
+
+NEAR_ELEMS = 1 << 27
 
 
 # ---------------------------------------------------------------------------
@@ -4167,6 +4934,7 @@ def main() -> int:
         out = fn(*args)
         torch.cuda.synchronize()
         walls[name] = time.perf_counter() - t0
+        print(f"chip_smoke: phase {name} {walls[name]:.1f} s", file=sys.stderr, flush=True)
         return out
 
     smi = timed("card", phase_card, torch)
@@ -4179,6 +4947,7 @@ def main() -> int:
     topm = timed("k2_topm_path", phase_topm_path, torch, dev, smi)
     ranking = timed("k3_ranking", phase_k3_ranking, torch, np, dev, smi)
     wide = timed("k3_wide", phase_k3_wide, torch, np, dev, smi)
+    ranked = timed("k3_ranked", phase_k3_ranked, torch, np, dev, smi)
     del res
     torch.cuda.empty_cache()
     reliability, rel_args = timed("reliability", phase_reliability, torch, np, dev, smi)
@@ -4266,6 +5035,7 @@ def main() -> int:
                                           for k in INSTANCE_KEYS}),
              }),
         *wide_kernel_entries(wide),
+        *ranked_kernel_entries(ranked),
         dict(name="ocean_traj_metrics", route="cuda",
              source="src/repro_torch/csrc/ocean_traj_metrics.cu",
              replaces="src/repro/kernels/ocean_traj.py:96",

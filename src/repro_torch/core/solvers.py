@@ -126,9 +126,23 @@ def get_solver(name: Union[str, SolverBackend, None]) -> SolverBackend:
     )
 
 
+def sweep_cands(n0, K: int, m_cands: Optional[int] = None) -> int:
+    """The candidates a plain prefix sweep evaluates: m <= m_cands (every
+    m <= K under sort, m_cands None) clipped to one past the cells' largest
+    K - n0.  A candidate past K - n0 is infeasible (W = -inf, or K1's
+    NEG_INF), so every cell keeps one of them and its first maximum, and
+    with it every output, is the one over the whole axis; the sweep's
+    (C, M, K) tensors shrink to the positive clients a round has."""
+    m = K if m_cands is None else m_cands
+    if n0.numel() == 0:
+        return m
+    return min(m, int((K - n0.long()).max()) + 1)
+
+
 def _candidate_axis(n0, m_cands, K, device):
-    """(M,) candidate counts and the (C, M, K) prefix masks in sorted order."""
-    ms = torch.arange((K if m_cands is None else m_cands) + 1, device=device)
+    """(M,) candidate counts (``sweep_cands``') and the (C, M, K) prefix
+    masks in sorted order."""
+    ms = torch.arange(sweep_cands(n0, K, m_cands) + 1, device=device)
     ranks = torch.arange(K, device=device)
     n0 = n0.long()[:, None, None]
     mask = (ranks >= n0) & (ranks < n0 + ms[None, :, None])

@@ -327,7 +327,11 @@ __device__ bool candidate_w(const Team& tm, const float* rho, int L, int start, 
 // on f', lam by ``outer`` halvings of [0, lam_hi] on the budget residual,
 // then the same repair and cost as candidate_w.  Same contract as
 // candidate_w; a member with rho = +inf masks the candidate (the plain
-// version's W there is -inf or NaN).
+// version's W there is -inf).  A member with a NaN rho masks it too, but
+// with ``NanRho`` (K3's ranked row, where a stable argsort puts a NaN
+// last, as the plain version ranks it) the candidate is evaluated: its W
+// is NaN, as the plain version's, and wins its sweep (BisectCandidate's
+// kNanWins).
 // ---------------------------------------------------------------------------
 __device__ float b_of_lam_bisect(float lam, float rho, float beta, float b_min, float b_max,
                                  int iters) {
@@ -342,7 +346,7 @@ __device__ float b_of_lam_bisect(float lam, float rho, float beta, float b_min, 
   return 0.5f * (lo + hi);
 }
 
-template <class Team>
+template <class Team, bool NanRho = false>
 __device__ bool candidate_w_bisect(const Team& tm, const float* rho, int L, int start, int m,
                                    const SweepParams& p, float fp_min, int outer, int inner,
                                    float* b, float& w_out) {
@@ -353,7 +357,7 @@ __device__ bool candidate_w_bisect(const Team& tm, const float* rho, int L, int 
   float mx = 0.f;
   for (int i = lo_i + tm.tid; i < hi_i; i += tm.nt) mx = jmax(mx, rho[i]);
   const float rho_max = tm.template all<Max>(mx);
-  if (!isfinite(rho_max)) return false;
+  if (NanRho ? rho_max == INFINITY : !isfinite(rho_max)) return false;
   const float lam_hi = rho_max * fp_min * 1.000001f + 1e-30f;
   float lo = 0.f, hi = lam_hi;
   for (int it = 0; it < outer; ++it) {
@@ -389,13 +393,15 @@ struct NewtonCandidate {
   }
 };
 
+template <bool NanRho = false>
 struct BisectCandidate {
   static constexpr bool kNanWins = true;
   int outer, inner;
   template <class Team>
   __device__ bool operator()(const Team& tm, const float* rho, int L, int start, int m,
                              const SweepParams& p, float fp_min, float* b, float& w) const {
-    return candidate_w_bisect(tm, rho, L, start, m, p, fp_min, outer, inner, b, w);
+    return candidate_w_bisect<Team, NanRho>(tm, rho, L, start, m, p, fp_min, outer, inner, b,
+                                            w);
   }
 };
 
@@ -619,13 +625,14 @@ __device__ void prefix_sweep_parallel(const float* rho, int L, int start, int n_
 // ``inner`` halvings, the port's 42 x 42): K3's solver="bisect" instance
 // and its guard's fallback.  Each candidate's sums run in its team's fixed
 // order whatever the block's team count, so every caller gets the same bits.
-template <int NT>
+// ``NanRho``: candidate_w_bisect's (a NaN member gives W = NaN).
+template <int NT, bool NanRho = false>
 __device__ void prefix_sweep_bisect(const float* rho, int L, int start, int n_cands,
                                     const SweepParams& p, int outer, int inner, float* rows,
                                     float* scratch, float& w_out, float& m_out, int& winner) {
-  prefix_sweep_parallel<NT, false, BisectCandidate>(rho, L, start, n_cands, p, rows, scratch,
-                                                    w_out, m_out, winner, -1, 0,
-                                                    BisectCandidate{outer, inner});
+  prefix_sweep_parallel<NT, false, BisectCandidate<NanRho>>(rho, L, start, n_cands, p, rows,
+                                                            scratch, w_out, m_out, winner, -1, 0,
+                                                            BisectCandidate<NanRho>{outer, inner});
 }
 
 // ---------------------------------------------------------------------------

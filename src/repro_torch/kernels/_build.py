@@ -10,7 +10,7 @@ plain C interface (no PyTorch headers, so a build takes seconds):
 ``--use_fast_math`` is deliberately absent: it turns ``exp2f`` into
 ``ex2.approx`` with flush-to-zero, which breaks parity with the plain
 PyTorch versions near the +-80 exponent clip.  The OCEAN sources
-(``ocean_p`` and the seven ``ocean_traj*``) add ``-fmad=false``, which keeps
+(``ocean_p`` and the nine ``ocean_traj*``) add ``-fmad=false``, which keeps
 ``a * b + c`` as two rounded operations, as PyTorch's one-op-per-kernel
 plain versions compute it: with contraction, last-bit differences steer
 the Newton iterations onto other safeguard branches and those kernels
@@ -44,8 +44,9 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = (
     "ocean_p", "ocean_traj", "ocean_traj_grid", "ocean_traj_metrics", "ocean_traj_metrics_grid",
-    "ocean_traj_wide", "ocean_traj_wide_metrics", "flash_attention", "decode_attention",
-    "mamba_scan", "rwkv6_scan",
+    "ocean_traj_wide", "ocean_traj_wide_metrics", "ocean_traj_wide_ranked",
+    "ocean_traj_wide_ranked_metrics", "flash_attention", "decode_attention", "mamba_scan",
+    "rwkv6_scan",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

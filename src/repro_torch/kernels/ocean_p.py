@@ -142,9 +142,13 @@ def prefix_objectives_plain(scal, rho, *, n_cands=None, outer=OUTER_ITERS, inner
 # K1 — ocean_p_prefix
 # --------------------------------------------------------------------------
 def ocean_p_prefix_plain(scal, rho, *, n_cands=None, outer=OUTER_ITERS, inner=INNER_ITERS):
-    """Plain PyTorch K1: (C, 8) scal, (C, K) sorted rho -> b (C, K), wm (C, 2)."""
+    """Plain PyTorch K1: (C, 8) scal, (C, K) sorted rho -> b (C, K), wm (C, 2).
+    It sweeps ``sweep_cands``' candidates of m <= n_cands (K without it):
+    the outputs of the whole axis."""
+    from repro_torch.core.solvers import sweep_cands
+
     C, K = rho.shape
-    n_cands = K if n_cands is None else n_cands
+    n_cands = sweep_cands(scal[:, 0], K, n_cands)
     w, b_all = _sweep_plain(
         rho, scal[:, :1], n_cands, scal, float(K), outer, inner, False
     )

@@ -24,21 +24,28 @@ Every instance also runs as a *segment* of a longer trajectory, the
 checkpoint/resume launch (``init_state``, ``init_mstate``,
 ``raw_metrics``): runtime launch arguments seed the carry and the global
 round, and the telemetry region goes in and comes back out raw.  Past
-``MAX_CLIENTS`` (the shared-memory sort's limit) ``ranking="topm"`` runs on
-the *wide* instances (``csrc/ocean_traj_wide.cuh``, instantiated by
-``ocean_traj_wide.cu`` and, with telemetry, ``ocean_traj_wide_metrics.cu``):
-the carry in global memory, each round a streaming pass with the guard's
-screens and the top-m extraction (K2's phase 1 in one block), the sweep on
-the compact row (the guard's validation and bisect fallback, reallocate's
+``MAX_CLIENTS`` (the shared-memory sort's limit) K3 runs its *wide*
+instances (``csrc/ocean_traj_wide.cuh``): the carry in global memory, each
+round a streaming pass with the guard's screens and the ranking's keys,
+the sweep (the guard's validation and bisect fallback, a failure mode's
 masked P4 there too) and a commit pass in client order, then the
-telemetry's pass.  ``stream_bf16`` stores the (C, T, K) b, e, q_pre and rho
-rows as bfloat16 (a launch argument of every instance); the trajectory is
-the float32 one.
+telemetry's pass.  Two rankings: the *compact row* (``ocean_traj_wide.cu``
+and, with telemetry, ``ocean_traj_wide_metrics.cu``) runs
+``ranking="topm"`` with a clip of at most ``MAX_WIDE_TOP_M``, extracting
+the clip in the streaming pass (K2's phase 1 in one block); the *ranked
+row* (``ocean_traj_wide_ranked.cu``, ``ocean_traj_wide_ranked_metrics.cu``)
+runs everything else, ``ranking="sort"``, a clip past it and
+``failure_mode="overprovision"``: every client's key is sorted inside the
+kernel each round, the sweep runs on the ranked row's candidates, and
+overprovision extends the prefix along it.  ``stream_bf16`` stores the
+(C, T, K) b, e, q_pre and rho rows as bfloat16 (a launch argument of
+every instance); the trajectory is the float32 one.
 
 * ``ocean_traj`` — the wrapper: launches K3 for CUDA tensors (counting
   launches in ``ocean_traj.launches``, by instance in
-  ``ocean_traj.instances``, the wide ones as ``...+wide``; raising on CUDA
-  errors) and runs the plain version for CPU tensors.
+  ``ocean_traj.instances``, the wide ones as ``...+wide`` and the ranked
+  row's as ``...+wide+ranked``; raising on CUDA errors) and runs the plain
+  version for CPU tensors.
 * ``ocean_traj_plain`` — the plain PyTorch version: the port's scan loop
   through ``ocean_round`` with the plain K1 sweep (or ``bisect``,
   ``newton``, K2's plain version for ``pallas_tiled``), and
@@ -58,15 +65,12 @@ clipped to ``min(top_m, K)`` candidates, a launch argument: at K <= 2048
 K3's sorted row holds at those slots what the top-m extraction ranks,
 ties by client index.  ``pallas_tiled`` is K2's semantics in the round:
 K1's candidates on that clip with a non-finite W counted as NEG_INF,
-another launch argument.  Past K = 2048 only ``ranking="topm"`` with
-``top_m <= 2048`` runs (the wide instances), with the static or a
-streamed radio, failure modes ``plain`` and ``reallocate``, a guard or
-chaos backend and a ``MetricsSpec``, in any mix, whole or as a segment;
-``sort`` and ``failure_mode="overprovision"`` (both need the full ranked
-order) raise there (``check_fused_scope``).  ``stream_bf16`` runs on every
-instance at every K.  Anything else raises ``NotImplementedError``.  Like
-the reference's kernel, K3 caps a guard's energy at ``energy_cap x
-cfg.budgets()``.
+another launch argument.  Every ranking, clip, solver, failure mode,
+guard, chaos backend and ``MetricsSpec`` in scope runs at any K, in any
+mix, whole or as a segment: past K = 2048 on the wide instances.
+``stream_bf16`` runs on every instance at every K.  Anything else raises
+``NotImplementedError`` (``check_fused_scope``).  Like the reference's
+kernel, K3 caps a guard's energy at ``energy_cap x cfg.budgets()``.
 """
 from __future__ import annotations
 
@@ -88,8 +92,8 @@ from repro_torch.kernels.ocean_p import (
 
 # The shared-memory sort's limit: past it K3 runs its wide instances.
 MAX_CLIENTS = 2048
-# The wide instances' largest clip: their key list, compact row and sweep
-# rows live in shared memory.
+# The wide compact row's largest clip: its key list, compact row and sweep
+# rows live in shared memory.  A clip past it runs on the ranked row.
 MAX_WIDE_TOP_M = 2048
 FUSED_SOLVERS = ("pallas", "bisect", "newton", "pallas_tiled")
 # the bases of the chaos backends K3 runs
@@ -133,21 +137,15 @@ def _base_solver(backend) -> str:
     return backend.chaos[0] if backend.chaos is not None else backend.name
 
 
-def check_fused_scope(cfg, failure: bool = False, wide: bool = False) -> None:
-    """Raise for configurations K3 does not run yet.  Within them every
-    instance fits a block's shared memory: at K = 2048 a guarded failure
-    newton instance needs 106,960 bytes with one warp of teams, and the
-    launch takes as many teams as fit (``csrc/ocean_traj.cuh::traj_smem``).
-    ``pallas_tiled`` under ``ranking="sort"`` raises the scan path's
-    ``ValueError``.
-
-    Past ``MAX_CLIENTS`` (or with ``wide``, the wide instance forced at any
-    K) only ``ranking="topm"`` with ``top_m <= MAX_WIDE_TOP_M`` runs, with
-    the static or a streamed radio, a failure process (``failure``) under
-    ``cfg.failure_mode`` ``plain`` or ``reallocate``, a ``GuardSpec`` or
-    chaos backend and a ``MetricsSpec``: ``sort`` (a global-memory sort)
-    and ``overprovision`` (its extension walks the full ranked order)
-    raise, naming the hook."""
+def check_fused_scope(cfg) -> None:
+    """Raise for configurations K3 does not run: a solver other than
+    ``FUSED_SOLVERS`` or a chaos backend of one of ``CHAOS_BASES``
+    (``NotImplementedError``, naming the hook); ``pallas_tiled`` under
+    ``ranking="sort"`` raises the scan path's ``ValueError``.  Everything
+    else runs at any K: up to ``MAX_CLIENTS`` on the shared-memory
+    instances (at K = 2048 a guarded failure newton instance needs 106,960
+    bytes with one warp of teams, and the launch takes as many teams as fit,
+    ``csrc/ocean_traj.cuh::traj_smem``), past it on the wide ones."""
     from repro_torch.core.ocean import not_ported
     from repro_torch.core.solvers import get_solver
 
@@ -161,22 +159,16 @@ def check_fused_scope(cfg, failure: bool = False, wide: bool = False) -> None:
         )
     if base == "pallas_tiled" and cfg.ranking != "topm":
         get_solver("pallas_tiled").prefixes()  # raises the sort-free solver's ValueError
-    if cfg.num_clients <= MAX_CLIENTS and not wide:
-        return
-    where = (f"traj='fused' at K={cfg.num_clients} > {MAX_CLIENTS}" if not wide
-             else f"K3's wide instance at K={cfg.num_clients}")
-    if cfg.ranking != "topm":
-        raise not_ported(
-            f"{where} with ranking={cfg.ranking!r} (past the shared-memory sort the "
-            f"fused kernel runs ranking='topm' only; 'sort' needs a global-memory sort)"
-        )
-    if cfg.top_m > MAX_WIDE_TOP_M:
-        raise not_ported(f"{where} with top_m={cfg.top_m} > {MAX_WIDE_TOP_M}")
-    if failure and cfg.failure_mode == "overprovision":
-        raise not_ported(
-            f"{where} with failure_mode='overprovision' (its extension walks the full "
-            f"ranked order, repro/core/ocean.py:369: a global-memory sort)"
-        )
+
+
+def ranked_row(cfg, failure: bool = False) -> bool:
+    """Whether a wide launch runs on the ranked row (``csrc/
+    ocean_traj_wide.cuh``): under ``ranking="sort"``, a clip past
+    ``MAX_WIDE_TOP_M``, or with a failure process (``failure``) under
+    ``failure_mode="overprovision"``, whose extension walks the full ranked
+    order (repro/core/ocean.py:369)."""
+    return (cfg.ranking != "topm" or min(cfg.top_m, cfg.num_clients) > MAX_WIDE_TOP_M
+            or (failure and cfg.failure_mode == "overprovision"))
 
 
 def _library(base: str, metrics: bool) -> str:
@@ -665,12 +657,14 @@ def ocean_traj(cfg, h2, v, eta, inc, radio=None, failure=None, *,
     ``stream_bf16`` stores the b, e, q_pre and rho rows as bfloat16 (the
     label gains ``+bf16``); every other output, and the trajectory, is the
     float32 launch's.  Past ``MAX_CLIENTS`` clients the launch runs K3's
-    wide instances (``csrc/ocean_traj_wide.cuh``, label ``+wide``);
-    ``_force_wide`` runs them at any K, to hold them against the
-    shared-memory instances on the card.
+    wide instances (``csrc/ocean_traj_wide.cuh``, label ``+wide``; on the
+    ranked row, ``ranked_row``, ``+wide+ranked``); ``_force_wide`` runs
+    them at any K, to hold them against the shared-memory instances on the
+    card.
     """
     wide = cfg.num_clients > MAX_CLIENTS or _force_wide
-    check_fused_scope(cfg, failure=failure is not None, wide=_force_wide)
+    ranked = wide and ranked_row(cfg, failure is not None)
+    check_fused_scope(cfg)
     for name, x, nd in (("h2", h2, 3), ("v", v, 2), ("eta", eta, 2), ("inc", inc, 3)):
         _check_f32(name, x, nd)
     C, T, K = h2.shape
@@ -724,8 +718,9 @@ def ocean_traj(cfg, h2, v, eta, inc, radio=None, failure=None, *,
     backend = get_solver(cfg.solver)
     base = _base_solver(backend)
     if wide:
-        lib = _build.load("ocean_traj_wide" if spec is None else "ocean_traj_wide_metrics")
-        fn = lib.ocean_traj_wide_launch if spec is None else lib.ocean_traj_wide_metrics_launch
+        name = "ocean_traj_wide_ranked" if ranked else "ocean_traj_wide"
+        lib = _build.load(name if spec is None else name + "_metrics")
+        fn = getattr(lib, name + ("_launch" if spec is None else "_metrics_launch"))
     else:
         lib = _build.load(_library(base, spec is not None))
         fn = lib.ocean_traj_launch if spec is None else lib.ocean_traj_metrics_launch
@@ -794,7 +789,7 @@ def ocean_traj(cfg, h2, v, eta, inc, radio=None, failure=None, *,
         q0 = init_state.q.contiguous()
         es0 = init_state.energy_spent.contiguous()
         t0 = init_state.t.to(torch.int32).contiguous()
-    err = fn(
+    params = (
         _ptr(h2), _ptr(v), _ptr(eta), _ptr(inc), *(_ptr(x) for x in out[:9]),
         ctypes.c_int(C), ctypes.c_int(T), ctypes.c_int(K), ctypes.c_int(cfg.R),
         ctypes.c_float(rad.b_min), ctypes.c_float(rad.beta),
@@ -810,9 +805,14 @@ def ocean_traj(cfg, h2, v, eta, inc, radio=None, failure=None, *,
         ctypes.c_int(int(guarded)), _ptr(cap), *(_ptr(x) for x in gout), ctypes.c_int(bits),
         ctypes.c_float(floor), ctypes.c_float(tol), ctypes.c_int(_CHAOS[kind]),
         ctypes.c_float(scale), _ptr(q0), _ptr(es0), _ptr(t0), ctypes.c_int(cfg.num_rounds),
-        ctypes.c_int(int(stream_bf16)), _ptr(mirror), *extra, _stream(),
+        ctypes.c_int(int(stream_bf16)), _ptr(mirror), *extra,
     )
-    _build.check(err, lib, "ocean_traj")
+    if ranked:  # the ranked row's per-cell keys, ranks and sweep rows, as the launch sizes them
+        floats = ctypes.c_longlong(0)
+        _build.check(fn(*params, _ptr(None), ctypes.byref(floats), _stream()), lib, "ocean_traj")
+        rk_scratch = torch.empty((max(floats.value, 1),), **f32)
+        params += (_ptr(rk_scratch), ctypes.byref(floats))
+    _build.check(fn(*params, _stream()), lib, "ocean_traj")
     if raw_metrics:
         mstate, traces = _region_state(cfg, ml, raw)
         out = out._replace(mstate=mstate, traces=traces)
@@ -823,7 +823,7 @@ def ocean_traj(cfg, h2, v, eta, inc, radio=None, failure=None, *,
              ("newton", base == "newton"), ("pallas_tiled", base == "pallas_tiled"),
              ("topm", topm), ("guard", guard is not None), ("chaos", chaos is not None),
              ("failure", failure is not None), ("metrics", spec is not None), ("wide", wide),
-             ("bf16", stream_bf16))
+             ("ranked", ranked), ("bf16", stream_bf16))
     inst = "+".join(n for n, on in parts if on) or "static"
     if seg:
         inst += "+seg"
@@ -836,11 +836,13 @@ def ocean_traj(cfg, h2, v, eta, inc, radio=None, failure=None, *,
 ocean_traj.launches = 0
 # launches by instance: "static", or the "+"-joined branches it ran of
 # "radio", "bisect", "newton", "pallas_tiled", "topm" (the ranking), "guard",
-# "chaos", "failure", "metrics", "wide" (csrc/ocean_traj_wide.cuh) and "bf16"
-# (stream_bf16), then "+seg" for a segment launch (and "/<mode>" with
-# failures), e.g. "bisect+guard", "newton+topm", "pallas_tiled+topm+wide",
-# "newton+topm+guard+metrics+wide", "static+seg",
-# "radio+failure+metrics+seg/plain" or "pallas_tiled+topm+failure+wide/reallocate"
+# "chaos", "failure", "metrics", "wide" (csrc/ocean_traj_wide.cuh), "ranked"
+# (its ranked row) and "bf16" (stream_bf16), then "+seg" for a segment
+# launch (and "/<mode>" with failures), e.g. "bisect+guard", "newton+topm",
+# "pallas_tiled+topm+wide", "newton+topm+guard+metrics+wide", "static+seg",
+# "radio+failure+metrics+seg/plain", "pallas_tiled+topm+failure+wide/reallocate",
+# "wide+ranked" (ranking="sort", pallas) or
+# "topm+failure+wide+ranked/overprovision"
 ocean_traj.instances = {}
 
 

@@ -315,9 +315,11 @@ def test_stream_bf16_rows_are_the_float32_rows_cast(shape, tmp_path):
 # the scope past 2048
 # ---------------------------------------------------------------------------
 def test_scope_past_2048_runs_topm_and_refuses_the_rest():
-    """Past 2048 under top-m: the failure modes plain and reallocate, a
-    guard, a chaos backend and a MetricsSpec run (the plain version on the
-    CPU); sort, a clip past 2048 and overprovision raise, naming the hook."""
+    """Past 2048 every ranking runs (the plain version on the CPU): under
+    top-m the failure modes plain and reallocate, a guard, a chaos backend
+    and a MetricsSpec; and on the ranked row (``ranked_row``) sort, a clip
+    past 2048 and overprovision.  What K3 still refuses (a solver it does
+    not run) raises, naming the hook."""
     from repro_torch.env.failure import TracedFailure
     from repro_torch.guard import GuardSpec, register_chaos_solver
     from repro_torch.obs import MetricsSpec
@@ -325,9 +327,15 @@ def test_scope_past_2048_runs_topm_and_refuses_the_rest():
     k, t = 2049, 2
     cfg = TConfig(num_clients=k, num_rounds=t, radio=TRadio(b_min=0.5 / k), solver="newton",
                   ranking="topm", top_m=TOP_M, traj="fused")
+    # the ranked-row runs on the §VI per-client load with a budget that
+    # drains most queues: the plain sort sweep runs the few positive
+    # clients' candidates
+    ranked_load = dict(radio=TRadio(b_min=0.5 / k, model_bits=TRadio().model_bits * (0.5 / k)
+                                    / 0.02))
     h2 = torch.tensor(np.random.default_rng(0).exponential(size=(1, t, k)).astype(np.float32)
                       * 2.5e-4)
     eta = eta_schedule("uniform", t)
+    drain = dict(budget_seq=torch.full((1, t, k), INC[1]))
     _, decs = simulate(cfg, h2, eta, V, device="cpu")
     assert decs.a.shape == (1, t, k)
     tt.check_fused_scope(dataclasses.replace(cfg, top_m=2048))
@@ -338,20 +346,21 @@ def test_scope_past_2048_runs_topm_and_refuses_the_rest():
         (dataclasses.replace(cfg, guard=GuardSpec(energy_cap=1.0)), {}),
         (dataclasses.replace(cfg, solver=register_chaos_solver("pallas", kind="budget").name), {}),
         (dataclasses.replace(cfg, metrics=MetricsSpec.of("queue:mean")), {}),
+        (dataclasses.replace(cfg, ranking="sort", **ranked_load), {}),
+        (dataclasses.replace(cfg, top_m=2049, **ranked_load), {}),
+        (dataclasses.replace(cfg, failure_mode="overprovision", **ranked_load), failure),
     ]
     for c, kw in runs:
-        out = simulate(c, h2, eta, V, device="cpu", **kw)
+        assert tt.ranked_row(c, failure=bool(kw)) == (
+            c.ranking == "sort" or c.top_m > 2048 or c.failure_mode == "overprovision")
+        out = simulate(c, h2, eta, V, device="cpu", **kw,
+                       **(drain if tt.ranked_row(c, failure=bool(kw)) else {}))
         assert out[1].a.shape == (1, t, k)
         if c.metrics is not None:
             assert out[2]["queue/mean"].shape == (1, k)
-    refusals = [
-        (dataclasses.replace(cfg, ranking="sort"), {}, "ranking='sort'"),
-        (dataclasses.replace(cfg, top_m=2049), {}, "top_m=2049"),
-        (dataclasses.replace(cfg, failure_mode="overprovision"), failure, "overprovision"),
-    ]
-    for c, kw, hook in refusals:
-        with pytest.raises(NotImplementedError, match=f"K={k} > 2048 with .*{hook}"):
-            simulate(c, h2, eta, V, device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="chaos backends of pallas or bisect"):
+        simulate(dataclasses.replace(cfg, solver=register_chaos_solver(
+            "newton", kind="objective").name), h2, eta, V, device="cpu")
 
 
 def test_grid_past_2048_fused_equals_scan():

@@ -213,12 +213,19 @@ def test_fused_scope_takes_the_new_branches_and_refuses_the_rest():
     tt.check_fused_scope(_cfg(register_chaos_solver("bisect", kind="budget").name, "topm"))
     with pytest.raises(NotImplementedError, match="chaos"):
         tt.check_fused_scope(_cfg(register_chaos_solver("newton", kind="objective").name, "sort"))
-    # past the shared-memory sort the wide instances take top-m, and only it
+    # past the shared-memory sort the wide instances take every ranking:
+    # top-m with a clip of at most 2048 on the compact row, sort, a clip past
+    # it and overprovision on the ranked row
     big = TConfig(num_clients=2049, num_rounds=T, radio=TRadio(b_min=1e-4), solver="newton",
                   ranking="topm", traj="fused")
     tt.check_fused_scope(big)
-    with pytest.raises(NotImplementedError, match="K=2049 > 2048 with ranking='sort'"):
-        tt.check_fused_scope(dataclasses.replace(big, ranking="sort"))
+    assert not tt.ranked_row(big) and not tt.ranked_row(big, failure=True)
+    for c, failure in ((dataclasses.replace(big, ranking="sort"), False),
+                       (dataclasses.replace(big, top_m=2049), False),
+                       (dataclasses.replace(big, failure_mode="overprovision"), True)):
+        tt.check_fused_scope(c)
+        assert tt.ranked_row(c, failure=failure)
+    assert not tt.ranked_row(dataclasses.replace(big, failure_mode="overprovision"))
     # pallas_tiled is sort-free: the config refuses sort, and so does K3
     # with the scan path's ValueError where a config slips past it
     with pytest.raises(ValueError, match="sort-free"):

@@ -1589,23 +1589,26 @@ def test_k3_stream_bf16_rows_are_the_float32_rows_cast(dev, case):
 
 
 def test_k3_wide_refuses_what_it_does_not_run(dev, monkeypatch):
-    """Past 2048 the sort ranking and failure_mode overprovision raise
-    before anything launches; the wide launch itself refuses overprovision
-    with cudaErrorInvalidValue."""
+    """Past 2048 every ranking runs, so the wrapper refuses nothing there;
+    the compact row's own launch still refuses what only the ranked row
+    runs (ranking="sort", a clip past 2048, failure_mode overprovision)
+    with cudaErrorInvalidValue, before anything launches."""
     import dataclasses
 
     cfg, h2, v, eta, inc = _ranked_inputs(dev, 59, 1, 2, 2049)
-    before = tt.ocean_traj.launches
-    with pytest.raises(NotImplementedError, match="ranking='sort'"):
-        tt.ocean_traj(cfg, h2, v, eta, inc)
-    over = dataclasses.replace(cfg, ranking="topm", top_m=128, failure_mode="overprovision")
     failure = _k3_failure(dev, 59, 1, 2, 2049)
-    with pytest.raises(NotImplementedError, match="overprovision"):
-        tt.ocean_traj(over, h2, v, eta, inc, failure=failure)
-    assert tt.ocean_traj.launches == before
-    monkeypatch.setattr(tt, "check_fused_scope", lambda *a, **k: None)
-    with pytest.raises(RuntimeError, match="CUDA error 1: invalid argument"):
-        tt.ocean_traj(over, h2, v, eta, inc, failure=failure)
+    topm = dataclasses.replace(cfg, ranking="topm", top_m=128)
+    cases = [(dataclasses.replace(cfg, ranking="sort"), {}),
+             (dataclasses.replace(topm, top_m=2049), {}),
+             (dataclasses.replace(topm, failure_mode="overprovision"), dict(failure=failure))]
+    for c, kw in cases:
+        tt.check_fused_scope(c)
+        assert tt.ranked_row(c, failure=bool(kw))
+    monkeypatch.setattr(tt, "ranked_row", lambda *a, **k: False)
+    before = tt.ocean_traj.launches
+    for c, kw in cases:
+        with pytest.raises(RuntimeError, match="CUDA error 1: invalid argument"):
+            tt.ocean_traj(c, h2, v, eta, inc, **kw)
     assert tt.ocean_traj.launches == before
 
 
@@ -1757,3 +1760,138 @@ def test_k3_wide_branch_segments_equal_the_whole_launch(dev, stream_bf16):
     cfg = dataclasses.replace(cfg, solver="newton", frame_len=3, guard=GuardSpec(energy_cap=1.0),
                               metrics=_metrics_spec())
     _k3_segmented(cfg, h2, v, eta, inc, failure=kw["failure"], every=3, stream_bf16=stream_bf16)
+
+
+# ---------------------------------------------------------------------------
+# The wide instances' ranked row: ranking="sort", a clip past 2048 and
+# failure_mode overprovision
+# ---------------------------------------------------------------------------
+RANKED_ROW_BRANCHES = ("pallas", "newton", "bisect", "radio", "plain", "overprovision",
+                       "reallocate", "guard", "chaos", "metrics", "topm_over")
+
+
+def _ranked_branch(dev, branch, seed, C, T, K):
+    """One ranked-row configuration on ``_ranked_inputs``: (cfg, h2, v, eta,
+    inc, launch keywords, fault reports or None).  Under ranking="sort"
+    unless named: a solver; ``radio``, a streamed radio; ``plain``,
+    ``overprovision``, ``reallocate``, a failure mode under a delivery mask
+    at p = 0.7; ``guard``, quarantine, the energy cap 1 and the fallback on
+    planted gains; ``chaos``, the objective chaos backend of bisect there;
+    ``metrics``, chip_smoke's overhead spec; ``topm_over``, overprovision
+    under top-m; ``clip``, top-m with a clip of K; ``nan``, NaN gains with
+    the quarantine off; ``guard_over``, overprovision under the cap."""
+    import dataclasses
+
+    from repro_torch.guard import GuardSpec, register_chaos_solver
+    from repro_torch.obs import MetricsSpec
+
+    cfg, h2, v, eta, inc = _ranked_inputs(dev, seed, C, T, K)
+    cfg = dataclasses.replace(cfg, solver="pallas", ranking="sort")
+    kw, reps = {}, None
+    if branch in ("newton", "bisect"):
+        cfg = dataclasses.replace(cfg, solver=branch)
+    elif branch == "radio":
+        kw["radio"] = _k3_radio(dev, seed, C, T, cfg)
+    elif branch in ("plain", "overprovision", "reallocate", "topm_over", "guard_over"):
+        mode = "overprovision" if branch in ("topm_over", "guard_over") else branch
+        cfg = dataclasses.replace(cfg, failure_mode=mode)
+        if branch == "topm_over":
+            cfg = dataclasses.replace(cfg, ranking="topm", top_m=_top_m(K))
+        kw["failure"] = _k3_failure(dev, seed, C, T, K, p=0.7)
+    if branch in ("guard", "chaos", "guard_over"):
+        h2, reps = _planted(h2, seed, num_inf=2, num_zero=1, num_negative=1, num_nan=2)
+        cfg = dataclasses.replace(cfg, guard=GuardSpec(energy_cap=1.0) if branch != "chaos"
+                                  else GuardSpec())
+        if branch == "chaos":
+            cfg = dataclasses.replace(
+                cfg, solver=register_chaos_solver("bisect", kind="objective").name)
+    elif branch == "metrics":
+        cfg = dataclasses.replace(cfg, metrics=MetricsSpec.of(*_chip_smoke().OVERHEAD_SPEC))
+    elif branch == "clip":
+        cfg = dataclasses.replace(cfg, ranking="topm", top_m=K)
+    elif branch == "nan":
+        h2, reps = _planted(h2, seed, num_nan=3)
+        cfg = dataclasses.replace(cfg, guard=GuardSpec(quarantine=False))
+    return cfg, h2, v, eta, inc, kw, reps
+
+
+def _ranked_label(cfg, kw):
+    solver = cfg.solver
+    parts = [p for p, on in (("radio", "radio" in kw), ("bisect", "bisect" in solver),
+                             ("newton", solver == "newton"), ("topm", cfg.ranking == "topm"),
+                             ("guard", cfg.guard is not None), ("chaos", "chaos" in solver),
+                             ("failure", "failure" in kw), ("metrics", cfg.metrics is not None),
+                             ("wide", True), ("ranked", True)) if on]
+    return "+".join(parts) + (f"/{cfg.failure_mode}" if "failure" in kw else "")
+
+
+@pytest.mark.parametrize("branch", RANKED_ROW_BRANCHES)
+def test_k3_ranked_row_equals_the_shared_instance_bitwise(dev, branch):
+    """K = 100, 4 cells x 40 rounds: the forced wide instance runs on the
+    ranked row (sort, or overprovision under top-m) and gives the
+    shared-memory instance's bits on every output, per branch (the
+    telemetry but for its float sums, held to the replay); the guard's
+    counters the injected ones."""
+    import dataclasses
+
+    C, T, K = 4, 40, 100
+    cfg, h2, v, eta, inc, kw, reps = _ranked_branch(dev, branch, 67, C, T, K)
+    label = _ranked_label(cfg, kw)
+    before = tt.ocean_traj.instances.get(label, 0)
+    wide = tt.ocean_traj(cfg, h2, v, eta, inc, _force_wide=True, **kw)
+    shared = tt.ocean_traj(cfg, h2, v, eta, inc, **kw)
+    torch.cuda.synchronize()
+    assert tt.ocean_traj.instances[label] == before + 1
+    _assert_branch_bits(shared, wide, metrics=cfg.metrics is not None)
+    if reps is not None:
+        _assert_guard_counts(wide, reps, T)
+    if cfg.failure_mode == "overprovision":  # the extension grew some prefixes
+        bare = tt.ocean_traj(dataclasses.replace(cfg, failure_mode="plain"), h2, v, eta, inc,
+                             _force_wide=True, **kw)
+        assert bool((wide.nsel > bare.nsel).any()) and bool((wide.nsel >= bare.nsel).all())
+    if branch == "reallocate":
+        assert bool(wide.ral.any())
+    if branch == "chaos":
+        assert bool((wide.fb == 1).all())
+    if cfg.metrics is not None:
+        tt.check_metrics_replay(cfg, wide.metrics, wide, v, eta, inc)
+
+
+@pytest.mark.parametrize("branch", ("pallas", "newton", "bisect", "overprovision", "topm_over",
+                                    "guard_over", "clip", "nan"))
+def test_k3_ranked_row_matches_plain_past_2048(dev, branch):
+    """K = 4096, 2 cells x 4 rounds: the ranked row taken without being
+    forced (sort, overprovision under sort, under top-m and under the energy
+    cap, a clip of K, NaN gains with the quarantine off: a NaN rho ranks
+    after +inf, as a stable argsort ranks it) against its plain version,
+    whole and every round on its own queues (``chip_smoke._wide_vs_plain``)."""
+    C, T, K = 2, 4, 4096
+    cfg, h2, v, eta, inc, kw, reps = _ranked_branch(dev, branch, 69, C, T, K)
+    label = _ranked_label(cfg, kw)
+    before = tt.ocean_traj.instances.get(label, 0)
+    out = tt.ocean_traj(cfg, h2, v, eta, inc, **kw)
+    torch.cuda.synchronize()
+    assert tt.ocean_traj.instances[label] == before + 1
+    rec = _chip_smoke()._wide_vs_plain(torch, cfg, out, h2, v, eta, inc, f"ranked {branch}",
+                                       failure=kw.get("failure"), chunk=4)
+    assert rec["rounds"] == C * T
+    if reps is not None and cfg.guard.quarantine:
+        _assert_guard_counts(out, reps, T)
+    if branch == "nan":
+        assert bool(out.rho.isnan().any())
+
+
+@pytest.mark.parametrize("stream_bf16", [False, True])
+def test_k3_ranked_row_segments_equal_the_whole_launch(dev, stream_bf16):
+    """The ranked row's HasMetrics instance under sort with overprovision
+    and the guard as segments (frames of 3 rounds, segments of 3 and 2)
+    equals the whole launch bit for bit, in float32 and bf16; and the
+    instance without telemetry likewise."""
+    import dataclasses
+
+    C, T, K = 2, 8, 4096
+    cfg, h2, v, eta, inc, kw, _ = _ranked_branch(dev, "guard_over", 71, C, T, K)
+    cfg = dataclasses.replace(cfg, solver="newton", frame_len=3)
+    _k3_segmented(cfg, h2, v, eta, inc, failure=kw["failure"], every=3, stream_bf16=stream_bf16)
+    _k3_segmented(dataclasses.replace(cfg, metrics=_metrics_spec()), h2, v, eta, inc,
+                  failure=kw["failure"], every=3, stream_bf16=stream_bf16)

@@ -163,11 +163,19 @@ def test_schedules_match_reference():
 
 
 def test_fused_scope_and_config_validation():
-    # the fused kernel runs newton, but not past its shared-memory sort
+    # the fused kernel runs newton past its shared-memory sort too (the wide
+    # ranked row), but no chaos backend of newton
+    from repro_torch.guard import register_chaos_solver
+    from repro_torch.kernels import ocean_traj as tt
+
     cfg = TConfig(num_clients=2049, num_rounds=T, radio=TRadio(b_min=1e-4), solver="newton")
+    tt.check_fused_scope(cfg)
+    assert tt.ranked_row(cfg)
+    chaos = TConfig(num_clients=K, num_rounds=T, radio=TRadio(), traj="fused",
+                    solver=register_chaos_solver("newton", kind="objective").name)
     with pytest.raises(NotImplementedError, match="fused"):
-        simulate(cfg, torch.full((1, T, 2049), 2.5e-4), eta_schedule("uniform", T), V,
-                 traj="fused", device="cpu")
+        simulate(chaos, torch.full((1, T, K), 2.5e-4), eta_schedule("uniform", T), V,
+                 device="cpu")
     with pytest.raises(ValueError, match="frame_len"):
         TConfig(num_clients=K, num_rounds=T, radio=TRadio(), frame_len=0)
     with pytest.raises(ValueError, match="sort-free"):

@@ -86,6 +86,34 @@ def test_ocean_p_sort_and_topm_match_reference(solver):
         assert torch.equal(getattr(got_sort, f), getattr(got_topm, f)), f
 
 
+@pytest.mark.parametrize("solver", ["pallas", "bisect", "newton"])
+@pytest.mark.parametrize("top_m", [None, 40])
+def test_sweep_cands_clip_keeps_every_output(monkeypatch, solver, top_m):
+    """``solvers.sweep_cands`` clips a plain sweep's candidate axis to one
+    past the cells' largest K - n0 (K1's plain version, the bisect and the
+    newton sweeps): on cells whose n0 differ (12 to 48 of K = 48, one cell
+    all S0) every output is bit for bit the sweep over the whole axis of
+    m <= K (or m <= top_m), under sort and under a top-m clip."""
+    from repro_torch.core import solvers
+
+    K = 48
+    n0s = (12, 20, 28, 36, 48, 40)
+    q, h2 = _cells(5, 6, K)
+    for c, n0 in enumerate(n0s):
+        q[c, :n0] = 0.0
+        q[c, n0:] = np.maximum(q[c, n0:], 1e-3)
+    tq, th = torch.tensor(q), torch.tensor(h2)
+    kw = dict(solver=solver, ranking="sort" if top_m is None else "topm", top_m=top_m)
+    clipped = ocean_p(tq, th, 1e-4, 1.0, TRadio(), **kw)
+    assert solvers.sweep_cands(torch.tensor(n0s), K, top_m) == K - 12 + 1  # clipped
+    monkeypatch.setattr(solvers, "sweep_cands",
+                        lambda n0, K, m_cands=None: K if m_cands is None else m_cands)
+    whole = ocean_p(tq, th, 1e-4, 1.0, TRadio(), **kw)
+    assert (clipped.num_selected.numpy() > np.array(n0s)).any()
+    for f in whole._fields:
+        assert torch.equal(getattr(clipped, f), getattr(whole, f)), f
+
+
 def test_priorities_and_p3_value_match_reference():
     q, h2 = _cells(2, 3, 8)
     a = np.random.default_rng(2).random((3, 8)) < 0.5

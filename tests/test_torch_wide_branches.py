@@ -10,14 +10,14 @@ their ``TracedFailure`` (failure modes plain and reallocate); gains with
 NaN, inf, zero and negative draws planted by ``inject_h2_faults`` under a
 guard with quarantine, energy cap 1 and the fallback; the objective chaos
 backend of bisect; the 6-entry overhead spec of
-benchmarks/traj_bench.py:304-311 on the reallocate run.  Every round
+benchmarks/traj_bench.py:304-311 on the reallocate run; overprovision (on
+K3's ranked row past 2048) under the same mask.  Every round
 is teacher-forced on the reference's own queues, and whole trajectories
 are held on the seeds clear of near ties.  Selections, the delivered
 mask, the reallocation flags and the guard's counters exact; b within
 2e-4; the P3 value within 2e-4 relative; the final queues within 1e-6 +
 1e-5 |q|.  The telemetry is held to the reference's scan telemetry as
-``tests/test_torch_metrics.py`` holds it.  ``overprovision`` past 2048
-still raises.
+``tests/test_torch_metrics.py`` holds it.
 """
 import dataclasses
 import importlib.util
@@ -81,6 +81,10 @@ CASES = {
     "guard": ("pallas", None, dict(quarantine=True, energy_cap=1.0, fallback=True), FAULTS, False),
     "chaos": (CHAOS, None, dict(quarantine=True, fallback=True), FAULTS, False),
 }
+# overprovision past 2048 runs on K3's ranked row (tests/test_torch_wide_sort.py
+# holds it under sort and with the energy cap)
+OVER_CASES = {"overprovision": ("pallas", "overprovision", None, None, False)}
+ALL_CASES = {**CASES, **OVER_CASES}
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -114,7 +118,7 @@ def _delivered():
 
 
 def _cfg(case):
-    solver, mode, guard, _, metrics = CASES[case]
+    solver, mode, guard, _, metrics = ALL_CASES[case]
     return TConfig(num_clients=K, num_rounds=T, radio=TRadio(b_min=B_MIN, model_bits=BITS),
                    frame_len=R, solver=solver, ranking="topm", top_m=TOP_M, traj="fused",
                    failure_mode=mode or "plain",
@@ -123,7 +127,7 @@ def _cfg(case):
 
 
 def _failure(case):
-    if CASES[case][1] is None:
+    if ALL_CASES[case][1] is None:
         return None
     return TracedFailure(delivered=torch.tensor(_delivered()),
                          rate=torch.full((S, K), P_DELIVER))
@@ -131,7 +135,7 @@ def _failure(case):
 
 def _reference(case):
     """The reference's scan trajectory of every seed (vmapped, jitted once)."""
-    solver, mode, guard, faulty, metrics = CASES[case]
+    solver, mode, guard, faulty, metrics = ALL_CASES[case]
     cfg = JConfig(num_clients=K, num_rounds=T, radio=JRadio(b_min=B_MIN, model_bits=BITS),
                   frame_len=R, solver=J_CHAOS if solver == CHAOS else solver, ranking="topm",
                   top_m=TOP_M, failure_mode=mode or "plain",
@@ -239,7 +243,11 @@ def _assert_metrics(got, want, traces):
 
 @pytest.mark.parametrize("case", list(CASES))
 def test_wide_branches_match_the_reference_scan(case):
-    solver, mode, guard, faulty, metrics = CASES[case]
+    _hold_case(case)
+
+
+def _hold_case(case):
+    solver, mode, guard, faulty, metrics = ALL_CASES[case]
     ref_out = _reference(case)
     ref_state, ref = ref_out[:2]
     cfg = _cfg(case)
@@ -258,6 +266,11 @@ def test_wide_branches_match_the_reference_scan(case):
     _assert_rounds(cfg, got, ref, ok, h2)
     if mode == "reallocate":
         assert got["ral"].any()
+    if mode == "overprovision":  # the extension grew some prefixes
+        bare = tt.rounds_alone(dataclasses.replace(cfg, failure_mode="plain"),
+                               torch.tensor(ref.q), h2, v, eta, inc, failure=_failure(case))
+        grown = got["nsel"] - _rows(bare.nsel.numpy())
+        assert (grown >= 0).all() and (grown > 0).any()
     if solver == CHAOS:
         assert got["fb"].all()
     if case == "guard":
@@ -287,9 +300,8 @@ def test_wide_branches_match_the_reference_scan(case):
 
 
 def test_overprovision_past_2048_still_raises():
-    cfg = dataclasses.replace(_cfg("plain"), failure_mode="overprovision")
-    with pytest.raises(NotImplementedError, match="K=2100 > 2048 with failure_mode="
-                                                  "'overprovision'.*full ranked order"):
-        simulate(cfg, torch.tensor(_h2(False)), eta_schedule("ascend", T), V,
-                 budget_seq=torch.tensor(_inc()), failure_seq=_failure("plain"), traj="fused",
-                 device="cpu")
+    """Overprovision past 2048 (top-m 8, pallas) no longer raises: it runs on
+    K3's ranked row and is held to the reference's scan like the other
+    branches."""
+    assert tt.ranked_row(_cfg("overprovision"), failure=True)
+    _hold_case("overprovision")
