@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Times the port's kernels K1, K2, K3, K5, K6 and K7 of one checkout on the card.
+"""Times the port's kernels K1, K2, K3, K4, K5, K6 and K7 of one checkout on the card.
 
     python3 chip_kernels.py [--src DIR] [--save FILE] [--only PREFIX,...]
 
@@ -32,7 +32,8 @@ row (``k3_ranked_sort``: ranking="sort" under pallas;
 mask, where the checkout has them; ``k3_ranked_topm128``: the ranked row
 forced onto ``k3_wide``'s cell, and ``k3_wide_K1e5`` /
 ``k3_ranked_topm128_K1e5`` both rows on that cell at K = 10^5); the §VI instance's reading also
-carries ptxas's registers and spills (``ptxas``); K5: the long cache; K6: one 4096-channel block of jamba's mixer
+carries ptxas's registers and spills (``ptxas``); K4: ``chip_smoke.K4_SHAPES``
+(``k4_<label>``; head_dim 256 and float32 where the checkout has them); K5: the long cache; K6: one 4096-channel block of jamba's mixer
 over 8192 steps; K7: the rwkv6 prefill layer, 8 x 8192 x 32 heads of 64,
 and at B = 4, 128 (b, h) chains, fewer than the card's 132 SMs) and is
 timed two ways: ``ms``, back-to-back wrapper calls between two CUDA events
@@ -117,7 +118,8 @@ def main() -> int:
     for name, v in (("k2", 1e-5), ("k2_V1e-3", 1e-3)):
         scal, work, *_ = cs._k2_inputs(torch, np, dev, 8, 10_000, v, 1.0, 128)
         timed(name, lambda: ocean_p_topm(scal, work, K=10_000, top_m=128), 10)
-        k2_out[name] = [t.cpu() for t in ocean_p_topm(scal, work, K=10_000, top_m=128)]
+        if name in rec:
+            k2_out[name] = [t.cpu() for t in ocean_p_topm(scal, work, K=10_000, top_m=128)]
     if args.save:
         torch.save(k2_out, args.save)
 
@@ -152,7 +154,7 @@ def main() -> int:
         from repro_torch.core.ocean import segment_step, slice_rounds
     except ImportError:  # a checkout without checkpoint/resume
         segment_step = None
-    if segment_step is not None:
+    if segment_step is not None and (not only or "k3_seg".startswith(only)):
         from repro_torch.core.ocean import init_state
 
         streams = (h2c, vv, eta, inc, None, None)
@@ -254,6 +256,23 @@ def main() -> int:
             timed("k3_ranked_topm128_K1e5", forced(lambda: ocean_traj(*wide5)), 3)
             del wide5
         del wide, ranked
+
+    from repro_torch.configs import ARCH_CONFIGS
+    from repro_torch.kernels import flash_attention as fa
+
+    for label, (arch, B, local, dtype_name, seed) in cs.K4_SHAPES.items():
+        cfg, dtype = ARCH_CONFIGS.get(arch), getattr(torch, dtype_name)
+        if cfg is None or cfg.head_dim not in fa.HEAD_DIMS or (
+                dtype != torch.bfloat16 and 256 not in fa.HEAD_DIMS):
+            continue  # a checkout before head_dim 256 and float32
+        if only and not f"k4_{label}".startswith(only):
+            continue
+        q, k, v = cs.k4_inputs(torch, dev, cfg, B, 8192, dtype, seed)
+        win = cfg.sliding_window if local else None
+        timed(f"k4_{label}", lambda: fa.flash_attention(
+            q, k, v, causal=True, window=win, logit_cap=cfg.attn_logit_softcap),
+            10 if dtype == torch.bfloat16 else 3)
+        del q, k, v
 
     qd, kc, vc, vl = cs._k5_inputs(torch, dev, 4, 8192, 32, 16, 128, 8000)
     timed("k5", lambda: decode_attention(qd, kc, vc, vl, logit_cap=50.0), 50)

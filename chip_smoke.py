@@ -44,7 +44,19 @@ launch per layer; the kernel path held to the plain path at 2 full-width
 layers), and the ``launch/serve.py`` loop (batch 4, prompt 32, 32 new
 tokens), after which K5 runs on every
 layer's cache at the last position, on the inputs the decode step gave
-its attention there, and is held to what that attention computed.
+its attention there, and is held to what that attention computed.  The
+same two phases run gemma3-1b at full width and depth (26 layers of
+head_dim 256, MQA with 4 query heads, a 5:1 local:global pattern with a
+window of 1024, 1.0e9 random bf16 parameters): ``gemma3_prefill`` on 4 x
+8192 tokens (K4 once per layer; the kernel path held to the plain path
+on the first 6 layers, five local and a global one) and ``gemma3_serve``
+(K5 on all 26 caches, the local layers' rings among them).  ``k4_flash``
+also holds K4 at gemma3-1b's global and local shapes (B = 4, head_dim
+256) with planted faults, and K4's float32 kernel at gemma3-1b's and
+gemma2-27b's global shapes; ``smoke_f32_prefill`` runs
+``make_prefill_step`` in float32 on the card for the smoke variants of
+gemma3-1b, gemma2-27b and jamba-1.5-large (K4's float32 kernel once per
+attention layer), each held to its plain path.
 
 Then the recurrent LMs: K7 and K6 against their plain versions at the
 rwkv6 prefill shape (8 x 8192, 32 heads of 64) and at one 4096-channel
@@ -424,16 +436,24 @@ def phase_card(torch):
     check(log is None or (vi is not None and vi["spill_store_bytes"] == 0
                           and vi["spill_load_bytes"] == 0),
           f"card: K3's §VI instance spills or is missing from ptxas's report ({vi})")
+    # K4's head_dim-256 instances (bf16 wgmma, float32 FFMA): registers and
+    # spills, recorded (the bf16 one's 168 is the launch bound's cap; its
+    # consumers run under setmaxnreg's 240).
+    k4_log = _build.build_output("flash_attention")
+    k4 = {"bf16_dh256": ptxas_of(k4_log, r"flash_attention_kernelILi256E"),
+          "f32_dh256": ptxas_of(k4_log, r"flash_attention_f32_kernelILi256E")}
+    check(k4_log is None or None not in k4.values(),
+          f"card: K4's head_dim-256 instances are missing from ptxas's report ({k4})")
     emit({
         "phase": "card", "gpu": smi, "torch": torch.__version__,
         "cuda": torch.version.cuda, "build_s": round(build_s, 3),
         "nvcc_s": {k: round(v["seconds"], 3) for k, v in _build.BUILD_LOG.items()},
-        "ptxas": ptxas, "k3_vi_instance": vi,
+        "ptxas": ptxas, "k3_vi_instance": vi, "k4_dh256": k4,
         "spilling_kernels": {k: [(r["name"], r["spill_store_bytes"], r["spill_load_bytes"])
                                  for r in ptxas_kernels(v["output"]) if r["spill_store_bytes"]]
                              for k, v in _build.BUILD_LOG.items()},
     })
-    return smi
+    return smi, k4
 
 
 def _k1_inputs(torch, np, dev, C, K, seed):
@@ -2528,7 +2548,8 @@ def _ranked_clip(torch, np, dev, big, clip, whole_cells, part):
 
 
 def phase_k3_ranked(torch, np, dev, smi, equal=((100, 4, 40), (2048, 4, 40)),
-                    big=(10_000, 8, 8), whole_cells=2, top_m=KSCALE_TOP_M, clip=4096):
+                    big=(10_000, 8, 8), whole_cells=2, top_m=KSCALE_TOP_M, clip=4096,
+                    kscale_rounds=4):
     """K3's wide ranked row (csrc/ocean_traj_wide.cuh, instances in
     ``ocean_traj_wide_ranked{,_metrics}.cu``): ranking="sort", a top-m clip
     past 2048 and failure_mode="overprovision", each sorting every client's
@@ -2544,8 +2565,11 @@ def phase_k3_ranked(torch, np, dev, smi, equal=((100, 4, 40), (2048, 4, 40)),
         output; named exceptions (the telemetry's float sums, an extended
         round's P3 value where the two blocks have other thread counts) are
         held to the replay and to the plain round.
-    (b) traj_bench's K-scaling cell (``_kscale_inputs``) at K = 10^4, 8 x 8,
-        under sort with pallas: ``run_grid(traj="fused")`` (one ranked-row
+    (b) traj_bench's K-scaling cell (``_kscale_inputs``) at K = 10^4, 8 cells
+        x ``kscale_rounds`` (4: each round past the first sweeps ~10^4
+        candidates, ~7 s of the launch; 8 rounds took 137 s of the phase on
+        the H100, with the scan path's and the plain rounds), under sort with
+        pallas: ``run_grid(traj="fused")`` (one ranked-row
         launch, counted, timed under the profiler); the scan path's round
         (argsort and K1, counted) on each of its 64 cell-rounds, in one
         batch on the fused grid's queues (``_ranked_kscale`` says why not
@@ -2594,7 +2618,8 @@ def phase_k3_ranked(torch, np, dev, smi, equal=((100, 4, 40), (2048, 4, 40)),
 
     bits = _ranked_bits(torch, np, dev, equal, top_m)
     part("a: bits")
-    vs_scan, held_b, row_sort = _ranked_kscale(torch, np, dev, big, whole_cells, lib, part)
+    vs_scan, held_b, row_sort = _ranked_kscale(torch, np, dev, big[:2] + (kscale_rounds,),
+                                               whole_cells, lib, part)
     part("b: the row")
     cell = _ranked_round_cell(torch, np, dev, big, top_m)
     part("c: the round cell")
@@ -3981,6 +4006,19 @@ NEAR_ELEMS = 1 << 27
 # the LM serving path: gemma2-27b prefill through K4, decode beside K5
 # ---------------------------------------------------------------------------
 GEMMA = "gemma2-27b"
+GEMMA3 = "gemma3-1b"
+JAMBA = "jamba-1.5-large-398b"
+# K4's shapes in phase k4_flash (chip_kernels.py times the same): label ->
+# (arch, B, a local layer (its window) or a global one, dtype, input seed), S = 8192.
+K4_SHAPES = {
+    "global": (GEMMA, 1, False, "bfloat16", 4),
+    "local": (GEMMA, 1, True, "bfloat16", 4),
+    "jamba": (JAMBA, 1, False, "bfloat16", 6),
+    "gemma3_global": (GEMMA3, 4, False, "bfloat16", 7),
+    "gemma3_local": (GEMMA3, 4, True, "bfloat16", 7),
+    "f32_gemma3_global": (GEMMA3, 4, False, "float32", 8),
+    "f32_global": (GEMMA, 1, False, "float32", 9),
+}
 
 
 def attn_pairs(S, window):
@@ -4084,61 +4122,101 @@ def flex_library(torch, plain, q, k, v, cap, reps, causal=True, window=None, val
                 library_max_abs_err_vs_plain=err)
 
 
-def phase_k4(torch, dev, smi, B=1, S=8192):
-    """K4 against its plain version at gemma2-27b's global and local layer
-    shapes and at jamba-1.5-large's attention layer, each timed beside one
-    compiled flex_attention call; and the soft-cap's share of K4's error
-    (the global inputs with and without the cap)."""
+# K4's float32 kernel vs its float32 plain version: tests/test_kernels.py's
+# float32 tolerance, |d| <= F32_TOL + F32_TOL |plain|.  Both compute the
+# logits, the softmax and both products in float32 and differ in the order
+# of the Dh- and key-long sums and in expf's / tanhf's last ulp.
+F32_TOL = 2e-5
+
+
+def f32_close(a, ref):
+    """Max |a - ref| and whether every element is within F32_TOL."""
+    d = (a - ref).abs()
+    return d.max().item(), bool((d <= F32_TOL + F32_TOL * ref.abs()).all())
+
+
+def k4_inputs(torch, dev, cfg, B, S, dtype, seed):
+    """Seeded q (B, S, H, Dh) x 4 and k, v (B, S, KV, Dh) at ``cfg``'s heads."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    H, KV, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = (torch.randn((B, S, H, Dh), generator=g, device=dev) * 4.0).to(dtype)
+    k = torch.randn((B, S, KV, Dh), generator=g, device=dev).to(dtype)
+    v = torch.randn((B, S, KV, Dh), generator=g, device=dev).to(dtype)
+    return q, k, v
+
+
+def phase_k4(torch, dev, smi, S=8192):
+    """K4 against its plain version, each shape timed beside one compiled
+    flex_attention call: in bf16 at gemma2-27b's global and local layer
+    shapes and jamba-1.5-large's attention layer (B = 1), and gemma3-1b's
+    global and local layers at head_dim 256 (B = 4, each with planted
+    faults that must fail); in float32 (the FFMA kernel) at gemma3-1b's and
+    gemma2-27b's global shapes.  Also the soft-cap's share of K4's error
+    (gemma2's global inputs with and without the cap)."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
 
-    gem, jam = get_config(GEMMA), get_config(JAMBA)
-    bf = torch.bfloat16
-
-    def inputs(cfg, seed):
-        g = torch.Generator(device=dev)
-        g.manual_seed(seed)
-        H, KV, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-        q = (torch.randn((B, S, H, Dh), generator=g, device=dev) * 4.0).to(bf)
-        k = torch.randn((B, S, KV, Dh), generator=g, device=dev).to(bf)
-        v = torch.randn((B, S, KV, Dh), generator=g, device=dev).to(bf)
-        return q, k, v
-
-    qkv = {GEMMA: inputs(gem, 4), JAMBA: inputs(jam, 6)}
-    shapes = {"global": (gem, None, gem.attn_logit_softcap),
-              "local": (gem, gem.sliding_window, gem.attn_logit_softcap),
-              "jamba": (jam, None, jam.attn_logit_softcap)}
+    bf, f32 = torch.bfloat16, torch.float32
     rec = {}
-    for label, (cfg, win, cap) in shapes.items():
-        q, k, v = qkv[cfg.name]
+    for label, (arch, B, local, dtype_name, seed) in K4_SHAPES.items():
+        t_label = time.perf_counter()
+        cfg, dtype = get_config(arch), getattr(torch, dtype_name)
+        win = cfg.sliding_window if local else None
+        cap = cfg.attn_logit_softcap
+        q, k, v = k4_inputs(torch, dev, cfg, B, S, dtype, seed)
 
         def run(fn=flash_attention, win=win, cap=cap, q=q, k=k, v=v):
             return fn(q, k, v, causal=True, window=win, logit_cap=cap)
 
         out, plain = run(), run(flash_attention_plain)
+        check(out.dtype == dtype, f"K4 {label}: output {out.dtype}")
         check(bool(torch.isfinite(out.float()).all()), f"K4 {label}: non-finite output")
-        err, ok = att_close(out, plain)
-        check(ok, f"K4 {label}: out vs plain beyond tolerance (max |d| = {err})")
-        ms = gpu_ms(torch, run, 10)
-        dev_ms, _, seen = device_ms(torch, run, 10)
+        faults = {}
+        if dtype == f32:
+            err, ok = f32_close(out, plain)
+            check(ok, f"K4 {label}: out vs plain beyond {F32_TOL} (max |d| = {err})")
+            faults["zeros"] = not f32_close(torch.zeros_like(plain), plain)[1]
+        else:
+            err, ok = att_close(out, plain)
+            check(ok, f"K4 {label}: out vs plain beyond tolerance (max |d| = {err})")
+        if cfg.head_dim == 256 and dtype == bf:
+            # The head_dim-256 shapes: also relative L2, with planted faults.
+            reading = att_layer_reading(out, plain)
+            check(reading["passes"], f"K4 {label}: out vs plain {reading}")
+            bad = {"zeros": torch.zeros_like(plain)}
+            if win is not None:
+                bad["no_window"] = flash_attention_plain(q, k, v, causal=True, window=None,
+                                                         logit_cap=cap)
+            faults.update({name: not att_layer_reading(x, plain)["passes"]
+                           for name, x in bad.items()})
+            del bad
+        check(all(faults.values()), f"K4 {label}: a planted fault passes {faults}")
+        reps = 10 if dtype == bf else 3
+        ms = gpu_ms(torch, run, reps)
+        dev_ms, _, seen = device_ms(torch, run, reps)
         plain_ms = gpu_ms(torch, lambda: run(flash_attention_plain), 2)
         flops = 4 * B * cfg.n_heads * cfg.head_dim * attn_pairs(S, win)
-        n_bytes = 2 * (2 * q.numel() + k.numel() + v.numel())
-        bms, by = bound_ms(n_bytes, flops, PEAK_BF16_FLOPS)
-        lib = flex_library(torch, plain, q, k, v, cap, 10, window=win)
-        rec[label] = dict(arch=cfg.name, H=cfg.n_heads, KV=cfg.n_kv_heads, Dh=cfg.head_dim,
-                          window=win, softcap=cap, max_abs_err=err,
-                          rel_l2=rel_err(out, plain), ms=ms, device_ms=dev_ms,
-                          device_records_seen=seen, plain_ms=plain_ms,
+        n_bytes = out.element_size() * (2 * q.numel() + k.numel() + v.numel())
+        bms, by = bound_ms(n_bytes, flops, PEAK_BF16_FLOPS if dtype == bf else PEAK_F32_FLOPS)
+        lib = flex_library(torch, plain, q, k, v, cap, reps, window=win)
+        rec[label] = dict(arch=cfg.name, B=B, H=cfg.n_heads, KV=cfg.n_kv_heads, Dh=cfg.head_dim,
+                          window=win, softcap=cap, dtype=str(dtype).split(".")[-1],
+                          max_abs_err=err, rel_l2=rel_err(out, plain), planted_faults_fail=faults,
+                          ms=ms, device_ms=dev_ms, device_records_seen=seen, plain_ms=plain_ms,
                           bound_ms=bms, bound_by=by, flops=flops, bytes=n_bytes,
                           tflop_per_s=flops / ms / 1e9, **lib)
         if lib.get("library_ms"):
             rec[label]["library_tflop_per_s"] = flops / lib["library_ms"] / 1e9
         del out, plain
+        torch.cuda.synchronize()
+        rec[label]["seconds"] = time.perf_counter() - t_label  # with flex_attention's compile
+        del q, k, v
     # The soft-cap's share of the error: the kernel computes cap * tanh(x / cap)
     # with tanh.approx.f32, the plain version with the precise tanh.  The same
     # global inputs without the cap isolate it.
-    q, k, v = qkv[GEMMA]
+    gem = get_config(GEMMA)
+    q, k, v = k4_inputs(torch, dev, gem, 1, S, bf, K4_SHAPES["global"][4])
     softcap = dict(formula="cap * tanh.approx.f32(x / cap)", cap=gem.attn_logit_softcap,
                    capped=dict(max_abs_err=rec["global"]["max_abs_err"],
                                rel_l2=rec["global"]["rel_l2"]))
@@ -4154,7 +4232,7 @@ def phase_k4(torch, dev, smi, B=1, S=8192):
     kt = k.repeat_interleave(G, dim=2).transpose(1, 2)
     vt = v.repeat_interleave(G, dim=2).transpose(1, 2)
     sdpa_ms = gpu_ms(torch, lambda: sdpa(qt, kt, vt, is_causal=True), 10)
-    out = dict(gpu=smi, shape=dict(B=B, S=S, dtype="bfloat16"), results=rec, softcap=softcap,
+    out = dict(gpu=smi, shape=dict(S=S), results=rec, softcap=softcap,
                sdpa_causal_no_softcap_no_window_ms=sdpa_ms)
     emit({"phase": "k4_flash", **out})
     return out
@@ -4261,21 +4339,24 @@ def profile_call(torch, fn):
                 top=[dict(kernel=k[:90], ms=us / 1e3, calls=c) for us, k, c in rows[:10]])
 
 
-def phase_prefill(torch, dev, smi, B=1, S=8192, seed=0, check_layers=2):
-    """gemma2-27b at full width and depth through make_prefill_step."""
+def phase_prefill(torch, dev, smi, arch=GEMMA, B=1, S=8192, seed=0, check_layers=2,
+                  name="prefill_main"):
+    """``arch`` (gemma2-27b; gemma3-1b at head_dim 256) at full width and
+    depth through make_prefill_step."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
     from repro_torch.launch.steps import make_prefill_step
     from repro_torch.models import attention as attn_mod
     from repro_torch.models import build_model
 
-    cfg = get_config(GEMMA)
+    cfg = get_config(arch)
     g = torch.Generator(device=dev)
     g.manual_seed(seed + 1)
     batch = {"tokens": torch.randint(0, cfg.vocab, (B, S), generator=g, device=dev)}
 
     # Kernel path vs plain path on the same weights (per-tensor seeding
-    # gives the first layers of the full model), 2 layers of full width:
+    # gives the first layers of the full model), check_layers layers of
+    # full width (gemma3's 6: five local layers and a global one):
     # each layer's attention output on its own q/k/v, element-wise, with
     # two planted faults that must fail the same test; then the hidden
     # states and logits end to end, with the window-dropped model's reading.
@@ -4287,13 +4368,13 @@ def phase_prefill(torch, dev, smi, B=1, S=8192, seed=0, check_layers=2):
         for i, (layer, (args, kw, out)) in enumerate(zip(small.layers, calls)):
             plain = flash_attention_plain(*args, **kw)
             rd = att_layer_reading(out, plain)
-            check(rd["passes"], f"prefill: layer {i} ({layer.kind}) attention vs plain {rd}")
+            check(rd["passes"], f"{name}: layer {i} ({layer.kind}) attention vs plain {rd}")
             faults = {"zeros": torch.zeros_like(plain)}
             if kw["window"] is not None:
                 faults["no_window"] = flash_attention_plain(*args, **{**kw, "window": None})
-            controls = {name: att_layer_reading(bad, plain) for name, bad in faults.items()}
-            for name, c in controls.items():
-                check(not c["passes"], f"prefill: planted fault {name} passes on layer {i}: {c}")
+            controls = {fault: att_layer_reading(bad, plain) for fault, bad in faults.items()}
+            for fault, c in controls.items():
+                check(not c["passes"], f"{name}: planted fault {fault} passes on layer {i}: {c}")
             per_layer.append(dict(kind=layer.kind, **rd, controls=controls))
             del plain, faults
         del calls
@@ -4308,8 +4389,8 @@ def phase_prefill(torch, dev, smi, B=1, S=8192, seed=0, check_layers=2):
                max_abs_logits=max_abs(lg_k, lg_p), tol_rel=MODEL_REL,
                same_argmax=bool(torch.equal(lg_k.argmax(-1), lg_p.argmax(-1))),
                no_window_rel_hidden=rel_err(h_c, h_p), no_window_rel_logits=rel_err(lg_c, lg_p))
-    check(cmp["rel_hidden"] <= MODEL_REL, f"prefill: kernel vs plain hidden {cmp}")
-    check(cmp["rel_logits"] <= MODEL_REL, f"prefill: kernel vs plain logits {cmp}")
+    check(cmp["rel_hidden"] <= MODEL_REL, f"{name}: kernel vs plain hidden {cmp}")
+    check(cmp["rel_logits"] <= MODEL_REL, f"{name}: kernel vs plain logits {cmp}")
     del small, h_k, h_p, h_c
     torch.cuda.empty_cache()
 
@@ -4328,24 +4409,25 @@ def phase_prefill(torch, dev, smi, B=1, S=8192, seed=0, check_layers=2):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = flash_attention.launches
-    check(launches == cfg.num_layers, f"prefill: K4 launched {launches} times, not {cfg.num_layers}")
-    check(tuple(logits.shape) == (B, 1, cfg.vocab), f"prefill: logits {tuple(logits.shape)}")
-    check(bool(torch.isfinite(logits).all()), "prefill: non-finite logits")
-    check(logits.abs().max().item() <= cfg.final_logit_softcap, "prefill: logits above the soft-cap")
+    check(launches == cfg.num_layers, f"{name}: K4 launched {launches} times, not {cfg.num_layers}")
+    check(tuple(logits.shape) == (B, 1, cfg.vocab), f"{name}: logits {tuple(logits.shape)}")
+    check(bool(torch.isfinite(logits).all()), f"{name}: non-finite logits")
+    check(cfg.final_logit_softcap is None or logits.abs().max().item() <= cfg.final_logit_softcap,
+          f"{name}: logits above the soft-cap")
     try:
         prof = profile_call(torch, lambda: step(batch))
     except Exception as exc:  # the profiler is a reading, not a check
         prof = {"error": repr(exc)}
     out = dict(gpu=smi, arch=cfg.name, layers=cfg.num_layers, d_model=cfg.d_model,
-               params=n_params, B=B, S=S, init_s=init_s, prefill_s=wall,
+               head_dim=cfg.head_dim, params=n_params, B=B, S=S, init_s=init_s, prefill_s=wall,
                prefill_tokens_per_s=B * S / wall, k4_launches=launches,
                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
                kernel_vs_plain=cmp, profile=prof)
-    emit({"phase": "prefill_main", **out})
+    emit({"phase": name, **out})
     return model, out
 
 
-def phase_serve(torch, dev, smi, model, B=4, prompt=32, gen=32, seed=0):
+def phase_serve(torch, dev, smi, model, B=4, prompt=32, gen=32, seed=0, name="serve_decode"):
     """The launch/serve.py loop at full width, then K5 on every layer's
     cache at the last position against the decode path."""
     from repro_torch.kernels.decode_attention import decode_attention
@@ -4360,9 +4442,9 @@ def phase_serve(torch, dev, smi, model, B=4, prompt=32, gen=32, seed=0):
     flash_attention.launches = 0
     r = generate(model, cfg, batch=B, prompt_len=prompt, gen=gen, temperature=0.0, seed=seed)
     toks = r["tokens"]
-    check(tuple(toks.shape) == (B, gen), f"serve: tokens {tuple(toks.shape)}")
-    check(bool(((toks >= 0) & (toks < cfg.vocab)).all()), "serve: token out of range")
-    check(bool(torch.isfinite(r["logits"]).all()), "serve: non-finite logits")
+    check(tuple(toks.shape) == (B, gen), f"{name}: tokens {tuple(toks.shape)}")
+    check(bool(((toks >= 0) & (toks < cfg.vocab)).all()), f"{name}: token out of range")
+    check(bool(torch.isfinite(r["logits"]).all()), f"{name}: non-finite logits")
 
     pos = prompt + gen - 1   # the last slot of the caches
     serve = make_serve_step(model, cfg)
@@ -4378,7 +4460,7 @@ def phase_serve(torch, dev, smi, model, B=4, prompt=32, gen=32, seed=0):
 
     with torch.no_grad(), recorded_calls(attn_mod, "decode_attention_plain", keep) as calls:
         model.decode_step(r["cache"], toks[:, -1:], pos)
-    check(len(calls) == cfg.num_layers, f"serve: {len(calls)} decode attentions recorded")
+    check(len(calls) == cfg.num_layers, f"{name}: {len(calls)} decode attentions recorded")
     err_decode, ok_decode = 0.0, True
     for q, k, v, vl, cap, seen in calls:
         e, ok = att_close(decode_attention(q, k, v, vl, logit_cap=cap), seen)
@@ -4386,8 +4468,8 @@ def phase_serve(torch, dev, smi, model, B=4, prompt=32, gen=32, seed=0):
     torch.cuda.synchronize()
     launches = {"decode_attention": decode_attention.launches,
                 "flash_attention": flash_attention.launches}
-    check(launches["decode_attention"] == len(calls), f"serve: K5 launches {launches}")
-    check(ok_decode, f"serve: K5 vs attention_decode beyond tolerance (max |d| = {err_decode})")
+    check(launches["decode_attention"] == len(calls), f"{name}: K5 launches {launches}")
+    check(ok_decode, f"{name}: K5 vs attention_decode beyond tolerance (max |d| = {err_decode})")
     out = dict(gpu=smi, arch=cfg.name, B=B, prompt_len=prompt, gen=gen,
                prefill_by_decode_s=r["prefill_s"], decode_s=r["decode_s"],
                decode_steps=r["decode_steps"],
@@ -4395,9 +4477,66 @@ def phase_serve(torch, dev, smi, model, B=4, prompt=32, gen=32, seed=0):
                ms_per_decode_step=1e3 * r["decode_s"] / r["decode_steps"],
                launches=launches, k5_pos=pos, k5_layers=len(calls),
                k5_valid_len={layer.kind: c[3] for layer, c in zip(model.layers, calls)},
+               k5_cache_slots={layer.kind: c[1].shape[1] for layer, c in zip(model.layers, calls)},
                k5_max_abs_err_vs_attention_decode=err_decode,
                sample=toks[0, :8].tolist(), profile_one_step=prof)
-    emit({"phase": "serve_decode", **out})
+    emit({"phase": name, **out})
+    return out
+
+
+# float32 smoke prefill on the card (K4's FFMA kernel): the kernel path
+# against the plain path, relative L2 of the hidden states and of the
+# last logits.  Both compute the same float32 function in another order
+# (the attention's sums, expf's ulp; jamba's Mamba layers also through K6,
+# whose float32 tolerance is of this size).
+SMOKE_F32_REL = 1e-4
+
+
+def phase_smoke_f32(torch, dev, smi, B=2, S=128, seed=0):
+    """make_prefill_step on the card for smoke_variant of gemma3-1b,
+    gemma2-27b and jamba-1.5-large at full smoke depth, in float32: K4's
+    float32 kernel once per attention layer, held to the plain path."""
+    from repro_torch.configs import get_config, smoke_variant
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import build_model
+
+    rec = {}
+    for arch in (GEMMA3, GEMMA, JAMBA):
+        cfg = smoke_variant(get_config(arch))
+        check(cfg.dtype == "float32", f"smoke_f32: {arch}'s smoke variant is {cfg.dtype}")
+        model = build_model(cfg, dev).init(seed)
+        g = torch.Generator(device=dev)
+        g.manual_seed(seed + 5)
+        batch = {"tokens": torch.randint(0, cfg.vocab, (B, S), generator=g, device=dev)}
+        step = make_prefill_step(model, cfg)
+        step(batch)  # warm-up
+        torch.cuda.synchronize()
+        n_attn = sum(k in ("global", "local") for k in cfg.layer_kinds())
+        flash_attention.launches = 0
+        t0 = time.perf_counter()
+        logits = step(batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = flash_attention.launches
+        with torch.no_grad():
+            h_k, _ = model(batch["tokens"])
+            h_p, _ = model(batch["tokens"], plain=True)
+            lg_p = model.logits(h_p[:, -1:])
+        r = dict(layers=cfg.num_layers, attention_layers=n_attn, head_dim=cfg.head_dim,
+                 window=cfg.sliding_window, k4_launches=launches, prefill_s=wall,
+                 rel_hidden=rel_err(h_k, h_p), rel_logits=rel_err(logits, lg_p),
+                 max_abs_logits=max_abs(logits, lg_p), tol_rel=SMOKE_F32_REL)
+        check(launches == n_attn, f"smoke_f32 {arch}: K4 launched {launches} times, not {n_attn}")
+        check(logits.dtype == torch.float32 and tuple(logits.shape) == (B, 1, cfg.vocab)
+              and bool(torch.isfinite(logits).all()), f"smoke_f32 {arch}: logits {logits.shape}")
+        check(r["rel_hidden"] <= SMOKE_F32_REL and r["rel_logits"] <= SMOKE_F32_REL,
+              f"smoke_f32 {arch}: kernel vs plain {r}")
+        rec[arch] = r
+        del model, h_k, h_p
+    out = dict(gpu=smi, B=B, S=S, dtype="float32", results=rec,
+               k4_launches=sum(r["k4_launches"] for r in rec.values()))
+    emit({"phase": "smoke_f32_prefill", **out})
     return out
 
 
@@ -4406,7 +4545,6 @@ def phase_serve(torch, dev, smi, model, B=4, prompt=32, gen=32, seed=0):
 # through K6 and K4
 # ---------------------------------------------------------------------------
 RWKV = "rwkv6-1.6b"
-JAMBA = "jamba-1.5-large-398b"
 JAMBA_LAYERS = 5
 
 
@@ -4937,7 +5075,7 @@ def main() -> int:
         print(f"chip_smoke: phase {name} {walls[name]:.1f} s", file=sys.stderr, flush=True)
         return out
 
-    smi = timed("card", phase_card, torch)
+    smi, k4_ptxas = timed("card", phase_card, torch)
     k1 = timed("k1", phase_k1, torch, np, dev, smi)
     k2 = timed("k2", phase_k2, torch, np, dev, smi)
     res, main_out, k3_err, near_cells = timed("k3_main_path", phase_main, torch, np, dev, smi,
@@ -4965,6 +5103,13 @@ def main() -> int:
     serve = timed("serve_decode", phase_serve, torch, dev, smi, model)
     del model
     torch.cuda.empty_cache()
+    model, g3_prefill = timed("gemma3_prefill", phase_prefill, torch, dev, smi, GEMMA3, 4, 8192,
+                              0, 6, "gemma3_prefill")
+    g3_serve = timed("gemma3_serve", phase_serve, torch, dev, smi, model, 4, 32, 32, 0,
+                     "gemma3_serve")
+    del model
+    torch.cuda.empty_cache()
+    smoke_f32 = timed("smoke_f32_prefill", phase_smoke_f32, torch, dev, smi)
     k7 = timed("k7_wkv", phase_k7, torch, dev, smi)
     k6 = timed("k6_mamba", phase_k6, torch, dev, smi)
     model, rwkv_prefill = timed("rwkv6_prefill", phase_rwkv6_prefill, torch, dev, smi)
@@ -5052,18 +5197,34 @@ def main() -> int:
                         "metrics+seg": dict(launches=ckpt["segment_metrics_launches"])}),
         dict(name="flash_attention", route="cuda", source="src/repro_torch/csrc/flash_attention.cu",
              replaces="src/repro/kernels/flash_attention.py:32",
-             launches=prefill["k4_launches"],
+             launches=prefill["k4_launches"] + g3_prefill["k4_launches"] + smoke_f32["k4_launches"],
              max_abs_err=max(r["max_abs_err"] for r in k4["results"].values()),
              ms=k4["results"]["global"]["ms"], device_ms=k4["results"]["global"]["device_ms"],
              plain_ms=k4["results"]["global"]["plain_ms"],
              bound_ms=k4["results"]["global"]["bound_ms"],
              bound_by=k4["results"]["global"]["bound_by"],
              library_ms=k4["results"]["global"]["library_ms"],
-             library_device_ms=k4["results"]["global"].get("library_device_ms")),
+             library_device_ms=k4["results"]["global"].get("library_device_ms"),
+             # every shape of phase k4_flash; launches on its model's path
+             # (gemma2-27b's and gemma3-1b's prefills, the float32 smoke
+             # prefills; jamba's attention layer: phase jamba_prefill)
+             instances={label: dict(
+                 launches={"global": prefill["k4_launches"], "local": prefill["k4_launches"],
+                           "jamba": jamba_prefill["launches"]["flash_attention"],
+                           "gemma3_global": g3_prefill["k4_launches"],
+                           "gemma3_local": g3_prefill["k4_launches"]}.get(
+                               label, smoke_f32["k4_launches"]),
+                 **{k: r.get(k) for k in ("arch", "B", "H", "KV", "Dh", "window", "softcap",
+                                          "dtype", "max_abs_err", "ms", "device_ms", "plain_ms",
+                                          "bound_ms", "bound_by", "library_ms",
+                                          "library_device_ms", "library_error")})
+                 for label, r in k4["results"].items()},
+             ptxas_dh256=k4_ptxas),
         dict(name="decode_attention", route="cuda", source="src/repro_torch/csrc/decode_attention.cu",
              replaces="src/repro/kernels/decode_attention.py:27",
-             launches=serve["launches"]["decode_attention"],
-             max_abs_err=max(k5["max_abs_err"], serve["k5_max_abs_err_vs_attention_decode"]),
+             launches=serve["launches"]["decode_attention"] + g3_serve["launches"]["decode_attention"],
+             max_abs_err=max(k5["max_abs_err"], serve["k5_max_abs_err_vs_attention_decode"],
+                             g3_serve["k5_max_abs_err_vs_attention_decode"]),
              ms=k5["ms"], device_ms=k5["device_ms"], plain_ms=k5["plain_ms"],
              bound_ms=k5["bound_ms"], bound_by=k5["bound_by"], library_ms=k5["library_ms"],
              library_device_ms=k5.get("library_device_ms")),
@@ -5084,6 +5245,8 @@ def main() -> int:
              bound_by=k7["bound_by"], library_ms=None, yardstick_ms=k7["yardstick_ms"]),
     ]
     emit({"phase": "lm_rates", "gpu": smi,
+          "gemma3_prefill_tokens_per_s": g3_prefill["prefill_tokens_per_s"],
+          "gemma3_decode_tokens_per_s": g3_serve["decode_tokens_per_s"],
           "rwkv6_prefill_tokens_per_s": rwkv_prefill["prefill_tokens_per_s"],
           "rwkv6_decode_tokens_per_s": rwkv_serve["decode_tokens_per_s"],
           "jamba_prefill_tokens_per_s": jamba_prefill["prefill_tokens_per_s"],

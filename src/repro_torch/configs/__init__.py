@@ -12,13 +12,16 @@ import dataclasses
 from repro_torch.configs import (
     command_r_35b,
     gemma2_27b,
+    gemma3_1b,
     granite_20b,
     jamba_1_5_large_398b,
     rwkv6_1_6b,
 )
 from repro_torch.configs.base import ModelConfig
 
-_MODULES = (rwkv6_1_6b, granite_20b, command_r_35b, jamba_1_5_large_398b, gemma2_27b)
+_MODULES = (
+    rwkv6_1_6b, granite_20b, command_r_35b, jamba_1_5_large_398b, gemma2_27b, gemma3_1b,
+)
 
 ARCH_CONFIGS = {m.CONFIG.name: m.CONFIG for m in _MODULES}
 

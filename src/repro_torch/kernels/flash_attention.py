@@ -6,11 +6,18 @@
 ``csrc/flash_attention.cu``, whose head states what bounds the kernel on
 the H100 and what its design does about it.
 
-* ``flash_attention`` (the wrapper): checks its inputs, launches the
+* ``flash_attention`` (the wrapper): checks its inputs, launches a
   kernel for CUDA tensors (counting the launch in its ``launches``
   attribute, raising on any CUDA error) and runs the plain version for
-  CPU tensors; there is no fallback from one to the other.  The kernel
-  takes bfloat16; on the card any other dtype raises.
+  CPU tensors; there is no fallback from one to the other.  On the card
+  it picks the kernel by dtype: bfloat16 goes to the ``wgmma`` kernel
+  (``flash_attention_launch``: TMA rings and tensor cores, bound by the
+  tensor cores' 989 TFLOP/s), float32 to the FFMA kernel
+  (``flash_attention_f32_launch``: shared-memory tiles, float32
+  throughout as the TPU kernel computes float32 inputs, bound by the
+  FP32 pipes' 67 TFLOP/s; TF32 tensor cores would miss the float32
+  tolerance).  Both take head_dim in ``HEAD_DIMS``; any other dtype or
+  head_dim raises.
 * ``flash_attention_plain``: the JAX package's oracle
   ``models/attention.py::mha_reference`` on the same arguments, in query
   chunks so that the (H, S, S) float32 logits never exist whole.
@@ -31,7 +38,9 @@ import torch
 from repro_torch.kernels import _build
 
 NEG_INF = -1e30
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 128, 256)
+# The card's kernel for each dtype (csrc/flash_attention.cu).
+_LAUNCH = {torch.bfloat16: "flash_attention_launch", torch.float32: "flash_attention_f32_launch"}
 # Query rows per chunk of the plain version: at most ~2^26 float32 logits.
 _PLAIN_LOGITS = 1 << 26
 
@@ -135,10 +144,10 @@ def flash_attention(
     if _build.launch_target(q, k, v) == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window, logit_cap=logit_cap)
     b, s, h, d = q.shape
-    if q.dtype != torch.bfloat16:
-        raise ValueError(f"the K4 kernel takes bfloat16 on the card; got {q.dtype}")
+    if q.dtype not in _LAUNCH:
+        raise ValueError(f"the K4 kernels take bfloat16 or float32 on the card; got {q.dtype}")
     if d not in HEAD_DIMS:
-        raise ValueError(f"the K4 kernel takes head_dim in {HEAD_DIMS}; got {d}")
+        raise ValueError(f"the K4 kernels take head_dim in {HEAD_DIMS}; got {d}")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
@@ -146,7 +155,7 @@ def flash_attention(
     if q.numel() == 0:
         return out
     lib = _build.load("flash_attention")
-    fn = lib.flash_attention_launch
+    fn = getattr(lib, _LAUNCH[q.dtype])
     fn.restype = ctypes.c_int
     err = fn(
         _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(out),

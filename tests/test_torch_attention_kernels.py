@@ -46,6 +46,8 @@ def _np(x):
     [
         (2, 128, 4, 1, 64, None, 50.0),
         (1, 256, 6, 2, 128, 64, 30.0),
+        (1, 128, 4, 1, 256, 32, None),     # gemma3's heads: MQA of 256, a window
+        (1, 128, 4, 1, 256, None, 50.0),
     ],
 )
 def test_k4_plain_matches_pallas_interpret(b, s, h, kv, d, window, cap, dtype):

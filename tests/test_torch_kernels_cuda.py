@@ -543,38 +543,59 @@ def _qkv(seed, b, s, h, kv, d, dtype, dev, q_scale=4.0):
     return q.to(dtype), k.to(dtype), v.to(dtype)
 
 
+BF16, F32 = torch.bfloat16, torch.float32
+
+
 @pytest.mark.parametrize(
-    "b,s,h,kv,d,causal,window,cap",
+    "b,s,h,kv,d,causal,window,cap,dtype",
     [
-        (1, 1000, 32, 16, 128, True, 300, 50.0),    # gemma2 heads, ragged S, window
-        (2, 256, 4, 1, 64, True, None, None),        # MQA
-        (1, 190, 6, 2, 128, True, 64, 30.0),
-        (2, 128, 8, 8, 32, False, None, 50.0),       # non-causal
-        (1, 64, 4, 2, 64, True, 1, None),            # window 1: the diagonal only
-        (1, 300, 64, 8, 128, True, None, None),      # jamba heads, no soft-cap
-        (2, 1, 4, 2, 64, True, None, 50.0),          # S = 1
-        (1, 129, 4, 2, 128, True, None, 50.0),       # one past a 128-key tile
-        (1, 700, 4, 2, 128, True, 128, 50.0),        # window = one key tile
-        (1, 200, 4, 2, 64, True, 500, None),         # window longer than S
-        (2, 333, 4, 2, 128, False, None, 50.0),      # non-causal, ragged S
+        (1, 1000, 32, 16, 128, True, 300, 50.0, BF16),    # gemma2 heads, ragged S, window
+        (2, 256, 4, 1, 64, True, None, None, BF16),        # MQA
+        (1, 190, 6, 2, 128, True, 64, 30.0, BF16),
+        (2, 128, 8, 8, 32, False, None, 50.0, BF16),       # non-causal
+        (1, 64, 4, 2, 64, True, 1, None, BF16),            # window 1: the diagonal only
+        (1, 300, 64, 8, 128, True, None, None, BF16),      # jamba heads, no soft-cap
+        (2, 1, 4, 2, 64, True, None, 50.0, BF16),          # S = 1
+        (1, 129, 4, 2, 128, True, None, 50.0, BF16),       # one past a 128-key tile
+        (1, 700, 4, 2, 128, True, 128, 50.0, BF16),        # window = one key tile
+        (1, 200, 4, 2, 64, True, 500, None, BF16),         # window longer than S
+        (2, 333, 4, 2, 128, False, None, 50.0, BF16),      # non-causal, ragged S
+        # head_dim 256 (gemma3: 4 query heads over 1 kv head; 64-key tiles)
+        (1, 2000, 4, 1, 256, True, 1024, None, BF16),      # gemma3 local: window 1024, ragged S
+        (2, 1100, 4, 1, 256, True, None, None, BF16),      # gemma3 global, ragged S
+        (1, 333, 8, 2, 256, True, None, 50.0, BF16),       # the soft-cap, G = 4
+        (1, 65, 4, 1, 256, True, 64, None, BF16),          # one past a 64-key tile, window = a tile
+        (2, 200, 4, 4, 256, False, None, 50.0, BF16),      # non-causal, no GQA
+        (1, 64, 4, 1, 256, True, 1, None, BF16),           # window 1
+        # float32 (the FFMA kernel), every head dim
+        (2, 130, 8, 8, 32, True, None, 50.0, F32),
+        (1, 190, 6, 2, 64, True, 64, 30.0, F32),
+        (1, 1000, 32, 16, 128, True, 300, 50.0, F32),      # gemma2 heads, ragged S, window
+        (1, 1500, 4, 1, 256, True, 1024, None, F32),       # gemma3 local
+        (2, 129, 4, 1, 256, False, None, 50.0, F32),       # non-causal, ragged S, soft-cap
+        (1, 1, 4, 2, 128, True, None, None, F32),          # S = 1
     ],
 )
-def test_k4_matches_plain(dev, b, s, h, kv, d, causal, window, cap):
-    q, k, v = _qkv(s + h, b, s, h, kv, d, torch.bfloat16, dev)
+def test_k4_matches_plain(dev, b, s, h, kv, d, causal, window, cap, dtype):
+    q, k, v = _qkv(s + h, b, s, h, kv, d, dtype, dev)
     before = kf.flash_attention.launches
     out = kf.flash_attention(q, k, v, causal=causal, window=window, logit_cap=cap)
     plain = kf.flash_attention_plain(q, k, v, causal=causal, window=window, logit_cap=cap)
     torch.cuda.synchronize()
     assert kf.flash_attention.launches == before + 1
-    assert out.dtype == torch.bfloat16 and torch.isfinite(out.float()).all()
-    torch.testing.assert_close(out.float(), plain.float(), atol=ATT_TOL[torch.bfloat16],
-                               rtol=ATT_TOL[torch.bfloat16])
+    assert out.dtype == dtype and torch.isfinite(out.float()).all()
+    torch.testing.assert_close(out.float(), plain.float(), atol=ATT_TOL[dtype], rtol=ATT_TOL[dtype])
 
 
-def test_k4_refuses_float32_on_the_card(dev):
-    q, k, v = _qkv(0, 1, 16, 2, 2, 32, torch.float32, dev)
-    with pytest.raises(ValueError, match="bfloat16"):
+def test_k4_refuses_what_it_does_not_take(dev):
+    """bfloat16 and float32 at head_dim 32, 64, 128 or 256; nothing else."""
+    q, k, v = _qkv(0, 1, 16, 2, 2, 32, torch.float16, dev)
+    with pytest.raises(ValueError, match="bfloat16 or float32"):
         kf.flash_attention(q, k, v)
+    for dtype in (BF16, F32):
+        q, k, v = _qkv(0, 1, 16, 2, 2, 96, dtype, dev)
+        with pytest.raises(ValueError, match="head_dim"):
+            kf.flash_attention(q, k, v)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -834,14 +855,14 @@ def test_k6_refuses_what_it_does_not_take(dev):
     "arch, over, kernel, dtype, tol",
     [
         ("rwkv6-1.6b", {}, "wkv_scan", "float32", 1e-4),
-        ("jamba-1.5-large-398b", {"num_layers": 4}, "mamba_scan", "float32", 1e-4),
+        ("jamba-1.5-large-398b", {}, "mamba_scan", "float32", 1e-4),
     ],
 )
 def test_ssm_forward_through_the_kernels(dev, arch, over, kernel, dtype, tol):
     """float32 smoke models on the card: K7 once per RWKV6 layer, K6 once
-    per Mamba layer (d_inner 256 is one block); the plain path within
-    float32 noise.  Jamba's first 4 layers (Mamba with dense and MoE FFNs)
-    leave out its attention layer, whose K4 takes bfloat16 only."""
+    per Mamba layer (d_inner 256 is one block), K4's float32 kernel once
+    per attention layer (jamba's, at its full smoke depth); the plain path
+    within float32 noise."""
     import dataclasses
 
     from repro_torch.configs import ARCH_CONFIGS, smoke_variant
